@@ -8,19 +8,20 @@ Run from the root of a checkout.  It builds the CUDA kernels of
 ``panst3r_torch/csrc`` with nvcc (into the git-ignored
 ``panst3r_torch/_build``), then runs, each phase printing JSON lines:
 
-1. ``kernels``: K1 (tower_self), K2 (tower_cross) and K3 (masked_attn)
-   against their plain PyTorch versions at the main path's shapes, in f32
-   and bf16, with the max abs error and its limit, the kernel's time, the
-   plain version's time, one PyTorch library call on the same work
-   (``scaled_dot_product_attention``, a yardstick only — the port never
-   calls it) and the least time the card could take (``bound_ms``);
-2. ``small``: v1 widths at depth 2, f32, V=4 / K=3 at 384x512, the same
-   seeded weights on the card (kernels) and on the CPU (plain versions),
-   outputs compared;
-3. ``v1``: the full v1 main path (``InferenceEngine.run_device`` + ``fuse``,
-   bf16, V=8 / K=4 at 384x512, random seeded weights), stage times, peak
-   memory, finiteness and shapes, and each kernel's launch count against
-   the count the config and schedule imply;
+1. ``kernels``: K1 (tower_self), K2 (tower_cross), K3 (masked_attn) and K4
+   (flash_fwd) against their plain PyTorch versions at the main paths'
+   shapes, in f32 and bf16, with the max abs error and its limit, the
+   kernel's time, the plain version's time, one PyTorch library call on the
+   same work (``scaled_dot_product_attention``, a yardstick only — the port
+   never calls it) and the least time the card could take (``bound_ms``);
+2. ``small``: v1 and v2 widths at depth 2 (v2 with its full mixer and
+   LoftUp), f32, V=4 / K=3 at 384x512, the same seeded weights on the card
+   (kernels) and on the CPU (plain versions), outputs compared;
+3. ``v1`` and ``v2``: the full v1 and v2 main paths
+   (``InferenceEngine.run_device`` + ``fuse``, bf16, V=8 / K=4 at 384x512,
+   random seeded weights), stage times, peak memory, finiteness and shapes,
+   a profile by kernel, and each kernel's launch count against the count
+   the config and schedule imply;
 
 then one ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``.  Any failed phase raises, and the script exits non-zero without
@@ -58,7 +59,17 @@ REPLACES = {
     "tower_self": "panst3r_tpu/ops/pallas/tower_attention.py:129",
     "tower_cross": "panst3r_tpu/ops/pallas/tower_attention.py:411",
     "masked_attn": "panst3r_tpu/ops/pallas/masked_attention.py:119",
+    "flash_fwd": "panst3r_tpu/ops/pallas/flash_attention.py:171",
 }
+PHASES = ("kernels", "small", "v1", "v2")
+# the case and dtype of each kernel on its main path: K1-K3 under v1's bf16,
+# K4 in LoftUp's f32 (flax promotes that branch to f32 under amp)
+MAIN_CASE = {"tower_self": ("encoder_rope", "bfloat16"),
+             "tower_cross": ("render", "bfloat16"),
+             "masked_attn": ("mask_transformer", "bfloat16"),
+             "flash_fwd": ("loftup", "float32")}
+# K4's LSE against its plain version's: f32 logits on both sides
+LSE_RTOL = 1e-4
 
 
 def emit(obj) -> None:
@@ -242,6 +253,83 @@ def kernel_cases(dtype, dev):
             q, k, v, attn_mask=~blocked[:, None]),
         pallas_sums=lambda: _masked_mha_pallas_sums(q, k, v, blocked),
         flops=4.0 * H * live_tiles * 64 * 64 * D, bytes=nbytes))
+    cases += _k4_cases(rnd, g, es, dtype, dev, blocked)
+    return cases
+
+
+def _k4_cases(rnd, g, es, dtype, dev, blocked):
+    """K4 at the v2 LoftUp shape (split-heads views of the projections, as
+    the block passes them), with ragged dead keys, with the dense
+    mask-transformer bias, with RoPE tables and with the LSE."""
+    import torch
+    import torch.nn.functional as F
+
+    from panst3r_torch.ops import flash_attention as fa
+    from panst3r_torch.ops.attention import NEG_INF
+    from panst3r_torch.ops.rope import apply_rope_tables_f32, rope2d_tables
+
+    def f32(t):
+        return None if t is None else t.float()
+
+    def case(label, q, k, v, bias=None, kv_valid=None, rope=None,
+             with_lse=False, live_keys=None, lib_mask=None):
+        B, H, Nq, D = q.shape
+        Nk = k.shape[2]
+        live_keys = B * Nk if live_keys is None else live_keys
+        nbytes = (2 * q.numel() + 2 * H * live_keys * D) * es
+        nbytes += 0 if bias is None else bias.numel() * 4
+        nbytes += 0 if kv_valid is None else kv_valid.numel()
+        nbytes += 0 if rope is None else 2 * B * (Nq + Nk) * D * 4
+        nbytes += B * H * Nq * 4 if with_lse else 0
+        kw = dict(bias=bias, kv_valid=kv_valid, rope=rope, with_lse=with_lse)
+        ql, kl = q, k
+        if rope is not None:        # the library call gets rotated q, k
+            ql = apply_rope_tables_f32(q, rope[0], rope[1])
+            kl = apply_rope_tables_f32(k, rope[2], rope[3])
+        return dict(
+            kernel="flash_fwd", case=label,
+            fn=lambda: fa.flash_mha(q, k, v, **kw),
+            ref=lambda: fa.flash_mha_ref(q, k, v, **kw),
+            f32=lambda: fa.flash_mha_ref(f32(q), f32(k), f32(v), **kw),
+            lib=lambda: F.scaled_dot_product_attention(
+                ql, kl, v, attn_mask=lib_mask),
+            flops=4.0 * H * Nq * live_keys * D, bytes=nbytes)
+
+    def heads(B, N, H, D, s=1.0):
+        """(B, H, N, D) view of a (B, N, H*D) projection."""
+        return rnd(B, N, H * D, s=s).view(B, N, H, D).transpose(1, 2)
+
+    cases = []
+    # v2 LoftUp: 4 views x 192x256 pixels against 4 x 768 patch tokens
+    B, H, Nq, Nk, D = 4, 4, 49152, 768, 96
+    cases.append(case("loftup", heads(B, Nq, H, D, QK_STD),
+                      heads(B, Nk, H, D, QK_STD), heads(B, Nk, H, D)))
+    # key validity with dead tiles (K2's ragged_dead_tiles pattern), D=64
+    B, H, Nq, Nk, D = 2, 12, 1000, 2950, 64
+    valid = torch.rand(B, Nk, generator=g, device=dev) > 0.1
+    valid[0, 640:1600] = False
+    valid[1, 2000:] = False
+    cases.append(case(
+        "kv_valid", rnd(B, H, Nq, D, s=QK_STD), rnd(B, H, Nk, D, s=QK_STD),
+        rnd(B, H, Nk, D), kv_valid=valid, live_keys=int(valid.sum()),
+        lib_mask=valid[:, None, None, :]))
+    # dense mask transformer (PANST3R_DISABLE_SPARSE_MASK=1): a head-shared
+    # finfo.min bias from K3's blocked mask
+    B, H, Nq, Nk, D = 1, 8, 200, 3072, 96
+    bias = torch.where(blocked, NEG_INF, 0.0)[:, None]
+    cases.append(case(
+        "dense_bias", rnd(B, H, Nq, D, s=QK_STD), rnd(B, H, Nk, D, s=QK_STD),
+        rnd(B, H, Nk, D), bias=bias, lib_mask=~blocked[:, None]))
+    # RoPE tables at a decoder-tower shape; the LSE at an encoder shape
+    B, H, N, D = 4, 12, 768, 64
+    tabs = rope2d_tables(_grid_pos(B, 24, 32, dev), D)
+    cases.append(case(
+        "rope_tables", rnd(B, H, N, D, s=QK_STD), rnd(B, H, N, D, s=QK_STD),
+        rnd(B, H, N, D), rope=(*tabs, *tabs)))
+    B, H = 4, 16
+    cases.append(case(
+        "lse", rnd(B, H, N, D, s=QK_STD), rnd(B, H, N, D, s=QK_STD),
+        rnd(B, H, N, D), with_lse=True))
     return cases
 
 
@@ -256,14 +344,21 @@ def phase_kernels():
             name, label = c["kernel"], c["case"]
             counter = _counters()[name]
             n0 = counter.launches
-            out = c["fn"]()
+            out, lse = _with_lse(c["fn"]())
             torch.cuda.synchronize()
-            want = c["ref"]().float()
+            want, want_lse = _with_lse(c["ref"]())
+            want = want.float()
             err = float((out.float() - want).abs().max())
             if dtype == torch.float32:
                 check = {"limit": F32_TOL, "ok": err <= F32_TOL}
             else:
-                check = bf16_check(out.float(), want, c["f32"]().float())
+                check = bf16_check(out.float(), want,
+                                   _with_lse(c["f32"]())[0].float())
+            if lse is not None:
+                lerr = float((lse - want_lse).abs().max())
+                llim = LSE_RTOL * (1 + float(want_lse.abs().max()))
+                check.update(lse_max_abs_err=lerr, lse_limit=llim,
+                             ok=check["ok"] and lerr <= llim)
             finite = bool(torch.isfinite(out).all())
             row = {
                 "phase": "kernels", "kernel": name, "case": label,
@@ -294,12 +389,20 @@ def phase_kernels():
     return rows
 
 
-# ------------------------------------------------------------ phases 2-3 --
+def _with_lse(res):
+    """(out, lse or None) from a K4 call with or without the LSE."""
+    return res if isinstance(res, tuple) else (res, None)
 
-def _v1(depth=None):
-    from panst3r_torch.models.presets import panst3r_v1_config
 
-    cfg = panst3r_v1_config()
+# ------------------------------------------------------------ phases 2-4 --
+
+def _config(preset: str, depth=None):
+    """``panst3r_<preset>_config()``; with ``depth``, the encoder, DINO,
+    decoder and mask transformer cut to that depth (the v2 mixer and LoftUp
+    stay whole)."""
+    from panst3r_torch.models import presets
+
+    cfg = getattr(presets, f"panst3r_{preset}_config")()
     if depth is None:
         return cfg
     rep = dataclasses.replace
@@ -318,13 +421,15 @@ def _inputs(V, H=384, W=512, ncls=32):
 
 
 def _counters():
+    from panst3r_torch.ops.flash_attention import flash_mha
     from panst3r_torch.ops.masked_attention import masked_mha
     from panst3r_torch.ops.tower_attention import (tower_cross_attention,
                                                    tower_self_attention)
 
     return {"tower_self": tower_self_attention,
             "tower_cross": tower_cross_attention,
-            "masked_attn": masked_mha}
+            "masked_attn": masked_mha,
+            "flash_fwd": flash_mha}
 
 
 def _reset_counts():
@@ -337,25 +442,36 @@ def _read_counts():
 
 
 def expected_launches(cfg, V, K, chunk):
+    """Launches per kernel for one run_device: the towers per chunk, the
+    decoder per memory update and render chunk, the mask transformer's
+    masked layers once, and the v2 head's mixer blocks (K1) and LoftUp
+    blocks (K4) once per panoptic call (keyframes, then the others)."""
+    from panst3r_torch.models.upscalers import LoftUpUpscalerConfig
+
     n_chunks = math.ceil(V / chunk)
     n_updates = len(cfg.mem_batches(K))
+    n_heads = 2 if V > K else 1
     dec = cfg.decoder.depth
+    pan = cfg.panoptic
+    mixer = pan.input_mixer.num_layers if pan.input_mixer else 0
+    loftup = isinstance(pan.upscaler, LoftUpUpscalerConfig)
     return {
         "tower_self": n_chunks * (cfg.encoder.depth + cfg.dino.depth)
-        + (n_updates + n_chunks) * dec,
+        + (n_updates + n_chunks) * dec + n_heads * mixer,
         "tower_cross": (n_updates + n_chunks) * dec,
-        "masked_attn": cfg.panoptic.mask_transformer.dec_layers,
+        "masked_attn": pan.mask_transformer.dec_layers,
+        "flash_fwd": n_heads * pan.upscaler.num_layers if loftup else 0,
     }
 
 
-def phase_small():
+def phase_small(preset: str):
     import torch
 
     from panst3r_torch.core.bucketing import Bucket
     from panst3r_torch.engine.inference import InferenceEngine
     from panst3r_torch.models.panst3r import build_model
 
-    cfg = _v1(depth=2)
+    cfg = _config(preset, depth=2)
     V, K = 4, 3
     images, portrait, cls_emb = _inputs(V)
     cpu_model = build_model(cfg, device="cpu", seed=0)
@@ -369,14 +485,15 @@ def phase_small():
         t0 = time.perf_counter()
         outs[name] = eng.run(images, portrait, cls_emb)
         counts = _read_counts()
-        emit({"phase": "small", "device": name,
+        emit({"phase": "small", "model": preset, "device": name,
               "seconds": time.perf_counter() - t0, "launches": counts})
         if name == "cuda":
             want = expected_launches(cfg, V, K, 4)
             if counts != want:
-                raise AssertionError(f"small: launches {counts} != {want}")
+                raise AssertionError(f"small {preset}: launches {counts} "
+                                     f"!= {want}")
     a, b = outs["cuda"], outs["cpu"]
-    row = {"phase": "small", "compare": "cuda_vs_cpu"}
+    row = {"phase": "small", "model": preset, "compare": "cuda_vs_cpu"}
     for key, atol, rtol in (("pointmaps_raw", 2e-4, 0.0),
                             ("pred_logits", 2e-3, 0.0),
                             ("pred_masks", 1e-2, 1e-2)):
@@ -388,7 +505,8 @@ def phase_small():
     bad = [k for k in ("pointmaps_raw", "pred_logits", "pred_masks")
            if not row[k]["ok"]]
     if bad or a["keyframes"] != b["keyframes"]:
-        raise AssertionError(f"small: card and CPU disagree on {bad}")
+        raise AssertionError(f"small {preset}: card and CPU disagree on "
+                             f"{bad}")
     del cpu_model, gpu_model
     torch.cuda.empty_cache()
 
@@ -422,14 +540,15 @@ def _profile(fn, top: int = 15):
                     for k, (ms, n) in rows]}
 
 
-def phase_v1():
+def phase_full(preset: str):
+    """The full ``preset`` main path; returns its launch counts."""
     import torch
 
     from panst3r_torch.core.bucketing import Bucket
     from panst3r_torch.engine.inference import InferenceEngine
     from panst3r_torch.models.panst3r import build_model
 
-    cfg = _v1()
+    cfg = _config(preset)
     V, K, chunk, H, W = 8, 4, 4, 384, 512
     images, portrait, cls_emb = _inputs(V, H, W)
     t0 = time.perf_counter()
@@ -470,7 +589,7 @@ def phase_v1():
               for k, s in shapes.items()}
     pan = fused[0]["pan"]
     want = expected_launches(cfg, V, K, chunk)
-    emit({"phase": "v1", "views": V, "keyframes": out["keyframes"],
+    emit({"phase": preset, "views": V, "keyframes": out["keyframes"],
           "setup_s": setup_s, "stage_s": stage,
           "run_plus_fuse_s": t2 - t0, "run_plus_fuse_nosync_s": e2e,
           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
@@ -481,13 +600,16 @@ def phase_v1():
     # denominator for the device's idle share
     profile["device_idle_share_untraced"] = 1 - profile["device_busy_ms"] \
         / (e2e * 1e3)
-    emit({"phase": "v1_profile", **profile})
+    emit({"phase": f"{preset}_profile", **profile})
     bad = [k for k, (shape_ok, finite) in checks.items()
            if not (shape_ok and finite)]
     if bad or tuple(pan.shape) != (V, H, W):
-        raise AssertionError(f"v1: wrong or non-finite outputs: {bad}")
+        raise AssertionError(f"{preset}: wrong or non-finite outputs: {bad}")
     if counts != want:
-        raise AssertionError(f"v1: launches {counts} != expected {want}")
+        raise AssertionError(f"{preset}: launches {counts} != expected "
+                             f"{want}")
+    del eng, model, out, fused
+    torch.cuda.empty_cache()
     return counts
 
 
@@ -495,7 +617,7 @@ def phase_v1():
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="kernels,small,v1")
+    ap.add_argument("--phases", default=",".join(PHASES))
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -530,25 +652,27 @@ def main(argv=None) -> int:
 
     rows = phase_kernels() if "kernels" in phases else {}
     if "small" in phases:
-        phase_small()
-    launches = phase_v1() if "v1" in phases else {}
+        phase_small("v1")
+        phase_small("v2")
+    launches = {p: phase_full(p) for p in ("v1", "v2") if p in phases}
 
-    main_case = {"tower_self": "encoder_rope", "tower_cross": "render",
-                 "masked_attn": "mask_transformer"}
     kernels = []
-    for name, case in main_case.items():
-        r = rows.get((name, case, "bfloat16"), {})
+    for name, (case, dname) in MAIN_CASE.items():
+        r = rows.get((name, case, dname), {})
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"panst3r_torch/csrc/{name}.cu",
             "replaces": REPLACES[name],
-            "launches": launches.get(name),
+            # this slice's main path (v2) runs all four kernels
+            "launches": launches.get("v2", {}).get(name),
+            "launches_by_path": {p: c.get(name) for p, c in launches.items()},
+            "case": case, "dtype": dname,
             "max_abs_err": r.get("max_abs_err"), "ms": r.get("kernel_ms"),
             "plain_ms": r.get("plain_ms"), "bound_ms": r.get("bound_ms"),
             "bound_by": r.get("bound_by"), "library_ms": r.get("library_ms"),
         })
     emit({"kernels": kernels})
-    if phases != {"kernels", "small", "v1"}:
+    if phases != set(PHASES):
         print("chip_smoke: partial run, no result line", file=sys.stderr)
         return 1
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,5 +1,5 @@
-// Shared block engine of the three attention kernels (K1 tower_self,
-// K2 tower_cross, K3 masked_attn).
+// Shared block engine of the four attention kernels (K1 tower_self,
+// K2 tower_cross, K3 masked_attn, K4 flash_fwd).
 //
 // One thread block owns a 64-row query tile of one (batch, head) and walks
 // the key tiles (64 keys each) with an online softmax in f32.  Four warps;
@@ -12,13 +12,14 @@
 // rescaled there.  f32: plain FMA products (full f32, no TF32); O lives in
 // registers (lane owns columns lane + 32j of its warp's 16 rows).
 //
-// Semantics shared by all three kernels (the plain versions in
+// Semantics shared by the kernels (the plain versions in
 // panst3r_torch/ops/*.py follow them):
 // - masked logits are finfo(f32).min (NEG), never -inf; a probability whose
 //   logit is <= NEG/2 is exactly 0, and the running max is replaced by 0
 //   while a row has seen no live key ("safe_m"), so NEG never makes a NaN;
-// - p is rounded to the value dtype before it enters both the numerator and
-//   the row sum;
+// - p is rounded to the value dtype before it enters the numerator; K1-K3
+//   sum the rounded p into the row sum too, K4 sums the unrounded f32 p
+//   (softmax<false>), as its Pallas kernel does;
 // - a row that saw no live key writes 0.
 #pragma once
 
@@ -205,7 +206,8 @@ struct Tile {
 
   // Online-softmax step.  logit(r, c, raw) maps a raw score to the logit
   // (scale, bias, mask -> NEG).  Two lanes per row, 32 keys each.
-  template <class Logit>
+  // kRoundedSum: the row sum takes p rounded to T (K1-K3) or the f32 p (K4).
+  template <bool kRoundedSum = true, class Logit>
   __device__ void softmax(Logit logit) {
     const int r = w * 16 + (lane >> 1);
     const int c0 = (lane & 1) * 32;
@@ -225,9 +227,10 @@ struct Tile {
 #pragma unroll 8
     for (int j = 0; j < 32; ++j) {
       const float x = srow[c0 + j];
-      const T pt = from_f<T>((x <= 0.5f * NEG) ? 0.f : expf(x - safe));
+      const float pf = (x <= 0.5f * NEG) ? 0.f : expf(x - safe);
+      const T pt = from_f<T>(pf);
       prow[c0 + j] = pt;
-      sum += to_f(pt);
+      sum += kRoundedSum ? to_f(pt) : pf;
     }
     sum += __shfl_xor_sync(0xffffffffu, sum, 1);
     const float a = (m <= 0.5f * NEG) ? 0.f : expf(m - safe);

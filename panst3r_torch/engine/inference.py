@@ -9,8 +9,11 @@ Pipeline:
      [2, 1, 1, ...] schedule;
   3. render all views against the frozen memory (``chunk`` views per
      decoder call, as one (1, chunk·N) query set);
-  4. joint mask-transformer decode over the keyframes; the other views go
-     through the prediction heads with the frozen keyframe queries;
+  4. the panoptic head on the keyframes (joint mask-transformer decode),
+     then on the other views (prediction heads with the frozen keyframe
+     queries): two calls, as in the JAX engine.  The v2 head's mixer and
+     LoftUp run in each call, and LoftUp's min-max scaling spans the views
+     of its call;
   5. masks back to input order.
 
 ``amp`` casts the floating parameters to bf16 and normalizes uint8 images
@@ -149,16 +152,18 @@ class InferenceEngine:
         dino_all = self.dino_batch(images)
         t = self._tick(stage_times, "dino", t)
 
-        panout_kf = self.model.panoptic(
-            (x[kf][None], y_all[kf][None], dino_all[kf][None]),
-            portrait[kf][None], cls_emb, self.grid, deep_supervision=False)
+        def head_inputs(idx):
+            return ((x[idx][None], y_all[idx][None], dino_all[idx][None]),
+                    image_cast(images[idx], self.amp)[None], pos[idx][None],
+                    portrait[idx][None], cls_emb, self.grid)
+
+        panout_kf = self.model.panoptic(*head_inputs(kf),
+                                        deep_supervision=False)
         masks = [panout_kf["pred_masks"][0]]
         if not_keyframes:
             nk = torch.as_tensor(not_keyframes, device=dev)
             panout_nk = self.model.panoptic(
-                (x[nk][None], y_all[nk][None], dino_all[nk][None]),
-                portrait[nk][None], cls_emb, self.grid,
-                memory_queries=panout_kf["out_queries"])
+                *head_inputs(nk), memory_queries=panout_kf["out_queries"])
             masks.append(panout_nk["pred_masks"][0])
         inv = torch.as_tensor(np.argsort(keyframes + not_keyframes),
                               device=dev)

@@ -6,8 +6,8 @@ LayerNorm states its eps: flax's default is 1e-6, torch's 1e-5.
 
 Attention routing mirrors the JAX blocks: a tower shape (d=64 heads, the
 ``supports_tower_*`` gates) goes to K1/K2; other shapes take the JAX
-package's generic path, which is plain attention on the CPU and for tiny
-shapes, and needs K4 (not yet ported) on the card.
+package's generic path (``ops/attention.py``): plain attention for tiny
+shapes, K4 otherwise.
 """
 from __future__ import annotations
 
@@ -26,6 +26,7 @@ from panst3r_torch.ops.tower_attention import (supports_tower_attention,
                                                tower_self_attention)
 
 LN_EPS = 1e-6  # flax nn.LayerNorm default
+TORCH_LN_EPS = 1e-5  # the reference's plain nn.LayerNorm (CrossonlyDecoderBlock)
 
 
 def split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -161,3 +162,25 @@ class DecoderBlock(nn.Module):
                                 qtab=tabs_x, ktab=tabs_mem)
         return x + self.mlp(self.norm3(x))
 
+
+class CrossonlyDecoderBlock(nn.Module):
+    """Cross-attention + MLP residual block with no self-attention and a
+    norm on the memory (the LoftUp upscaler's block).  Its LayerNorms use
+    eps 1e-5, the attention has no q/k/v bias and no RoPE, so at LoftUp's
+    4 heads of 96 the attention takes K4."""
+
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
+                 qkv_bias: bool = False, rope_base: Optional[float] = None):
+        super().__init__()
+        self.norm_y = nn.LayerNorm(dim, eps=TORCH_LN_EPS)
+        self.norm2 = nn.LayerNorm(dim, eps=TORCH_LN_EPS)
+        self.cross_attn = CrossAttention(dim, num_heads, qkv_bias, rope_base)
+        self.norm3 = nn.LayerNorm(dim, eps=TORCH_LN_EPS)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio))
+
+    def forward(self, x, y):
+        """x (B, Nq, C) queries; y (B, Nk, C) memory.  Returns (x, y)."""
+        y_ = self.norm_y(y)
+        x = x + self.cross_attn(self.norm2(x), y_, y_)
+        x = x + self.mlp(self.norm3(x))
+        return x, y

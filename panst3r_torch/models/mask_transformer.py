@@ -7,7 +7,10 @@ self-attention (plain: 200 queries is the JAX package's tiny-shape jnp
 branch), FFN], post-norm (LayerNorm eps 1e-5).  The attention mask comes
 from the previous layer's mask prediction against token-grid-resized mask
 features (``attn_feats``), sigmoid < 0.5 → blocked, with the fully-blocked
-row → unblock fixup.  Two-stage query selection waits for a later slice.
+row → unblock fixup.  The mask products run in the wider of the two
+dtypes, as jnp.einsum promotes: under amp the v2 head's LoftUp mask
+features are f32 while the queries are bf16.  Two-stage query selection
+waits for a later slice.
 """
 from __future__ import annotations
 
@@ -154,13 +157,16 @@ class MaskTransformer(nn.Module):
         dec_out = self.decoder_norm(output)
         outputs_class = self._class_logits(dec_out, cls_embeddings)
         mask_embed = self.mask_embed(dec_out)
+        mask_embed = mask_embed.to(torch.promote_types(mask_embed.dtype,
+                                                       mask_feats.dtype))
         outputs_mask = None
         if need_mask:
             outputs_mask = torch.einsum("bqc,bvhwc->bvqhw", mask_embed,
-                                        mask_feats)
+                                        mask_feats.to(mask_embed.dtype))
         blocked = None
         if attn_feats is not None:
-            am = torch.einsum("bqc,bvhwc->bqvhw", mask_embed, attn_feats)
+            am = torch.einsum("bqc,bvhwc->bqvhw", mask_embed,
+                              attn_feats.to(mask_embed.dtype))
             B, Q = am.shape[:2]
             blocked = (torch.sigmoid(am) < 0.5).reshape(B, Q, -1)
             all_blocked = blocked.all(dim=-1, keepdim=True)

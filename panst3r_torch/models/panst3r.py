@@ -1,7 +1,8 @@
 """The composite PanSt3R model (counterpart of panst3r_tpu/models/panst3r.py):
 MUSt3R-style encoder and memory decoder, the DINO semantic encoder and the
-v1 panoptic head, with the stage methods the inference engine drives.  The
-training forward and the freeze policy wait for the training slice.
+panoptic head (v1 or v2), with the stage methods the inference engine
+drives.  The training forward and the freeze policy wait for the training
+slice.
 
 ``build_model`` makes the model on its device with seeded random weights
 drawn like flax's initializers (lecun-normal dense/conv kernels, zero
@@ -24,6 +25,7 @@ from panst3r_torch.models.dino import DinoEncoder, DinoEncoderConfig
 from panst3r_torch.models.encoder import ViTEncoder, ViTEncoderConfig
 from panst3r_torch.models.panoptic_decoder import (PanopticDecoder,
                                                    PanopticDecoderConfig)
+from panst3r_torch.models.upscalers.loftup import GroupNorm
 
 
 @cfg.register
@@ -77,9 +79,10 @@ class PanSt3R(nn.Module):
                                                   grid=grid)
         return pointmaps, feats
 
-    def panoptic(self, in_feats, portrait, cls_embeddings, grid,
+    def panoptic(self, in_feats, images, pos, portrait, cls_embeddings, grid,
                  memory_queries=None, deep_supervision=None):
-        return self.panoptic_decoder(in_feats, portrait, cls_embeddings, grid,
+        return self.panoptic_decoder(in_feats, images, pos, portrait,
+                                     cls_embeddings, grid,
                                      memory_queries=memory_queries,
                                      deep_supervision=deep_supervision)
 
@@ -92,6 +95,8 @@ _RAW_INIT = {
     "query_embed": ("normal", 1.0),
     "level_embed": ("normal", 1.0),
     "cls_logit_scale": ("const", 1.0),
+    "biases": ("normal", 1.0),
+    "nocls_token": ("normal", 1.0),
 }
 
 
@@ -107,7 +112,8 @@ def init_params(model: nn.Module, generator: torch.Generator) -> nn.Module:
             if isinstance(mod, (nn.Linear, nn.Conv2d)) and pname == "weight":
                 fan_in = p[0].numel()
                 p.normal_(0.0, 1.0 / math.sqrt(fan_in), generator=generator)
-            elif isinstance(mod, nn.LayerNorm) and pname == "weight":
+            elif isinstance(mod, (nn.LayerNorm, GroupNorm)) \
+                    and pname == "weight":
                 p.fill_(1.0)
             elif pname == "bias":
                 p.zero_()

@@ -6,12 +6,13 @@ logits; ``mask`` is boolean with True = may attend.  Masked logits take
 
 Routing mirrors the JAX package.  Shapes it sends to the tower kernels go
 to K1/K2 (``ops/tower_attention.py``) from the model blocks; the masked
-cross-attention goes to K3 (``ops/masked_attention.py``).  Everything else
-the JAX package sends to its generic flash kernel (K4), which is not
-ported yet: on a CUDA tensor those shapes raise, on the CPU they run the
-plain formula.  The one exception is the tiny-shape branch (Nq < 256,
-Nk <= 1024, no bias or mask), where the JAX package itself runs plain jnp —
-e.g. the mask transformer's 200-query self-attention.
+cross-attention goes to K3 (``ops/masked_attention.py``); everything else
+goes to the generic flash kernel K4 (``ops/flash_attention.py``), which
+runs its plain version on a CPU tensor.  The one exception is the
+tiny-shape branch (Nq < 256, Nk <= 1024, no bias or mask), where the JAX
+package itself runs plain jnp — e.g. the mask transformer's 200-query
+self-attention.  Unlike the JAX wrappers, nothing here falls back to plain
+attention when a kernel refuses a shape: the refusal propagates.
 """
 from __future__ import annotations
 
@@ -26,10 +27,11 @@ NEG_INF = float(torch.finfo(torch.float32).min)
 
 def needs_k4(t: torch.Tensor, what: str) -> None:
     """Refuse to run a plain formula on the card where the JAX package runs
-    its generic flash kernel (K4)."""
+    K4 on a path the port has not wired to it yet (DINO's non-split-cls
+    attention)."""
     if t.device.type != "cpu":
         raise NotImplementedError(
-            f"{what} at shape {tuple(t.shape)} needs K4 (not yet ported)")
+            f"{what} at shape {tuple(t.shape)} needs K4 (not yet wired)")
 
 
 def dot_product_attention(q, k, v, bias=None, mask=None, scale=None):
@@ -52,33 +54,44 @@ def _tiny(q, k, bias) -> bool:
 
 def flash_attention(q, k, v, bias=None, scale=None):
     """JAX ``flash_attention`` routing: tiny shapes run plain attention on
-    any device; other shapes need K4 on the card."""
-    if not _tiny(q, k, bias):
-        needs_k4(q, "flash_attention")
-    return dot_product_attention(q, k, v, bias=bias, scale=scale)
+    any device; other shapes run K4."""
+    if _tiny(q, k, bias):
+        return dot_product_attention(q, k, v, scale=scale)
+    from panst3r_torch.ops.flash_attention import flash_mha
+
+    return flash_mha(q, k, v, bias=bias, scale=scale)
 
 
 def flash_attention_rope2d_tables(q, k, v, qtab=None, ktab=None, bias=None,
                                   scale=None):
-    """Attention with 2D RoPE from precomputed (cos, sin) tables."""
-    if not _tiny(q, k, bias):
-        needs_k4(q, "flash_attention_rope2d_tables")
+    """Attention with 2D RoPE from precomputed f32 (cos, sin) tables (B, N,
+    D).  With both tables and a non-tiny shape, K4 rotates q and k in f32;
+    otherwise the tables rotate in the token dtype first, as in the JAX
+    package."""
+    if not _tiny(q, k, bias) and qtab is not None and ktab is not None:
+        from panst3r_torch.ops.flash_attention import flash_mha
+
+        return flash_mha(q, k, v, bias=bias, rope=(*qtab, *ktab),
+                         scale=scale)
     if qtab is not None:
         q = apply_rope_tables(q, *qtab)
     if ktab is not None:
         k = apply_rope_tables(k, *ktab)
-    return dot_product_attention(q, k, v, bias=bias, scale=scale)
+    return flash_attention(q, k, v, bias=bias, scale=scale)
 
 
 def masked_attention(q, k, v, blocked, scale=None):
     """Masked cross-attention; blocked (B, Nq, Nk) bool, True = may NOT
     attend, shared across heads.  Runs K3 (plain version on the CPU).
-    ``PANST3R_DISABLE_SPARSE_MASK=1`` selects the JAX package's dense-bias
-    path, which runs K4 there: it raises on the card."""
+    ``PANST3R_DISABLE_SPARSE_MASK=1`` selects the dense path: K4 with a
+    head-broadcast finfo.min bias (the JAX package runs plain attention
+    there; the values agree because the mask transformer never passes a
+    fully blocked row)."""
     if os.environ.get("PANST3R_DISABLE_SPARSE_MASK", "0") == "1":
-        needs_k4(q, "dense-bias masked attention")
-        return dot_product_attention(q, k, v, mask=~blocked[:, None],
-                                     scale=scale)
+        from panst3r_torch.ops.flash_attention import flash_mha
+
+        bias = torch.where(blocked, NEG_INF, 0.0)[:, None]
+        return flash_mha(q, k, v, bias=bias, scale=scale)
     from panst3r_torch.ops.masked_attention import masked_mha
 
     return masked_mha(q.contiguous(), k.contiguous(), v.contiguous(),

@@ -22,8 +22,8 @@ import numpy as np
 import torch
 
 
-def _axis_lerp(out_size: int, in_size: int, device):
-    c = (torch.arange(out_size, dtype=torch.float32, device=device) + 0.5) \
+def _axis_lerp(out_size: int, in_size: int, device, dtype=torch.float32):
+    c = (torch.arange(out_size, dtype=dtype, device=device) + 0.5) \
         * (in_size / out_size) - 0.5
     c = torch.clamp(c, 0.0, in_size - 1)
     lo = torch.floor(c).to(torch.int64)
@@ -32,13 +32,16 @@ def _axis_lerp(out_size: int, in_size: int, device):
 
 
 def resize_bilinear(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
-    """Bilinear resize WITHOUT antialias on (..., H, W, C) tensors."""
+    """Bilinear resize WITHOUT antialias on (..., H, W, C) tensors.  The
+    lerp weights are f32, or f64 for an f64 input, as JAX makes them (its
+    default float width)."""
     *lead, H, W, C = x.shape
     if (H, W) == (out_h, out_w):
         return x
     flat = x.reshape(-1, H, W, C)
-    ly, hy, wy = _axis_lerp(out_h, H, x.device)
-    lx, hx, wx = _axis_lerp(out_w, W, x.device)
+    wdt = torch.float64 if x.dtype == torch.float64 else torch.float32
+    ly, hy, wy = _axis_lerp(out_h, H, x.device, wdt)
+    lx, hx, wx = _axis_lerp(out_w, W, x.device, wdt)
     wy = wy[None, :, None, None].to(flat.dtype)
     wx = wx[None, None, :, None].to(flat.dtype)
     rows_lo = flat[:, ly]
@@ -105,5 +108,10 @@ def image_cast(x: torch.Tensor, amp: bool) -> torch.Tensor:
     float input is only cast (to bf16 under amp)."""
     dtype = torch.bfloat16 if amp else torch.float32
     if x.dtype == torch.uint8:
-        return x.to(dtype) / 127.5 - 1.0
+        # Divide by a device tensor, not a Python number: CUDA divides by a
+        # host scalar through its reciprocal, one ulp off the quotient the
+        # CPU and the JAX package compute for some values, and the v2
+        # head's Fourier features multiply that ulp by up to e^10.
+        return x.to(dtype) / torch.full((), 127.5, dtype=dtype,
+                                        device=x.device) - 1.0
     return x.to(dtype) if amp else x

@@ -51,10 +51,11 @@ def apply_rope_tables(tokens: torch.Tensor, cos: torch.Tensor,
 
 def apply_rope_tables_f32(tokens: torch.Tensor, cos: torch.Tensor,
                           sin: torch.Tensor) -> torch.Tensor:
-    """The kernels' form: rotate in f32 (tables stay f32) and round back to
-    the token dtype once."""
-    t = tokens.to(torch.float32)
-    out = t * cos[:, None].float() + _rotate_half_2d(t) * sin[:, None].float()
+    """The kernels' form: rotate in f32 (tables stay f32; f64 tokens rotate
+    in f64) and round back to the token dtype once."""
+    acc = torch.promote_types(tokens.dtype, torch.float32)
+    t = tokens.to(acc)
+    out = t * cos[:, None].to(acc) + _rotate_half_2d(t) * sin[:, None].to(acc)
     return out.to(tokens.dtype)
 
 

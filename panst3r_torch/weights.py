@@ -7,13 +7,14 @@ is mechanical:
 
 - Dense ``kernel`` (in, out) → ``Linear.weight`` (out, in);
 - Conv ``kernel`` HWIO → ``Conv2d.weight`` OIHW;
-- LayerNorm ``scale`` / ``bias`` → ``weight`` / ``bias``;
+- LayerNorm and GroupNorm ``scale`` / ``bias`` → ``weight`` / ``bias``;
 - scanned stacks carry a leading layer axis and split into per-layer
   modules: ``blocks/block/*`` → ``blocks.<i>.*`` (encoder, DINO) and
   ``layers/*`` → ``layers.<i>.*`` (memory decoder);
 - raw parameters (``cls_token``, ``pos_embed``, ``ls1``/``ls2``,
-  ``query_feat``, ``query_embed``, ``level_embed``, ``cls_logit_scale``)
-  keep their shapes.
+  ``query_feat``, ``query_embed``, ``level_embed``, ``cls_logit_scale``,
+  the v2 head's ``nocls_token`` and LoftUp's Fourier ``biases``) keep
+  their shapes.
 
 Any flax leaf without a port parameter, any port parameter left unfilled,
 and any shape mismatch raises.

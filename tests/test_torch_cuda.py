@@ -1,6 +1,6 @@
-"""K1-K3 CUDA kernels against their plain versions at edge shapes (ragged
-tiles, dead key tiles, rows with no live key), f32 and bf16, with the
-limits of chip_smoke.py.  Needs a CUDA card; skips without one.  On the
+"""K1-K4 CUDA kernels against their plain versions at edge shapes (ragged
+tiles, dead key tiles, rows with no live key, strided views), f32 and
+bf16, with the limits of chip_smoke.py.  Needs a CUDA card; skips without one.  On the
 card (no JAX there, so without the repo's conftest):
 
     python -m pytest --noconftest -o addopts="" -p no:cacheprovider \
@@ -11,6 +11,8 @@ import pytest
 import torch
 
 from chip_smoke import F32_TOL, QK_STD, bf16_check
+from panst3r_torch.ops import flash_attention as fa
+from panst3r_torch.ops.image import image_cast
 from panst3r_torch.ops import masked_attention as ma
 from panst3r_torch.ops import tower_attention as ta
 from panst3r_torch.ops.rope import rope2d_tables
@@ -128,3 +130,78 @@ def test_unsupported_shapes_raise(dev):
         ta.tower_self_attention(qkv, 2)           # d=128 heads
     with pytest.raises(TypeError):
         ta.tower_self_attention(qkv.half(), 4)
+
+
+def _flash_inputs(g, dev, dtype, case, D, B=2, H=3, Nq=130, Nk=333):
+    q = _rnd(g, dev, dtype, B, H, Nq, D, s=QK_STD)
+    k = _rnd(g, dev, dtype, B, H, Nk, D, s=QK_STD)
+    v = _rnd(g, dev, dtype, B, H, Nk, D)
+    if case == "strided":                 # split-heads views of (B, N, H*D)
+        q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2)
+                   for t in (q, k, v))
+    bias = kv_valid = rope = None
+    if case in ("dense_bias", "bias_and_kv_valid"):
+        b = torch.randn(B, H, Nq, Nk, generator=g, device=dev)
+        bias = torch.where(torch.rand(B, H, Nq, Nk, generator=g, device=dev)
+                           < 0.2, NEG, b)
+    if case == "head_shared_bias":
+        bias = torch.where(torch.rand(B, 1, Nq, Nk, generator=g, device=dev)
+                           < 0.5, NEG, 0.0)
+    if case in ("kv_valid", "bias_and_kv_valid", "masked_rows"):
+        kv_valid = torch.rand(B, Nk, generator=g, device=dev) > 0.2
+        kv_valid[0, 64:200] = False       # dead key tiles
+        if case == "masked_rows":
+            kv_valid[1] = False           # batch 1 sees no key at all
+    if case == "key_bias":
+        bias = torch.randn(B, 1, 1, Nk, generator=g, device=dev)
+        bias[..., 20:150] = NEG
+    if case == "rope":
+        rope = (*rope2d_tables(torch.randint(0, 40, (B, Nq, 2), generator=g,
+                                             device=dev), D),
+                *rope2d_tables(torch.randint(0, 40, (B, Nk, 2), generator=g,
+                                             device=dev), D))
+    return q, k, v, bias, kv_valid, rope
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 96])
+@pytest.mark.parametrize("case", [
+    "plain", "dense_bias", "head_shared_bias", "kv_valid", "key_bias",
+    "bias_and_kv_valid", "rope", "masked_rows", "strided"])
+def test_flash_fwd_kernel(dev, dtype, D, case):
+    """K4's output against its plain version (chip_smoke.py limits) and its
+    LSE within 1e-4 relative (f32 logits on both sides)."""
+    g = torch.Generator(device=dev).manual_seed(D)
+    args = _flash_inputs(g, dev, dtype, case, D)
+    n0 = fa.flash_mha.launches
+    out, lse = fa.flash_mha(*args, with_lse=True)
+    assert fa.flash_mha.launches == n0 + 1
+
+    def plain(*a):
+        return fa.flash_mha_ref(*a)
+
+    _close(out, plain, *args)
+    ref_lse = fa.flash_mha_ref(*args, with_lse=True)[1]
+    assert (lse - ref_lse).abs().max().item() \
+        <= 1e-4 * (1 + ref_lse.abs().max().item())
+    if case == "masked_rows":
+        assert (out[1] == 0).all() and (lse[1] == NEG).all()
+
+
+def test_flash_unsupported_inputs_raise(dev):
+    for D in (32, 128):                     # K4 is built for D = 64 and 96
+        q = torch.zeros(1, 2, 300, D, device=dev)
+        with pytest.raises(NotImplementedError, match="K4"):
+            fa.flash_mha(q, q, q)
+    q = torch.zeros(1, 2, 300, 64, device=dev)
+    with pytest.raises(TypeError):
+        fa.flash_mha(q.half(), q.half(), q.half())
+
+
+def test_image_cast_matches_cpu_bit_for_bit(dev):
+    """The uint8 normalization on the card equals the CPU's (and the JAX
+    package's, tests/test_torch_ops.py) for every value."""
+    img = torch.arange(256, dtype=torch.uint8).reshape(1, 16, 16, 1)
+    for amp in (False, True):
+        assert torch.equal(image_cast(img.to(dev), amp).cpu(),
+                           image_cast(img, amp))

@@ -120,8 +120,9 @@ def test_block_with_rope(rng):
 
 @torch.no_grad()
 def test_self_attention_generic_path(rng):
-    """d=32 heads: not a tower shape, the JAX generic path (plain on the
-    CPU); on a non-CPU tensor the port refuses it (K4 is not ported)."""
+    """d=32 heads: not a tower shape, the JAX generic path (K4, its plain
+    version on the CPU); off the CPU the port refuses it (K4 is built for
+    head dims 64 and 96)."""
     x = rng.standard_normal((1, 300, 128)).astype(np.float32)
     pos = rng.integers(0, 20, (1, 300, 2)).astype(np.int32)
     jt = rope2d_tables(jnp.asarray(pos), 32)
@@ -324,7 +325,8 @@ def test_panoptic_decoder_with_memory_queries(rng):
              (2, 3))
     params = _init(jm, *jargs)
     tm = _port(TPD(144, t_tiny().panoptic), params)
-    targs = (tuple(map(_t, feats)), _t(portrait), _t(cls), (2, 3))
+    targs = (tuple(map(_t, feats)), _t(images), _t(pos), _t(portrait),
+             _t(cls), (2, 3))
     want = _apply(jm, params, *jargs[:5], grid=(2, 3),
                   deep_supervision=False)
     got = tm(*targs, deep_supervision=False)

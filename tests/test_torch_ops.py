@@ -139,3 +139,18 @@ def test_image_cast(rng, kind):
         got = t_image.image_cast(_t(img), amp).float().numpy()
         # bf16 (amp): the two frameworks round the same values; f32 exact
         np.testing.assert_allclose(got, want, atol=1e-6 if not amp else 8e-3)
+
+
+def test_image_cast_uint8_is_bit_exact():
+    """Every uint8 value normalizes to exactly the JAX package's value, in
+    f32 and under amp: the v2 head's Fourier features multiply a one-ulp
+    difference by up to e^10 (tests/test_torch_cuda.py holds the card to
+    the same values)."""
+    from panst3r_tpu.engine.inference import _image_cast
+
+    img = np.arange(256, dtype=np.uint8).reshape(1, 16, 16, 1)
+    for amp in (False, True):
+        want = np.asarray(jnp.asarray(_image_cast(jnp.asarray(img), amp),
+                                      jnp.float32))
+        got = t_image.image_cast(_t(img), amp).float().numpy()
+        np.testing.assert_array_equal(got, want)
