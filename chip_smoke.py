@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # every phase; needs one card
     python3 chip_smoke.py --phases kernels
+    python3 chip_smoke.py --phases train_v2
 
 Run from the root of a checkout.  It builds the CUDA kernels of
 ``panst3r_torch/csrc`` with nvcc (into the git-ignored
@@ -14,14 +15,23 @@ Run from the root of a checkout.  It builds the CUDA kernels of
    kernel's time, the plain version's time, one PyTorch library call on the
    same work (``scaled_dot_product_attention``, a yardstick only — the port
    never calls it) and the least time the card could take (``bound_ms``);
+   K5 (flash_bwd) likewise against its plain version from K4's own output
+   and LSE, and K4 + K5 through autograd; gradients through K1-K3 on the
+   card bit-equal to their plain formulas';
 2. ``small``: v1 and v2 widths at depth 2 (v2 with its full mixer and
    LoftUp), f32, V=4 / K=3 at 384x512, the same seeded weights on the card
-   (kernels) and on the CPU (plain versions), outputs compared;
+   (kernels) and on the CPU (plain versions), outputs compared; then one v2
+   train step (B=1, V=3 at 160x512), card against CPU;
 3. ``v1`` and ``v2``: the full v1 and v2 main paths
    (``InferenceEngine.run_device`` + ``fuse``, bf16, V=8 / K=4 at 384x512,
    random seeded weights), stage times, peak memory, finiteness and shapes,
    a profile by kernel, and each kernel's launch count against the count
    the config and schedule imply;
+4. ``train_v2``: four micro-steps (two updates) of the v2 train step at
+   full width and depth (frozen towers stored in bf16, the train_v2 recipe,
+   B=2 x V=5 at 384x512), step and stage times, peak memory, gradients on
+   every trainable leaf, frozen parameters unchanged, launch counts, and a
+   profile by kernel;
 
 then one ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``.  Any failed phase raises, and the script exits non-zero without
@@ -60,14 +70,16 @@ REPLACES = {
     "tower_cross": "panst3r_tpu/ops/pallas/tower_attention.py:411",
     "masked_attn": "panst3r_tpu/ops/pallas/masked_attention.py:119",
     "flash_fwd": "panst3r_tpu/ops/pallas/flash_attention.py:171",
+    "flash_bwd": "panst3r_tpu/ops/pallas/flash_attention_bwd.py:115",
 }
-PHASES = ("kernels", "small", "v1", "v2")
+PHASES = ("kernels", "small", "v1", "v2", "train_v2")
 # the case and dtype of each kernel on its main path: K1-K3 under v1's bf16,
 # K4 in LoftUp's f32 (flax promotes that branch to f32 under amp)
 MAIN_CASE = {"tower_self": ("encoder_rope", "bfloat16"),
              "tower_cross": ("render", "bfloat16"),
              "masked_attn": ("mask_transformer", "bfloat16"),
-             "flash_fwd": ("loftup", "float32")}
+             "flash_fwd": ("loftup", "float32"),
+             "flash_bwd": ("loftup_train", "float32")}
 # K4's LSE against its plain version's: f32 logits on both sides
 LSE_RTOL = 1e-4
 
@@ -333,11 +345,241 @@ def _k4_cases(rnd, g, es, dtype, dev, blocked):
     return cases
 
 
+def k5_cases(dtype, dev):
+    """K5 cases: q, k, v, do and K4's keyword arguments, with the FLOPs of
+    the seven products and the bytes moved (each input read once, each
+    gradient written once), and the library yardstick's mask."""
+    import torch
+
+    from panst3r_torch.ops.attention import NEG_INF
+    from panst3r_torch.ops.rope import rope2d_tables
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    es = torch.tensor([], dtype=dtype).element_size()
+
+    def rnd(*shape, s=1.0):
+        return (torch.randn(*shape, generator=g, device=dev) * s).to(dtype)
+
+    def heads(B, N, H, D, s=1.0):
+        """(B, H, N, D) view of a (B, N, H*D) projection."""
+        return rnd(B, N, H * D, s=s).view(B, N, H, D).transpose(1, 2)
+
+    cases = []
+
+    def case(label, q, k, v, live_keys=None, lib_mask=None, **kw):
+        B, H, Nq, D = q.shape
+        Nk = k.shape[2]
+        live = B * Nk if live_keys is None else live_keys
+        nbytes = (4 * q.numel() + 4 * H * live * D) * es + B * H * Nq * 4
+        for t in (kw.get("bias"), kw.get("kv_valid")):
+            nbytes += 0 if t is None else t.numel() * t.element_size()
+        nbytes += 0 if "rope" not in kw else 2 * B * (Nq + Nk) * D * 4
+        cases.append(dict(case=label, q=q, k=k, v=v,
+                          do=heads(B, Nq, H, D), kw=kw, lib_mask=lib_mask,
+                          flops=7 * 2.0 * H * Nq * live * D, bytes=nbytes))
+
+    # LoftUp's training shape: 2 views x 192x256 pixels against 768 tokens
+    B, H, Nq, Nk, D = 2, 4, 49152, 768, 96
+    case("loftup_train", heads(B, Nq, H, D, QK_STD), heads(B, Nk, H, D, QK_STD),
+         heads(B, Nk, H, D))
+    B, H, Nq, Nk, D = 2, 12, 1000, 2950, 64
+    valid = torch.rand(B, Nk, generator=g, device=dev) > 0.1
+    valid[0, 640:1600] = False
+    valid[1, 2000:] = False
+    case("kv_valid", rnd(B, H, Nq, D, s=QK_STD), rnd(B, H, Nk, D, s=QK_STD),
+         rnd(B, H, Nk, D), live_keys=int(valid.sum()),
+         lib_mask=valid[:, None, None, :], kv_valid=valid)
+    # the mask transformer's dense path at training size: 200 queries x 5
+    # views x 768 tokens, a head-shared finfo.min bias from a blocked mask
+    B, H, Nq, Nk, D = 2, 8, 200, 3840, 96
+    blocked = torch.ones(B, Nq, Nk, dtype=torch.bool, device=dev)
+    starts = torch.randint(0, Nk - 400, (B, 8), generator=g, device=dev)
+    for b in range(B):
+        for qi in range(Nq):
+            s = int(starts[b, qi % 8])
+            blocked[b, qi, s:s + 100 + 30 * (qi % 8)] = False
+    blocked &= torch.rand(B, Nq, Nk, generator=g, device=dev) > 0.02
+    case("dense_bias", rnd(B, H, Nq, D, s=QK_STD), rnd(B, H, Nk, D, s=QK_STD),
+         rnd(B, H, Nk, D), lib_mask=~blocked[:, None],
+         bias=torch.where(blocked, NEG_INF, 0.0)[:, None])
+    B, H, N, D = 4, 12, 768, 64
+    tabs = rope2d_tables(_grid_pos(B, 24, 32, dev), D)
+    case("rope_tables", rnd(B, H, N, D, s=QK_STD), rnd(B, H, N, D, s=QK_STD),
+         rnd(B, H, N, D), rope=(*tabs, *tabs))
+    return cases
+
+
+def _grad_check(got, plain, plain_f32, dtype) -> dict:
+    """f32: max abs error within 1e-4 of the plain gradient's max |value|;
+    bf16: the bf16 rule, per gradient."""
+    import torch
+
+    out = {}
+    for name, a, b, c in zip(("dq", "dk", "dv"), got, plain, plain_f32):
+        a, b, c = a.float(), b.float(), c.float()
+        if dtype == torch.float32:
+            err, lim = float((a - b).abs().max()), 1e-4 * float(b.abs().max())
+            out[name] = {"max_abs_err": err, "limit": lim, "ok": err <= lim}
+        else:
+            out[name] = bf16_check(a, b, c)
+        out[name]["finite"] = bool(torch.isfinite(a).all())
+    return out
+
+
+def _sdpa_bwd(c):
+    """One backward of ``F.scaled_dot_product_attention`` on the case's
+    work (q, k rotated first for RoPE), as a timed closure."""
+    import torch
+    import torch.nn.functional as F
+
+    from panst3r_torch.ops.rope import apply_rope_tables_f32
+
+    q, k = c["q"], c["k"]
+    rope = c["kw"].get("rope")
+    if rope is not None:
+        q = apply_rope_tables_f32(q, rope[0], rope[1])
+        k = apply_rope_tables_f32(k, rope[2], rope[3])
+    ins = [t.detach().clone().requires_grad_() for t in (q, k, c["v"])]
+    out = F.scaled_dot_product_attention(*ins, attn_mask=c["lib_mask"])
+    return lambda: torch.autograd.grad(out, ins, c["do"], retain_graph=True)
+
+
+def phase_k5(dtype, dname: str, dev, rows: dict) -> None:
+    """K5 against its plain version from K4's own output and LSE, then
+    K4 + K5 through autograd against autograd through ``flash_mha_ref``
+    (f32; in bf16 against the plain pair's gradients, with the exact f32
+    gradient as the reference)."""
+    import torch
+
+    from panst3r_torch.ops import flash_attention as fa
+
+    def leaves(*ts):
+        return [t.detach().clone().requires_grad_() for t in ts]
+
+    for c in k5_cases(dtype, dev):
+        q, k, v, do, kw = c["q"], c["k"], c["v"], c["do"], c["kw"]
+        o, lse = fa.flash_mha(q, k, v, with_lse=True, **kw)
+        n0 = fa.flash_mha_bwd.launches
+
+        def fn():
+            return fa.flash_mha_bwd(q, k, v, o, lse, do, **kw)
+
+        got = fn()
+        torch.cuda.synchronize()
+        plain = fa.flash_mha_bwd_ref(q, k, v, o, lse, do, **kw)
+        f32 = [t.float() for t in (q, k, v, o, do)]
+        plain_f32 = fa.flash_mha_bwd_ref(*f32[:3], f32[3], lse, f32[4], **kw)
+        check = {"kernel": _grad_check(got, plain, plain_f32, dtype)}
+        err = max(float((a.float() - b.float()).abs().max())
+                  for a, b in zip(got, plain))
+        del plain, plain_f32
+
+        # K4 + K5 through autograd
+        ins = leaves(q, k, v)
+        fa.flash_mha(*ins, **kw).backward(do)
+        auto = [t.grad for t in ins]
+        ref_ins = leaves(*f32[:3])
+        fa.flash_mha_ref(*ref_ins, **kw).backward(f32[4])
+        exact = [t.grad for t in ref_ins]
+        if dtype == torch.float32:
+            pair = exact
+        else:
+            po, plse = fa.flash_mha_ref(q, k, v, with_lse=True, **kw)
+            pair = fa.flash_mha_bwd_ref(q, k, v, po, plse, do, **kw)
+        check["autograd"] = _grad_check(auto, pair, exact, dtype)
+        del ins, auto, ref_ins, exact, pair
+        ok = all(g["ok"] and g["finite"] for part in check.values()
+                 for g in part.values())
+        row = {
+            "phase": "kernels", "kernel": "flash_bwd", "case": c["case"],
+            "dtype": dname, "shape": list(q.shape) + [k.shape[2]],
+            "max_abs_err": err, "check": check,
+            "kernel_ms": time_ms(fn, reps=10),
+            "plain_ms": time_ms(lambda: fa.flash_mha_bwd_ref(
+                q, k, v, o, lse, do, **kw), reps=3, warmup=1),
+            "library_ms": time_ms(_sdpa_bwd(c), reps=10),
+        }
+        row["launches"] = fa.flash_mha_bwd.launches - n0
+        row["bound_ms"], row["bound_by"] = bound_ms(c["flops"], c["bytes"],
+                                                    dname)
+        emit(row)
+        if not ok:
+            raise AssertionError(f"flash_bwd {c['case']} {dname}: {check}")
+        rows[("flash_bwd", c["case"], dname)] = row
+        del got, o, lse
+        torch.cuda.empty_cache()
+
+
+def phase_autograd(dtype, dname: str, dev) -> None:
+    """K1-K3 differentiate their plain versions (the JAX custom_vjps): the
+    gradients through each wrapper on the card are bit-identical to those
+    through the recomputed plain formula on the same inputs."""
+    import torch
+
+    from panst3r_torch.ops import masked_attention as ma
+    from panst3r_torch.ops import tower_attention as ta
+    from panst3r_torch.ops.attention import dot_product_attention
+    from panst3r_torch.ops.rope import rope2d_tables
+
+    g = torch.Generator(device=dev).manual_seed(2)
+
+    def rnd(*shape, s=1.0):
+        return (torch.randn(*shape, generator=g, device=dev) * s).to(dtype) \
+            .requires_grad_()
+
+    B, N, C, H = 10, 768, 768, 12          # the v2 InputMixer at 10 views
+    tabs = rope2d_tables(_grid_pos(B, 24, 32, dev), 64)
+    qkv = rnd(B, N, 3 * C, s=QK_STD)
+    kc, vc = rnd(B, 1, C, s=QK_STD), rnd(B, 1, C)
+    valid = torch.ones(1, 3840, dtype=torch.bool, device=dev)
+    valid[:, 1536:3072] = False
+    bias = torch.where(valid, 0.0, float(torch.finfo(torch.float32).min))
+    qpos = torch.randint(0, 32, (1, 768, 2), generator=g, device=dev)
+    kpos = torch.randint(0, 32, (1, 3840, 2), generator=g, device=dev)
+    qtab, ktab = rope2d_tables(qpos, 64), rope2d_tables(kpos, 64)
+    cq, ck, cv = rnd(1, 768, C, s=QK_STD), rnd(1, 3840, C, s=QK_STD), \
+        rnd(1, 3840, C)
+    mq, mk, mv = rnd(2, 8, 200, 96, s=QK_STD), rnd(2, 8, 3840, 96, s=QK_STD), \
+        rnd(2, 8, 3840, 96)
+    blocked = torch.rand(2, 200, 3840, generator=g, device=dev) > 0.3
+    cases = (
+        ("tower_self", (qkv,), lambda x: ta.tower_self_attention(x, H, tabs),
+         lambda x: ta.tower_self_attention_ref(x, H, tabs)),
+        ("tower_self_cls", (qkv, kc, vc),
+         lambda x, a, b: ta.tower_self_attention(x, H, cls_kv=(a, b)),
+         lambda x, a, b: ta.tower_self_attention_ref(x, H, cls_kv=(a, b))),
+        ("tower_cross", (cq, ck, cv),
+         lambda a, b, c: ta.tower_cross_attention(a, b, c, qtab, ktab, bias),
+         lambda a, b, c: ta.tower_cross_attention_ref(a, b, c, qtab, ktab,
+                                                      bias)),
+        ("masked_attn", (mq, mk, mv),
+         lambda a, b, c: ma.masked_mha(a, b, c, blocked),
+         lambda a, b, c: dot_product_attention(a, b, c,
+                                               mask=~blocked[:, None])),
+    )
+    for name, ins, fn, plain in cases:
+        out = fn(*ins)
+        cot = torch.randn(out.shape, generator=g, device=dev).to(dtype)
+        got = torch.autograd.grad(out, ins, cot)
+        want = torch.autograd.grad(plain(*ins), ins, cot)
+        equal = [bool(torch.equal(a, b)) for a, b in zip(got, want)]
+        emit({"phase": "kernels", "autograd": name, "dtype": dname,
+              "grads_bit_equal": equal,
+              "grad_max_abs": [float(a.float().abs().max()) for a in got]})
+        if not all(equal):
+            raise AssertionError(f"{name} {dname}: card gradients differ "
+                                 f"from the plain version's: {equal}")
+
+
 def phase_kernels():
     import torch
 
     dev = torch.device("cuda")
     rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        phase_autograd(dtype, dname, dev)
+        phase_k5(dtype, dname, dev, rows)
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
         for c in kernel_cases(dtype, dev):
@@ -421,7 +663,7 @@ def _inputs(V, H=384, W=512, ncls=32):
 
 
 def _counters():
-    from panst3r_torch.ops.flash_attention import flash_mha
+    from panst3r_torch.ops.flash_attention import flash_mha, flash_mha_bwd
     from panst3r_torch.ops.masked_attention import masked_mha
     from panst3r_torch.ops.tower_attention import (tower_cross_attention,
                                                    tower_self_attention)
@@ -429,7 +671,8 @@ def _counters():
     return {"tower_self": tower_self_attention,
             "tower_cross": tower_cross_attention,
             "masked_attn": masked_mha,
-            "flash_fwd": flash_mha}
+            "flash_fwd": flash_mha,
+            "flash_bwd": flash_mha_bwd}
 
 
 def _reset_counts():
@@ -461,6 +704,39 @@ def expected_launches(cfg, V, K, chunk):
         "tower_cross": (n_updates + n_chunks) * dec,
         "masked_attn": pan.mask_transformer.dec_layers,
         "flash_fwd": n_heads * pan.upscaler.num_layers if loftup else 0,
+        "flash_bwd": 0,
+    }
+
+
+def expected_train_launches(cfg, V, grid):
+    """Launches per kernel for one train micro-step (``PanSt3R.forward`` on
+    all B·V views at once, then the backward): the towers once; the
+    decoder per memory update and for the render, its cross-attention on
+    K2 where the tower gate takes the shape, else on K4; the mask
+    transformer's masked layers; the mixer (K1) and LoftUp (K4 with the
+    LSE) once in the forward, and in the backward K5's two kernels per
+    LoftUp block.  K1-K3 differentiate their plain versions: no launch in
+    the backward."""
+    from panst3r_torch.models.upscalers import LoftUpUpscalerConfig
+    from panst3r_torch.ops.tower_attention import supports_tower_cross
+
+    N = grid[0] * grid[1]
+    dec = cfg.decoder
+    calls = [(nb * N, V * N + nb * N) for nb in cfg.mem_batches(V)]
+    calls.append((V * N, V * N))                          # the render
+    k2 = sum(supports_tower_cross(nq, nk, dec.dim, dec.num_heads)
+             for nq, nk in calls)
+    pan = cfg.panoptic
+    mixer = pan.input_mixer.num_layers if pan.input_mixer else 0
+    loftup = pan.upscaler.num_layers \
+        if isinstance(pan.upscaler, LoftUpUpscalerConfig) else 0
+    return {
+        "tower_self": cfg.encoder.depth + cfg.dino.depth
+        + len(calls) * dec.depth + mixer,
+        "tower_cross": k2 * dec.depth,
+        "masked_attn": pan.mask_transformer.dec_layers,
+        "flash_fwd": (len(calls) - k2) * dec.depth + loftup,
+        "flash_bwd": 2 * loftup,
     }
 
 
@@ -613,6 +889,240 @@ def phase_full(preset: str):
     return counts
 
 
+# ------------------------------------------------------------ training --
+
+def train_config(**overrides):
+    """The train section of ``configs/train_v2.yaml`` (lr 1e-4, wd 0.05,
+    betas (0.9, 0.95), accum_iter 2, max_instances 48, 12288 points,
+    sigmoid labels, grid sampling, deep supervision) with warmup_epochs=0,
+    so the first update is not at lr 0."""
+    from panst3r_torch.engine.criterion import PanopticLossConfig
+    from panst3r_torch.engine.train import TrainConfig
+
+    kw = dict(epochs=200, warmup_epochs=0, lr=1e-4, blr=1.5e-4, min_lr=1e-6,
+              weight_decay=0.05, betas=(0.9, 0.95), batch_size=2,
+              accum_iter=2, clip_grad=None, seed=777, max_instances=48,
+              loss=PanopticLossConfig(
+                  class_weight=1.0, mask_weight=20.0, dice_weight=1.0,
+                  no_obj_weight=0.1, num_points=12288, label_mode="sigmoid",
+                  deep_supervision=True, matcher_sampling="grid",
+                  loss_sampling="grid"))
+    kw.update(overrides)
+    return TrainConfig(**kw)
+
+
+def train_batch(B, V, H, W, ncls, max_instances, seed):
+    """A batch built the trainer's way (``data/loader.py::collate_batch``)
+    from seeded per-view instance maps: per sample a dataset vocabulary of
+    20 of the ``ncls`` classes and 12 instances, each a rectangle in the
+    views that see it.  Returns (numpy batch, (ncls, 768) class
+    embeddings)."""
+    from panst3r_torch.data.loader import collate_batch
+
+    rng = np.random.default_rng(seed)
+    classes = [f"class{i}" for i in range(ncls)]
+    samples = []
+    for _ in range(B):
+        local = rng.choice(ncls, size=min(ncls, 20), replace=False)
+        inst_cls = rng.integers(0, len(local), 12)
+        views = []
+        for _ in range(V):
+            inst = np.zeros((H, W), np.int64)
+            cls = np.zeros((H, W), np.int64)
+            for i in range(1, 13):
+                if rng.random() < 0.2:
+                    continue                      # not seen in this view
+                h, w = rng.integers(H // 8, H // 2), rng.integers(W // 8,
+                                                                   W // 2)
+                y, x = rng.integers(0, H - h), rng.integers(0, W - w)
+                inst[y:y + h, x:x + w] = i
+                cls[y:y + h, x:x + w] = inst_cls[i - 1]
+            views.append({"img": rng.random((H, W, 3)) * 2 - 1,
+                          "pan_inst_id": inst, "pan_cls_id": cls,
+                          "class_set": ";".join(classes[c] for c in local)})
+        samples.append(views)
+    return (collate_batch(samples, classes, max_instances),
+            rng.standard_normal((ncls, 768)).astype(np.float32))
+
+
+def _recording(optimizer_cls):
+    class Recording(optimizer_cls):
+        """Keeps the gradients each micro-step hands it (``grads``)."""
+
+        def step(self):
+            self.grads = {n: p.grad.detach().clone()
+                          for n, p in self.params.items()}
+            return super().step()
+    return Recording
+
+
+# (B, V, H, W, classes) of the two training phases
+SMALL_TRAIN_SHAPE = (1, 3, 160, 512, 32)
+TRAIN_SHAPE = (2, 5, 384, 512, 32)
+
+
+def phase_small_train(shape=SMALL_TRAIN_SHAPE, depth: int = 2):
+    """One v2 train step (full width at ``depth``, by default B=1, V=3 at
+    160x512 with 32 classes, f32)
+    on the card and on the CPU from the same weights, batch and draws:
+    assignments equal, loss within 1e-4 relative, each trainable gradient
+    within 1e-4 of its leaf's max |grad| (plus 1e-6 of the largest
+    gradient of all: a leaf whose true gradient is 0, such as a key
+    projection's bias, holds only rounding), frozen parameters
+    bit-identical after the update, and the card's launches as counted."""
+    import torch
+
+    from panst3r_torch.engine import train as tr
+    from panst3r_torch.models.panst3r import build_model
+
+    cfg = _config("v2", depth=depth)
+    B, V, H, W, ncls = shape
+    tcfg = train_config(accum_iter=1)
+    batch, cls = train_batch(B, V, H, W, ncls, tcfg.max_instances, seed=3)
+    g = torch.Generator().manual_seed(5)
+    draws = [{"mask": torch.rand(2, generator=g) - 0.5}
+             for _ in range(cfg.panoptic.mask_transformer.dec_layers + 1)]
+    cpu_model = build_model(cfg, device="cpu", seed=0)
+    state = {k: v.clone() for k, v in cpu_model.state_dict().items()}
+    res = {}
+    for name in ("cuda", "cpu"):
+        if name == "cuda":
+            model = build_model(cfg, device="cuda", seed=1)
+            model.load_state_dict(state)
+        else:
+            model = cpu_model
+        mask = tr.trainable_mask(model)
+        before = {n: p.detach().clone() for n, p in model.named_parameters()}
+        opt = _recording(tr.Optimizer)(
+            {n: p for n, p in model.named_parameters() if mask[n]}, tcfg, 1,
+            1)
+        step = tr.make_train_step(model, opt, tcfg.loss, (H // 16, W // 16))
+        _reset_counts()
+        t0 = time.perf_counter()
+        loss, det = step(tr.batch_to(batch, name),
+                         torch.as_tensor(cls, device=name), draws=draws)
+        counts = _read_counts()
+        res[name] = dict(
+            loss=float(loss), assign=det["assign"].cpu(),
+            grads={n: x.cpu() for n, x in opt.grads.items()},
+            frozen_same=all(torch.equal(p, before[n]) for n, p in
+                            model.named_parameters() if not mask[n]),
+            trained=sum(not torch.equal(p, before[n]) for n, p in
+                        model.named_parameters() if mask[n]))
+        emit({"phase": "small", "model": "v2_train", "device": name,
+              "seconds": time.perf_counter() - t0, "loss": res[name]["loss"],
+              "launches": counts, "frozen_bit_identical":
+              res[name]["frozen_same"],
+              "trainable_leaves_changed": res[name]["trained"]})
+        if name == "cuda":
+            want = expected_train_launches(cfg, V, (H // 16, W // 16))
+            if counts != want:
+                raise AssertionError(f"small v2_train: launches {counts} "
+                                     f"!= {want}")
+    a, b = res["cuda"], res["cpu"]
+    floor = 1e-6 * max(float(x.abs().max()) for x in b["grads"].values())
+    worst, bad = 0.0, []
+    for n, gp in b["grads"].items():
+        err = float((a["grads"][n] - gp).abs().max())
+        lim = 1e-4 * float(gp.abs().max()) + floor
+        worst = max(worst, err / lim)
+        if err > lim:
+            bad.append(n)
+    row = {"phase": "small", "model": "v2_train", "compare": "cuda_vs_cpu",
+           "assign_equal": bool(torch.equal(a["assign"], b["assign"])),
+           "loss_rel_err": abs(a["loss"] - b["loss"]) / abs(b["loss"]),
+           "grad_err_over_limit_max": worst, "grads_bad": bad[:40],
+           "n_trainable_leaves": len(b["grads"])}
+    emit(row)
+    if not (row["assign_equal"] and row["loss_rel_err"] <= 1e-4 and not bad
+            and a["frozen_same"] and b["frozen_same"]):
+        raise AssertionError(f"small v2_train: card and CPU disagree: {row}")
+    del cpu_model, model
+    torch.cuda.empty_cache()
+
+
+def phase_train_v2():
+    """The slice's path at full width and depth: ``panst3r_v2_config()``
+    with seeded random weights and the frozen towers stored in bf16, the
+    train_v2 recipe, B=2 x V=5 views at 384x512 with 32 classes, four
+    micro-steps (two updates).  Returns the launches of one micro-step."""
+    import torch
+
+    from panst3r_torch.core import rng as prng
+    from panst3r_torch.engine import train as tr
+    from panst3r_torch.models.panst3r import build_model
+
+    cfg = _config("v2")
+    B, V, H, W, ncls = TRAIN_SHAPE
+    tcfg = train_config()
+    t0 = time.perf_counter()
+    model = tr.cast_frozen_params(build_model(cfg, seed=0))
+    mask = tr.trainable_mask(model)
+    train = {n: p for n, p in model.named_parameters() if mask[n]}
+    opt = tr.Optimizer(train, tcfg, 1, steps_per_epoch=8)
+    step = tr.make_train_step(model, opt, tcfg.loss, (H // 16, W // 16))
+    host = [train_batch(B, V, H, W, ncls, tcfg.max_instances, seed=10 + i)
+            for i in range(2)]
+    cls_emb = torch.as_tensor(host[0][1], device="cuda")
+    batches = [tr.batch_to(b, "cuda") for b, _ in host]
+    frozen0 = {n: p.detach().clone() for n, p in model.named_parameters()
+               if not mask[n]}
+    train0 = {n: p.detach().clone() for n, p in train.items()}
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    want = expected_train_launches(cfg, V, (H // 16, W // 16))
+    torch.cuda.reset_peak_memory_stats()
+    steps, counts_all, zero_grad = [], [], None
+    for i in range(4):
+        gen = prng.generator(tcfg.seed, 0, i, device="cuda")
+        _reset_counts()
+        t0 = time.perf_counter()
+        loss, det = step(batches[i % 2], cls_emb, gen)
+        torch.cuda.synchronize()
+        steps.append({"seconds": time.perf_counter() - t0,
+                      "loss": float(loss), "updated": opt.mini_step == 0,
+                      "valid_targets": int(batches[i % 2]["targets"].valid
+                                           .sum())})
+        counts_all.append(_read_counts())
+        if i == 0:      # the accumulator holds this micro-step's gradients
+            zero_grad = [n for n, a in opt.acc.items()
+                         if not float(a.abs().max()) > 0]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    changed = sum(not torch.equal(p, train0[n]) for n, p in train.items())
+    frozen_same = all(torch.equal(p, frozen0[n]) for n, p in
+                      model.named_parameters() if not mask[n])
+    split = {}
+    step(batches[0], cls_emb, prng.generator(tcfg.seed, 0, 4, device="cuda"),
+         stage_times=split)
+    profile = _profile(lambda: step(batches[1], cls_emb, prng.generator(
+        tcfg.seed, 0, 5, device="cuda")))
+    secs = sorted(s["seconds"] for s in steps[1:])
+    emit({"phase": "train_v2", "batch": B, "views": V, "hw": [H, W],
+          "setup_s": setup_s, "steps": steps,
+          "median_step_s_2_to_4": secs[len(secs) // 2],
+          "stage_s": split, "peak_mem_gib": peak,
+          "n_trainable_leaves": len(train),
+          "trainable_params": sum(p.numel() for p in train.values()),
+          "frozen_params": sum(p.numel() for n, p in model.named_parameters()
+                               if not mask[n]),
+          "zero_grad_leaves": zero_grad, "trainable_leaves_changed": changed,
+          "frozen_bit_identical": frozen_same,
+          "launches": counts_all, "expected_launches": want})
+    emit({"phase": "train_v2_profile", **profile})
+    if not all(math.isfinite(s["loss"]) for s in steps):
+        raise AssertionError(f"train_v2: non-finite loss {steps}")
+    if zero_grad or changed != len(train) or not frozen_same:
+        raise AssertionError(
+            f"train_v2: leaves without gradient {zero_grad[:10]}, "
+            f"{changed}/{len(train)} trainable leaves changed, frozen "
+            f"unchanged: {frozen_same}")
+    if any(c != want for c in counts_all):
+        raise AssertionError(f"train_v2: launches {counts_all} != {want}")
+    del model, opt, step, batches, frozen0, train0
+    torch.cuda.empty_cache()
+    return counts_all[0]
+
+
 # ------------------------------------------------------------------ main --
 
 def main(argv=None) -> int:
@@ -654,7 +1164,10 @@ def main(argv=None) -> int:
     if "small" in phases:
         phase_small("v1")
         phase_small("v2")
+        phase_small_train()
     launches = {p: phase_full(p) for p in ("v1", "v2") if p in phases}
+    if "train_v2" in phases:
+        launches["train_v2"] = phase_train_v2()
 
     kernels = []
     for name, (case, dname) in MAIN_CASE.items():
@@ -663,8 +1176,8 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda",
             "source": f"panst3r_torch/csrc/{name}.cu",
             "replaces": REPLACES[name],
-            # this slice's main path (v2) runs all four kernels
-            "launches": launches.get("v2", {}).get(name),
+            # this slice's path: one train_v2 micro-step runs all five
+            "launches": launches.get("train_v2", {}).get(name),
             "launches_by_path": {p: c.get(name) for p, c in launches.items()},
             "case": case, "dtype": dname,
             "max_abs_err": r.get("max_abs_err"), "ms": r.get("kernel_ms"),

@@ -1,5 +1,6 @@
-// Shared block engine of the four attention kernels (K1 tower_self,
-// K2 tower_cross, K3 masked_attn, K4 flash_fwd).
+// Shared block engine of the four attention forward kernels (K1
+// tower_self, K2 tower_cross, K3 masked_attn, K4 flash_fwd); K5
+// (flash_bwd.cu) takes its constants, conversions and rope_at.
 //
 // One thread block owns a 64-row query tile of one (batch, head) and walks
 // the key tiles (64 keys each) with an online softmax in f32.  Four warps;
@@ -61,6 +62,22 @@ __device__ __forceinline__ float load_rope(const T* __restrict__ row,
   if (cs == nullptr) return x;
   float xp = to_f(row[d ^ 16]);
   return x * cs[d] + ((d & 16) ? xp : -xp) * sn[d];
+}
+
+// x[d] of a row of any head dim D rotated in f32 with tables cs/sn (or
+// x[d] when cs is null): x*cos + rot(x)*sin, rot(x)[d] = -x[d + D/4] in the
+// first quarter of each half and x[d - D/4] in its second (K4, K5).
+template <int D, typename T>
+__device__ __forceinline__ float rope_at(const T* __restrict__ row,
+                                         const float* __restrict__ cs,
+                                         const float* __restrict__ sn,
+                                         int d) {
+  const float x = to_f(row[d]);
+  if (cs == nullptr) return x;
+  constexpr int Q = D / 4;
+  const bool first = (d % (D / 2)) < Q;
+  const float xp = to_f(row[first ? d + Q : d - Q]);
+  return x * cs[d] + (first ? -xp : xp) * sn[d];
 }
 
 template <typename T, int D>

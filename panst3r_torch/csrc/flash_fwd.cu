@@ -37,22 +37,6 @@ struct Strides {
   long long qb, qh, qn, kb, kh, kn, vb, vh, vn, ob, oh, on, bb, bh, bq, bk;
 };
 
-// x[d] rotated in f32 with tables cs/sn (or x[d] when cs is null):
-// x*cos + rot(x)*sin, rot(x)[d] = -x[d + D/4] in the first quarter of each
-// half and x[d - D/4] in its second.
-template <int D, typename T>
-__device__ __forceinline__ float rope_at(const T* __restrict__ row,
-                                         const float* __restrict__ cs,
-                                         const float* __restrict__ sn,
-                                         int d) {
-  const float x = to_f(row[d]);
-  if (cs == nullptr) return x;
-  constexpr int Q = D / 4;
-  const bool first = (d % (D / 2)) < Q;
-  const float xp = to_f(row[first ? d + Q : d - Q]);
-  return x * cs[d] + (first ? -xp : xp) * sn[d];
-}
-
 template <typename T, int D>
 __global__ void __launch_bounds__(NTHREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,

@@ -23,14 +23,13 @@ in bf16 (as the JAX engine does).  ``run_fused``, the serving paths,
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Optional
 
 import numpy as np
 import torch
 
 from panst3r_torch.core.bucketing import Bucket
-from panst3r_torch.core.device import resolve_device
+from panst3r_torch.core.device import resolve_device, tick
 from panst3r_torch.models import memory as memlib
 from panst3r_torch.models.decoder import postprocess
 from panst3r_torch.models.panst3r import PanSt3R
@@ -65,14 +64,7 @@ class InferenceEngine:
         self.model.eval()
 
     def _tick(self, times, name, t0):
-        if times is None:
-            return t0
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        t = time.perf_counter()
-        if name is not None:
-            times[name] = times.get(name, 0.0) + (t - t0)
-        return t
+        return tick(times, name, t0, self.device)
 
     def _chunks(self, V: int):
         step = min(self.chunk, V)

@@ -11,7 +11,8 @@ panst3r_tpu/models/memory.py).
 
 Unlike the JAX version, which returns a new immutable pytree, ``insert``
 writes in place into the preallocated banks (no copy of the whole memory
-per update) and returns the same object.
+per update) and returns the same object; only tokens that carry a gradient
+(a decoder being trained) are inserted out of place.
 """
 from __future__ import annotations
 
@@ -51,7 +52,12 @@ def insert(mem: TokenMemory, y_new: torch.Tensor,
     s = mem.count
     if s + n > mem.capacity:
         raise ValueError(f"memory full: {s} + {n} > {mem.capacity}")
-    mem.y[:, :, s:s + n] = y_new.to(mem.y.dtype)
+    y_new = y_new.to(mem.y.dtype)
+    if y_new.requires_grad:
+        # a trained decoder: the banks stay out of place for autograd
+        mem.y = torch.cat([mem.y[:, :, :s], y_new, mem.y[:, :, s + n:]], 2)
+    else:
+        mem.y[:, :, s:s + n] = y_new
     mem.pos[:, s:s + n] = pos_new.to(mem.pos.dtype)
     mem.valid[:, s:s + n] = True
     mem.count = s + n

@@ -1,8 +1,19 @@
 """The composite PanSt3R model (counterpart of panst3r_tpu/models/panst3r.py):
 MUSt3R-style encoder and memory decoder, the DINO semantic encoder and the
 panoptic head (v1 or v2), with the stage methods the inference engine
-drives.  The training forward and the freeze policy wait for the training
-slice.
+drives and the training forward (``forward``): DINO and the encoder, the
+incremental memory build on the ``[2, 1, 1, …]`` schedule, the render
+against the memory, then the panoptic head.  Frozen stages (the
+``freeze_*`` fields; DINO is frozen in every shipped config) run without a
+graph, the counterpart of the JAX package's ``stop_gradient``.
+
+Dtypes follow flax's promotion: a layer computes in the wider of its
+input's and its parameters' dtypes.  So with f32 images and frozen towers
+stored in bf16 (``engine/train.py::cast_frozen_params``) the towers compute
+in f32 with their layer parameters promoted at the call
+(``promoted_params``), while raw bf16 parameters (DINO's position embedding
+and cls token) meet the f32 activations through torch's own promotion, as
+through jnp's.
 
 ``build_model`` makes the model on its device with seeded random weights
 drawn like flax's initializers (lecun-normal dense/conv kernels, zero
@@ -25,7 +36,8 @@ from panst3r_torch.models.dino import DinoEncoder, DinoEncoderConfig
 from panst3r_torch.models.encoder import ViTEncoder, ViTEncoderConfig
 from panst3r_torch.models.panoptic_decoder import (PanopticDecoder,
                                                    PanopticDecoderConfig)
-from panst3r_torch.models.upscalers.loftup import GroupNorm
+from panst3r_torch.models import memory as memlib
+from panst3r_torch.models.upscalers.loftup import GroupNorm, promoted_params
 
 
 @cfg.register
@@ -37,6 +49,11 @@ class PanSt3RConfig:
     panoptic: PanopticDecoderConfig = PanopticDecoderConfig()
     init_num_views: int = 2
     batch_num_views: int = 1
+    # Freeze policy (reference train.py:219-222): DINO always frozen; the
+    # MUSt3R encoder and decoder frozen unless fine-tuned.
+    freeze_encoder: bool = True
+    freeze_decoder: bool = True
+    freeze_dino: bool = True
 
     def mem_batches(self, n_views: int) -> list[int]:
         """[2, 1, 1, ...] memory injection schedule."""
@@ -85,6 +102,52 @@ class PanSt3R(nn.Module):
                                      cls_embeddings, grid,
                                      memory_queries=memory_queries,
                                      deep_supervision=deep_supervision)
+
+    # ---- training forward ----
+
+    def forward(self, images, portrait, cls_embeddings, grid):
+        """images (B, V, H, W, 3) landscape-canonical, dust3r-normalized;
+        portrait (B, V) bool; cls_embeddings (num_classes, lang_dim); grid
+        (H // 16, W // 16).  Returns (panout dict, pointmaps_raw
+        (B, V, H, W, 7))."""
+        c = self.config
+        B, V = images.shape[:2]
+        N = grid[0] * grid[1]
+        flat = images.reshape(B * V, *images.shape[2:])
+
+        def stage(module, frozen):
+            params = promoted_params(module, images.dtype)
+            grad = torch.is_grad_enabled() and not frozen
+
+            def call(*args, **kwargs):
+                with torch.set_grad_enabled(grad):
+                    return torch.func.functional_call(module, params, args,
+                                                      kwargs)
+            return call
+
+        x_dino = stage(self.dino_encoder, c.freeze_dino)(flat)
+        x_dino = x_dino.reshape(B, V, *x_dino.shape[1:])
+        x, pos = stage(self.must3r_encoder, c.freeze_encoder)(flat)
+        x, pos = (t.reshape(B, V, *t.shape[1:]) for t in (x, pos))
+
+        decoder = stage(self.must3r_decoder, c.freeze_decoder)
+        mem = memlib.init_memory(c.decoder.depth, B, V * N, c.decoder.dim,
+                                 dtype=x.dtype, device=x.device)
+        start = 0
+        for nb in c.mem_batches(V):
+            mem = decoder(x[:, start:start + nb], pos[:, start:start + nb],
+                          mem, render=False, grid=grid)[0]
+            start += nb
+        _, pointmaps, y = decoder(x, pos, mem, render=True, grid=grid)
+
+        # a head with wider parameters promotes its inputs (bf16 features
+        # under amp meet the f32 head)
+        head = next(self.panoptic_decoder.parameters()).dtype
+        feats = tuple(f.to(torch.promote_types(f.dtype, head))
+                      for f in (x, y, x_dino))
+        panout = self.panoptic(feats, images, pos, portrait, cls_embeddings,
+                               grid)
+        return panout, pointmaps
 
 
 _RAW_INIT = {

@@ -27,15 +27,30 @@ from panst3r_torch.models.blocks import TORCH_LN_EPS, CrossonlyDecoderBlock
 from panst3r_torch.ops.image import resize_bilinear
 
 
-def call_promoted(module: nn.Module, dtype: torch.dtype, *args):
-    """``module(*args)`` with its parameters cast to ``dtype`` for the call:
-    flax computes a layer whose input is wider than its parameters in the
-    input's dtype."""
-    params = dict(module.named_parameters())
-    if all(p.dtype == dtype for p in params.values()):
-        return module(*args)
-    return torch.func.functional_call(
-        module, {n: p.to(dtype) for n, p in params.items()}, args)
+def promoted_params(module: nn.Module, dtype: torch.dtype) -> dict:
+    """The parameters of ``module`` as flax computes with them when the
+    input is ``dtype``: each layer (Linear, Conv2d, LayerNorm, GroupNorm)
+    works in the wider of its input's and its parameters' dtypes, so its
+    parameters are cast to that (exact); raw parameters keep their dtype,
+    and torch promotes the ops that use them as jnp does."""
+    out = {}
+    for mname, mod in module.named_modules():
+        layer = isinstance(mod, (nn.Linear, nn.Conv2d, nn.LayerNorm,
+                                 GroupNorm))
+        for pname, p in mod.named_parameters(recurse=False):
+            if layer:
+                p = p.to(torch.promote_types(p.dtype, dtype))
+            out[f"{mname}.{pname}" if mname else pname] = p
+    return out
+
+
+def call_promoted(module: nn.Module, dtype: torch.dtype, *args, **kwargs):
+    """``module(*args, **kwargs)`` with its parameters promoted for an input
+    of ``dtype`` (``promoted_params``)."""
+    params = promoted_params(module, dtype)
+    if all(params[n] is p for n, p in module.named_parameters()):
+        return module(*args, **kwargs)
+    return torch.func.functional_call(module, params, args, kwargs)
 
 
 def _linspace(start: float, stop: float, num: int, nd) -> np.ndarray:

@@ -34,6 +34,42 @@ def needs_k4(t: torch.Tensor, what: str) -> None:
             f"{what} at shape {tuple(t.shape)} needs K4 (not yet wired)")
 
 
+class _Recompute(torch.autograd.Function):
+    """``fwd(*xs)`` with the vector-Jacobian product of ``plain(*xs)``,
+    recomputed with autograd in the backward (``recompute_vjp``)."""
+
+    @staticmethod
+    def forward(ctx, fwd, plain, need_grad, *xs):
+        if need_grad:
+            ctx.save_for_backward(*xs)
+            ctx.plain = plain
+        return fwd(*xs)
+
+    @staticmethod
+    def backward(ctx, g):
+        needs = ctx.needs_input_grad[3:]
+        with torch.enable_grad():
+            xs = [None if x is None else x.detach().requires_grad_(n)
+                  for x, n in zip(ctx.saved_tensors, needs)]
+            out = ctx.plain(*xs)
+            grads = iter(torch.autograd.grad(
+                out, [x for x, n in zip(xs, needs) if n], g))
+        return (None, None, None) + tuple(next(grads) if n else None
+                                          for n in needs)
+
+
+def recompute_vjp(fwd, plain, *xs):
+    """``fwd(*xs)`` (a kernel, or its plain version on the CPU), with the
+    gradient in the tensors ``xs`` (None allowed) of ``plain(*xs)``
+    recomputed in the backward: the JAX package's ``custom_vjp`` around
+    the forward-only kernels K1-K3, whose backward differentiates a plain
+    formula (tower_attention.py:229-238, :612-621; masked_attention.py:
+    197-212).  Anything else ``fwd`` and ``plain`` use gets no gradient."""
+    need_grad = torch.is_grad_enabled() and any(
+        x is not None and x.requires_grad for x in xs)
+    return _Recompute.apply(fwd, plain, need_grad, *xs)
+
+
 def dot_product_attention(q, k, v, bias=None, mask=None, scale=None):
     """Scaled dot-product attention with f32 logits and softmax; the
     probabilities are cast to v's dtype before the value product."""

@@ -6,13 +6,18 @@ Two resize semantics are needed, and they differ:
 - ``resize_bilinear``: torch ``F.interpolate(mode='bilinear',
   align_corners=False)`` with no antialias, written as the same gather and
   lerp as the JAX function (the DINO image resize, reference dino.py:66).
-- ``resize``: ``jax.image.resize`` with its default ``antialias=True``,
+- ``resize``: ``jax.image.resize``, by default with ``antialias=True``,
   which widens the kernel by the scale factor when downsampling, and with
   Keys a = -0.5 for bicubic.  torch's ``F.interpolate`` antialiases only on
   request and uses a = -0.75, so the port builds the same separable weight
   matrices as ``jax.image.scale_and_translate`` and contracts with them
-  (the DINO pos-embed, the mask transformer's token-grid mask features and
-  the fusion mask upsample).  The YUV420 wire waits for the serving slice.
+  (the DINO pos-embed, the mask transformer's token-grid mask features, the
+  fusion mask upsample and, without antialias, the matcher's grid).
+- ``scale_and_translate_linear``: ``jax.image.scale_and_translate`` with the
+  linear kernel and no antialias, its scale and translation given as
+  device tensors (the mask loss's jittered grid).
+
+The YUV420 wire waits for the serving slice.
 """
 from __future__ import annotations
 
@@ -66,14 +71,15 @@ _KERNELS = {"bilinear": _triangle, "bicubic": _keys_cubic}
 
 
 @functools.lru_cache(maxsize=64)
-def resize_weights(in_size: int, out_size: int, method: str) -> np.ndarray:
+def resize_weights(in_size: int, out_size: int, method: str,
+                   antialias: bool = True) -> np.ndarray:
     """(in_size, out_size) f32 weights of jax.image.scale_and_translate
-    (translation 0, antialias on), computed in f32 as JAX does."""
+    (translation 0), computed in f32 as JAX does: the inverse scale is the
+    Python (f64) quotient rounded to f32, and with ``antialias`` the kernel
+    widens by it when downsampling."""
     f32 = np.float32
-    scale = f32(out_size / in_size)
-    inv_scale = f32(1.0) / scale
-    # the kernel widens by the scale factor when downsampling (antialias)
-    kernel_scale = max(inv_scale, f32(1.0))
+    inv_scale = f32(1.0 / (out_size / in_size))
+    kernel_scale = max(inv_scale, f32(1.0)) if antialias else f32(1.0)
     sample_f = (np.arange(out_size, dtype=f32) + f32(0.5)) * inv_scale \
         - f32(0.5)
     x = np.abs(sample_f[None, :]
@@ -86,19 +92,54 @@ def resize_weights(in_size: int, out_size: int, method: str) -> np.ndarray:
     return np.where(inside[None, :], w, f32(0.0)).astype(f32)
 
 
-def resize(x: torch.Tensor, shape, method: str) -> torch.Tensor:
-    """``jax.image.resize(x, shape, method)`` (antialias on) for the
-    bilinear and bicubic kernels: one separable contraction per resized
-    dim, with the weights cast to x's dtype.  XLA contracts the last
-    resized dim first and rounds between the contractions; the same order
-    makes the bf16 fusion masks bit-identical."""
+def resize(x: torch.Tensor, shape, method: str,
+           antialias: bool = True) -> torch.Tensor:
+    """``jax.image.resize(x, shape, method, antialias)`` for the bilinear
+    and bicubic kernels: one separable contraction per resized dim, with
+    the weights cast to x's dtype.  XLA contracts the last resized dim
+    first and rounds between the contractions; the same order makes the
+    bf16 fusion masks bit-identical."""
     assert len(shape) == x.ndim
     for d in reversed(range(x.ndim)):
         n_in, n_out = x.shape[d], shape[d]
         if n_in == n_out:
             continue
-        w = torch.as_tensor(resize_weights(n_in, n_out, method),
+        w = torch.as_tensor(resize_weights(n_in, n_out, method, antialias),
                             device=x.device).to(x.dtype)
+        x = torch.movedim(torch.matmul(torch.movedim(x, d, -1), w), -1, d)
+    return x
+
+
+def _linear_weights(in_size: int, out_size: int, scale, translation):
+    """``compute_weight_mat`` of jax.image for the linear kernel without
+    antialias, from f32 0-d tensors ``scale`` and ``translation`` on the
+    device (a step's random jitter stays there): (in_size, out_size)."""
+    f32 = torch.float32
+    dev = scale.device
+    inv_scale = 1.0 / scale
+    sample_f = (torch.arange(out_size, dtype=f32, device=dev) + 0.5) \
+        * inv_scale - translation * inv_scale - 0.5
+    x = (sample_f[None, :]
+         - torch.arange(in_size, dtype=f32, device=dev)[:, None]).abs()
+    w = torch.clamp(1.0 - x, min=0.0)
+    tot = w.sum(dim=0, keepdim=True)
+    w = torch.where(tot.abs() > 1000.0 * float(np.finfo(np.float32).eps),
+                    w / torch.where(tot != 0, tot, torch.ones_like(tot)),
+                    torch.zeros_like(w))
+    inside = (sample_f >= -0.5) & (sample_f <= in_size - 0.5)
+    return torch.where(inside[None, :], w, torch.zeros_like(w))
+
+
+def scale_and_translate_linear(x: torch.Tensor, shape, spatial_dims,
+                               scale: torch.Tensor,
+                               translation: torch.Tensor) -> torch.Tensor:
+    """``jax.image.scale_and_translate(x, shape, spatial_dims, scale,
+    translation, method="linear", antialias=False)`` on an f32 ``x``;
+    ``scale`` and ``translation`` are f32 tensors with one entry per spatial
+    dim.  The last spatial dim is contracted first, as for ``resize``."""
+    for i in reversed(range(len(spatial_dims))):
+        d = spatial_dims[i]
+        w = _linear_weights(x.shape[d], shape[d], scale[i], translation[i])
         x = torch.movedim(torch.matmul(torch.movedim(x, d, -1), w), -1, d)
     return x
 

@@ -21,7 +21,8 @@ import ctypes
 import torch
 
 from panst3r_torch.ops import cuda_build
-from panst3r_torch.ops.attention import NEG_INF
+from panst3r_torch.ops.attention import (NEG_INF, dot_product_attention,
+                                         recompute_vjp)
 from panst3r_torch.ops.tower_attention import _softmax_rounded
 
 BLOCK_Q = 64
@@ -67,9 +68,23 @@ def masked_mha_ref(q, k, v, blocked, scale=None):
 
 def masked_mha(q, k, v, blocked, scale=None):
     """K3.  q (B, H, Nq, D), k/v (B, H, Nk, D), blocked (B, Nq, Nk) bool,
-    True = may NOT attend.  Returns (B, H, Nq, D)."""
-    if q.device.type == "cpu":
-        return masked_mha_ref(q, k, v, blocked, scale)
+    True = may NOT attend.  Returns (B, H, Nq, D).  Differentiable in q,
+    k, v: the backward recomputes dense masked attention, as the JAX
+    ``custom_vjp`` does (masked_attention.py:197-212); ``blocked`` gets no
+    gradient."""
+    fwd = masked_mha_ref if q.device.type == "cpu" else _masked_mha_kernel
+    return recompute_vjp(
+        lambda q, k, v: fwd(q, k, v, blocked, scale),
+        lambda q, k, v: dot_product_attention(q, k, v, mask=~blocked[:, None],
+                                              scale=scale),
+        q, k, v)
+
+
+masked_mha.launches = 0
+
+
+def _masked_mha_kernel(q, k, v, blocked, scale):
+    """Launch K3."""
     B, H, Nq, D = q.shape
     Nk = k.shape[2]
     if D != HEAD_DIM:
@@ -99,6 +114,3 @@ def masked_mha(q, k, v, blocked, scale=None):
     cuda_build.check(lib, err, "masked_mha")
     masked_mha.launches += 1
     return out
-
-
-masked_mha.launches = 0

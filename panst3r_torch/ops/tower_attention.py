@@ -13,7 +13,10 @@ On a CPU tensor each wrapper runs its plain PyTorch version
 (``*_ref``), which follows the kernel's semantics: RoPE in f32 rounded to
 the input dtype once, p rounded to the v dtype before both the numerator
 and the row sum, rows without a live key → 0.  On a CUDA tensor it
-launches the kernel or raises; ``launches`` counts the launches.
+launches the kernel or raises; ``launches`` counts the launches.  Both are
+differentiable as the JAX ``custom_vjp``s are (tower_attention.py:229-238,
+:612-621): the backward recomputes the plain version and differentiates
+it; the tables and the key bias get no gradient.
 
 What bounds the kernels on the H100 and what their design does about it
 is noted at the top of each ``.cu`` source.
@@ -25,7 +28,7 @@ import os
 import torch
 
 from panst3r_torch.ops import cuda_build
-from panst3r_torch.ops.attention import NEG_INF
+from panst3r_torch.ops.attention import NEG_INF, recompute_vjp
 from panst3r_torch.ops.rope import apply_rope_tables_f32
 
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -61,6 +64,7 @@ def _softmax_rounded(s, v, extra=None):
     m = s.amax(-1, keepdim=True)
     if extra is not None:
         m = torch.maximum(m, extra[0])
+    m = m.detach()          # a shift: no gradient flows through it
     safe = torch.where(m <= NEG_INF / 2, torch.zeros_like(m), m)
     p = torch.where(s <= NEG_INF / 2, torch.zeros_like(s),
                     torch.exp(s - safe)).to(v.dtype).float()
@@ -125,12 +129,8 @@ def _tables(tabs, B, N, device, name):
     return cos, sin
 
 
-def tower_self_attention(qkv, heads: int, tabs=None, cls_kv=None,
-                         scale=None):
-    """K1.  qkv (B, N, 3C); tabs: optional f32 (cos, sin) (B, N, 64);
-    cls_kv: optional (kc, vc) (B, 1, C).  Returns (B, N, C)."""
-    if qkv.device.type == "cpu":
-        return tower_self_attention_ref(qkv, heads, tabs, cls_kv, scale)
+def _tower_self_kernel(qkv, heads: int, tabs, cls_kv, scale):
+    """Launch K1."""
     import ctypes
 
     B, N, C3 = qkv.shape
@@ -164,21 +164,28 @@ def tower_self_attention(qkv, heads: int, tabs=None, cls_kv=None,
     return out
 
 
+def tower_self_attention(qkv, heads: int, tabs=None, cls_kv=None,
+                         scale=None):
+    """K1.  qkv (B, N, 3C); tabs: optional f32 (cos, sin) (B, N, 64);
+    cls_kv: optional (kc, vc) (B, 1, C).  Returns (B, N, C).
+    Differentiable in qkv and cls_kv through the plain version."""
+    kc, vc = (None, None) if cls_kv is None else cls_kv
+
+    def run(fn):
+        return lambda qkv, kc, vc: fn(qkv, heads, tabs,
+                                      None if kc is None else (kc, vc), scale)
+
+    fwd = tower_self_attention_ref if qkv.device.type == "cpu" \
+        else _tower_self_kernel
+    return recompute_vjp(run(fwd), run(tower_self_attention_ref), qkv, kc,
+                         vc)
+
+
 tower_self_attention.launches = 0
 
 
-def tower_cross_attention(q, k, v, qtab=None, ktab=None, kv_bias=None,
-                          scale=None, kv_int8=None):
-    """K2.  q (B, Nq, C), k/v (B, Nk, C); qtab/ktab: optional f32
-    (cos, sin) tables (B, N, 64), both or neither; kv_bias: optional f32
-    (B, Nk) additive bias.  Returns (B, Nq, C)."""
-    if kv_int8 is None:
-        kv_int8 = os.environ.get("PANST3R_KV_INT8", "0") == "1"
-    if kv_int8 and q.device.type != "cpu":
-        raise NotImplementedError(
-            "tower_cross_attention: the int8 score path is not ported")
-    if q.device.type == "cpu":
-        return tower_cross_attention_ref(q, k, v, qtab, ktab, kv_bias, scale)
+def _tower_cross_kernel(q, k, v, qtab, ktab, kv_bias, scale):
+    """Launch K2."""
     import ctypes
 
     B, Nq, C = q.shape
@@ -212,6 +219,26 @@ def tower_cross_attention(q, k, v, qtab=None, ktab=None, kv_bias=None,
     cuda_build.check(lib, err, "tower_cross_attention")
     tower_cross_attention.launches += 1
     return out
+
+
+def tower_cross_attention(q, k, v, qtab=None, ktab=None, kv_bias=None,
+                          scale=None, kv_int8=None):
+    """K2.  q (B, Nq, C), k/v (B, Nk, C); qtab/ktab: optional f32
+    (cos, sin) tables (B, N, 64), both or neither; kv_bias: optional f32
+    (B, Nk) additive bias.  Returns (B, Nq, C).  Differentiable in q, k, v
+    through the plain version."""
+    if kv_int8 is None:
+        kv_int8 = os.environ.get("PANST3R_KV_INT8", "0") == "1"
+    if kv_int8 and q.device.type != "cpu":
+        raise NotImplementedError(
+            "tower_cross_attention: the int8 score path is not ported")
+
+    def run(fn):
+        return lambda q, k, v: fn(q, k, v, qtab, ktab, kv_bias, scale)
+
+    fwd = tower_cross_attention_ref if q.device.type == "cpu" \
+        else _tower_cross_kernel
+    return recompute_vjp(run(fwd), run(tower_cross_attention_ref), q, k, v)
 
 
 tower_cross_attention.launches = 0

@@ -1,7 +1,9 @@
-"""K1-K4 CUDA kernels against their plain versions at edge shapes (ragged
+"""K1-K5 CUDA kernels against their plain versions at edge shapes (ragged
 tiles, dead key tiles, rows with no live key, strided views), f32 and
-bf16, with the limits of chip_smoke.py.  Needs a CUDA card; skips without one.  On the
-card (no JAX there, so without the repo's conftest):
+bf16, with the limits of chip_smoke.py; gradients through K1-K4 on the
+card against the plain versions'; and a small v2 train step on the card
+against the CPU.  Needs a CUDA card; skips without one.  On the card (no
+JAX there, so without the repo's conftest):
 
     python -m pytest --noconftest -o addopts="" -p no:cacheprovider \
         -m cuda tests/test_torch_cuda.py
@@ -10,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from chip_smoke import F32_TOL, QK_STD, bf16_check
 from panst3r_torch.ops import flash_attention as fa
 from panst3r_torch.ops.image import image_cast
@@ -26,6 +29,7 @@ def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False     # f32 convolutions in f32
     return torch.device("cuda")
 
 
@@ -205,3 +209,90 @@ def test_image_cast_matches_cpu_bit_for_bit(dev):
     for amp in (False, True):
         assert torch.equal(image_cast(img.to(dev), amp).cpu(),
                            image_cast(img, amp))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 96])
+@pytest.mark.parametrize("case", [
+    "plain", "dense_bias", "head_shared_bias", "kv_valid", "key_bias",
+    "bias_and_kv_valid", "rope", "masked_rows", "strided"])
+def test_flash_bwd_kernel(dev, dtype, D, case):
+    """K5's dq, dk, dv against its plain version from K4's own output and
+    LSE: f32 within 1e-4 of the plain gradient's max |value|; bf16 by the
+    bf16 rule, per gradient."""
+    g = torch.Generator(device=dev).manual_seed(D + 1)
+    q, k, v, bias, kv_valid, rope = _flash_inputs(g, dev, dtype, case, D)
+    do = _rnd(g, dev, dtype, *q.shape)
+    kw = dict(bias=bias, kv_valid=kv_valid, rope=rope)
+    o, lse = fa.flash_mha(q, k, v, with_lse=True, **kw)
+    n0 = fa.flash_mha_bwd.launches
+    got = fa.flash_mha_bwd(q, k, v, o, lse, do, **kw)
+    assert fa.flash_mha_bwd.launches == n0 + 2
+    torch.cuda.synchronize()
+    plain = fa.flash_mha_bwd_ref(q, k, v, o, lse, do, **kw)
+    exact = fa.flash_mha_bwd_ref(*_f32((q, k, v, o)), lse, _f32(do), **kw)
+    check = chip_smoke._grad_check(got, plain, exact, dtype)
+    assert all(c["ok"] and c["finite"] for c in check.values()), check
+    if case == "masked_rows":               # rows without a live key
+        assert (got[0][1] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gradients_through_kernels(dev, dtype):
+    """K1-K3 gradients on the card bit-equal to their plain formula's on
+    the same inputs, at small shapes (chip_smoke.py's ``phase_autograd``
+    does it at the main paths'); K4 + K5 through autograd against
+    autograd through ``flash_mha_ref``."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    qkv = _rnd(g, dev, dtype, 2, 300, 384, s=QK_STD).requires_grad_()
+    tabs = rope2d_tables(torch.randint(0, 20, (2, 300, 2), generator=g,
+                                       device=dev), 64)
+    kc = _rnd(g, dev, dtype, 2, 1, 128, s=QK_STD).requires_grad_()
+    vc = _rnd(g, dev, dtype, 2, 1, 128).requires_grad_()
+    q, k, v = (_rnd(g, dev, dtype, 2, n, 128, s=s).requires_grad_()
+               for n, s in ((300, QK_STD), (700, QK_STD), (700, 1.0)))
+    kv_bias = torch.where(torch.rand(2, 700, generator=g, device=dev) < 0.3,
+                          NEG, 0.0)
+    mq, mk, mv = (_rnd(g, dev, dtype, 2, 8, n, 96, s=s).requires_grad_()
+                  for n, s in ((100, QK_STD), (500, QK_STD), (500, 1.0)))
+    blocked = torch.rand(2, 100, 500, generator=g, device=dev) > 0.3
+    from panst3r_torch.ops.attention import dot_product_attention
+    cases = (
+        ((qkv,), lambda x: ta.tower_self_attention(x, 2, tabs),
+         lambda x: ta.tower_self_attention_ref(x, 2, tabs)),
+        ((qkv, kc, vc), lambda x, a, b: ta.tower_self_attention(
+            x, 2, cls_kv=(a, b)),
+         lambda x, a, b: ta.tower_self_attention_ref(x, 2, cls_kv=(a, b))),
+        ((q, k, v), lambda a, b, c: ta.tower_cross_attention(
+            a, b, c, kv_bias=kv_bias),
+         lambda a, b, c: ta.tower_cross_attention_ref(a, b, c,
+                                                      kv_bias=kv_bias)),
+        ((mq, mk, mv), lambda a, b, c: ma.masked_mha(a, b, c, blocked),
+         lambda a, b, c: dot_product_attention(a, b, c,
+                                               mask=~blocked[:, None])),
+    )
+    for ins, fn, plain in cases:
+        out = fn(*ins)
+        cot = torch.randn(out.shape, generator=g, device=dev).to(dtype)
+        got = torch.autograd.grad(out, ins, cot)
+        want = torch.autograd.grad(plain(*ins), ins, cot)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    if dtype == torch.float32:
+        fq, fk, fv = (_rnd(g, dev, dtype, 2, 3, n, 96, s=s).requires_grad_()
+                      for n, s in ((130, QK_STD), (333, QK_STD), (333, 1.0)))
+        cot = torch.randn(2, 3, 130, 96, generator=g, device=dev)
+        n0 = fa.flash_mha_bwd.launches
+        got = torch.autograd.grad(fa.flash_mha(fq, fk, fv), (fq, fk, fv),
+                                  cot)
+        assert fa.flash_mha_bwd.launches == n0 + 2
+        want = torch.autograd.grad(fa.flash_mha_ref(fq, fk, fv),
+                                   (fq, fk, fv), cot)
+        for a, b in zip(got, want):
+            assert (a - b).abs().max() <= 1e-4 * b.abs().max()
+
+
+def test_small_train_step_card_matches_cpu(dev):
+    """A v2 train step at full width and depth 1 (V=2 at 64x96) on the card
+    against the CPU: chip_smoke.py's ``small`` comparison (assignments,
+    loss, gradients, frozen parameters)."""
+    chip_smoke.phase_small_train(shape=(1, 2, 64, 96, 8), depth=1)
