@@ -9,19 +9,22 @@ Run from the root of a checkout.  It builds the CUDA kernels of
 ``panst3r_torch/csrc`` with nvcc (into the git-ignored
 ``panst3r_torch/_build``), then runs, each phase printing JSON lines:
 
-1. ``kernels``: K1 (tower_self), K2 (tower_cross), K3 (masked_attn) and K4
-   (flash_fwd) against their plain PyTorch versions at the main paths'
-   shapes, in f32 and bf16, with the max abs error and its limit, the
-   kernel's time, the plain version's time, one PyTorch library call on the
-   same work (``scaled_dot_product_attention``, a yardstick only — the port
-   never calls it) and the least time the card could take (``bound_ms``);
-   K5 (flash_bwd) likewise against its plain version from K4's own output
-   and LSE, and K4 + K5 through autograd; gradients through K1-K3 on the
-   card bit-equal to their plain formulas';
+1. ``kernels``: K1 (tower_self), K2 (tower_cross), K2-int8
+   (tower_cross_int8), K3 (masked_attn) and K4 (flash_fwd) against their
+   plain PyTorch versions at the main paths' shapes, in f32 and bf16, with
+   the max abs error and its limit, the kernel's time, the plain version's
+   time, one PyTorch library call on the same work
+   (``scaled_dot_product_attention``, a yardstick only — the port never
+   calls it; none computes int8-score attention, so K2-int8 records SDPA
+   for scale and its distance from K2) and the least time the card could
+   take (``bound_ms``); K5 (flash_bwd) likewise against its plain version
+   from K4's own output and LSE, and K4 + K5 through autograd; gradients
+   through K1-K3 on the card bit-equal to their plain formulas';
 2. ``small``: v1 and v2 widths at depth 2 (v2 with its full mixer and
    LoftUp), f32, V=4 / K=3 at 384x512, the same seeded weights on the card
-   (kernels) and on the CPU (plain versions), outputs compared; then one v2
-   train step (B=1, V=3 at 160x512), card against CPU;
+   (kernels) and on the CPU (plain versions), outputs compared; one v2
+   train step (B=1, V=3 at 160x512), card against CPU; one v1 serve wire
+   with cameras, card against CPU;
 3. ``v1`` and ``v2``: the full v1 and v2 main paths
    (``InferenceEngine.run_device`` + ``fuse``, bf16, V=8 / K=4 at 384x512,
    random seeded weights), stage times, peak memory, finiteness and shapes,
@@ -32,6 +35,14 @@ Run from the root of a checkout.  It builds the CUDA kernels of
    B=2 x V=5 at 384x512), step and stage times, peak memory, gradients on
    every trainable leaf, frozen parameters unchanged, launch counts, and a
    profile by kernel;
+5. ``serve``: the v1 serving wire at full width and depth (V=8 / K=4):
+   every ``fusion_res``, cameras, packed YUV420 input, both latency paths
+   and ``serve_stream``, held to the checks of tests/test_serve.py, with
+   times, wire bytes, peak memory and launch counts;
+6. ``serve_long``: V=50 / K=16 from packed YUV420 on the hybrid wire with
+   ``PANST3R_KV_INT8=1``: K2-int8 exactly once per decoder layer per
+   scene, the stream at queue depth 6, the same scene with int8 off, and a
+   profile by kernel;
 
 then one ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``.  Any failed phase raises, and the script exits non-zero without
@@ -40,7 +51,9 @@ the last line.  Without a CUDA device, or outside a checkout, it exits 2.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import functools
 import json
 import math
 import subprocess
@@ -49,7 +62,8 @@ import time
 
 import numpy as np
 
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # H100 SXM, dense
+# H100 SXM, dense: bf16 and f32 FLOP/s, int8 operations/s
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
 HBM_BYTES_PER_S = 3.35e12
 # f32: a kernel within 1e-4 abs of its plain version.  bf16: against the
 # plain version run in f32 on the same (bf16) inputs, the kernel's max abs
@@ -68,15 +82,18 @@ QK_STD = 1.4
 REPLACES = {
     "tower_self": "panst3r_tpu/ops/pallas/tower_attention.py:129",
     "tower_cross": "panst3r_tpu/ops/pallas/tower_attention.py:411",
+    "tower_cross_int8": "panst3r_tpu/ops/pallas/tower_attention.py:411 "
+                        "(kv_int8)",
     "masked_attn": "panst3r_tpu/ops/pallas/masked_attention.py:119",
     "flash_fwd": "panst3r_tpu/ops/pallas/flash_attention.py:171",
     "flash_bwd": "panst3r_tpu/ops/pallas/flash_attention_bwd.py:115",
 }
-PHASES = ("kernels", "small", "v1", "v2", "train_v2")
+PHASES = ("kernels", "small", "v1", "v2", "train_v2", "serve", "serve_long")
 # the case and dtype of each kernel on its main path: K1-K3 under v1's bf16,
 # K4 in LoftUp's f32 (flax promotes that branch to f32 under amp)
 MAIN_CASE = {"tower_self": ("encoder_rope", "bfloat16"),
              "tower_cross": ("render", "bfloat16"),
+             "tower_cross_int8": ("render_long", "bfloat16"),
              "masked_attn": ("mask_transformer", "bfloat16"),
              "flash_fwd": ("loftup", "float32"),
              "flash_bwd": ("loftup_train", "float32")}
@@ -118,8 +135,11 @@ def bf16_check(out, plain, plain_f32) -> dict:
             "ok": kmax <= lmax and krms <= lrms}
 
 
-def bound_ms(flops: float, nbytes: float, dtype: str):
-    t_ops = flops / PEAK_FLOPS[dtype]
+def bound_ms(flops: float, nbytes: float, dtype: str, int8_ops: float = 0):
+    """max(operations over their peak rates, bytes over the HBM rate), in
+    ms, and which of the two bounds it; ``int8_ops`` run at the int8 rate,
+    ``flops`` at ``dtype``'s."""
+    t_ops = flops / PEAK_FLOPS[dtype] + int8_ops / PEAK_FLOPS["int8"]
     t_bytes = nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
@@ -238,6 +258,7 @@ def kernel_cases(dtype, dev):
     valid[0, 640:1600] = False
     valid[1, 2000:] = False
     k2("ragged_dead_tiles", 2, 1000, 2950, valid)
+    cases += _int8_cases(rnd, g, es, dtype, dev)
 
     # K3: mask-transformer cross-attention, 200 queries x 4 views x 768
     # tokens, 8 heads of 96, object-like blocked mask with dead tiles and
@@ -266,6 +287,99 @@ def kernel_cases(dtype, dev):
         pallas_sums=lambda: _masked_mha_pallas_sums(q, k, v, blocked),
         flops=4.0 * H * live_tiles * 64 * 64 * D, bytes=nbytes))
     cases += _k4_cases(rnd, g, es, dtype, dev, blocked)
+    return cases
+
+
+def _by_rows(fn, q, qtab, *rest, rows: int = 4096):
+    """A plain version ``fn(q, k, v, qtab, ...)`` over query chunks of
+    ``rows`` (its rows are independent): the long render's logits would
+    not fit the card in one piece."""
+    import torch
+
+    return torch.cat([fn(q[:, a:a + rows], rest[0], rest[1],
+                         (qtab[0][:, a:a + rows], qtab[1][:, a:a + rows]),
+                         *rest[2:])
+                      for a in range(0, q.shape[1], rows)], 1)
+
+
+# K2-int8 cases: (label, B, Nq, Nk) at C = 768 with RoPE tables
+INT8_CASES = (("render_long", 1, 38400, 12288),     # 50 views x 768 q,
+              ("gate_edge", 1, 16384, 3000),        # 16 keyframes x 768 k
+              ("batch2", 2, 16384, 3072))
+
+
+def _int8_cases(rnd, g, es, dtype, dev):
+    """K2 at the long render shape, and K2-int8 (through the gated
+    ``tower_cross_attention(kv_int8=True)``) at the long render (zero
+    bias), at the gate's edge (Nq = 16384, a ragged Nk, dead key tiles and
+    a soft-biased span) and at B=2 with batch 1's keys three times larger
+    (the per-tensor scale spans the batch).  Each int8 case also carries
+    the bf16/f32 K2 on the same inputs (``vs_k2``) and SDPA at its dtype
+    for scale (``sdpa``); no PyTorch call computes int8-score attention."""
+    import torch
+    import torch.nn.functional as F
+
+    from panst3r_torch.ops import tower_attention as ta
+    from panst3r_torch.ops.rope import apply_rope_tables_f32, rope2d_tables
+
+    cases = []
+    C, NEG = 768, float(torch.finfo(torch.float32).min)
+    for label, B, Nq, Nk in INT8_CASES:
+        q, k = rnd(B, Nq, C, s=QK_STD), rnd(B, Nk, C, s=QK_STD)
+        v = rnd(B, Nk, C)
+        if label == "batch2":
+            k[1] *= 3
+        qtab = rope2d_tables(torch.randint(0, 32, (B, Nq, 2), generator=g,
+                                           device=dev), 64)
+        ktab = rope2d_tables(torch.randint(0, 32, (B, Nk, 2), generator=g,
+                                           device=dev), 64)
+        bias = torch.zeros(B, Nk, device=dev)
+        if label == "gate_edge":
+            bias[:, 640:1600] = NEG
+            bias[:, 100:300] = -0.7
+        live = int((bias > NEG / 2).sum())
+        qh, kh = (apply_rope_tables_f32(t.reshape(B, -1, 12, 64)
+                                        .transpose(1, 2), *tab)
+                  for t, tab in ((q, qtab), (k, ktab)))
+        vh = v.reshape(B, Nk, 12, 64).transpose(1, 2)
+        mask = (bias[:, None, None, :] > NEG / 2)
+        nbytes = (2 * q.numel() + 2 * live * C) * es \
+            + 2 * (B * Nq + live) * 64 * 4 + bias.numel() * 4
+
+        def run(fn, *a, q=q, k=k, v=v, qtab=qtab, ktab=ktab, bias=bias,
+                **kw):
+            return fn(q, k, v, qtab, ktab, bias, *a, **kw)
+
+        def sdpa(qh=qh, kh=kh, vh=vh, mask=mask):
+            return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
+
+        plain = functools.partial(_by_rows, ta.tower_cross_int8_ref)
+        plain_k2 = functools.partial(_by_rows, ta.tower_cross_attention_ref)
+        f32 = (lambda t: t.float())
+        if label == "render_long":
+            cases.append(dict(
+                kernel="tower_cross", case=label,
+                fn=lambda run=run: run(ta.tower_cross_attention,
+                                       kv_int8=False),
+                ref=lambda q=q, k=k, v=v, qtab=qtab, ktab=ktab, bias=bias:
+                    plain_k2(q, qtab, k, v, ktab, bias),
+                f32=lambda q=q, k=k, v=v, qtab=qtab, ktab=ktab, bias=bias:
+                    plain_k2(f32(q), qtab, f32(k), f32(v), ktab, bias),
+                lib=sdpa, flops=4.0 * Nq * live * C, bytes=nbytes,
+                reps=5, plain_reps=2))
+        cases.append(dict(
+            kernel="tower_cross_int8", case=label,
+            fn=lambda run=run: run(ta.tower_cross_attention, kv_int8=True),
+            ref=lambda q=q, k=k, v=v, qtab=qtab, ktab=ktab, bias=bias:
+                plain(q, qtab, k, v, ktab, bias),
+            f32=lambda q=q, k=k, v=v, qtab=qtab, ktab=ktab, bias=bias:
+                plain(f32(q), qtab, f32(k), f32(v), ktab, bias),
+            lib=None, sdpa=sdpa,
+            vs_k2=lambda run=run: run(ta.tower_cross_attention,
+                                      kv_int8=False),
+            flops=2.0 * Nq * live * C, int8_ops=2.0 * Nq * live * C,
+            bytes=nbytes, reps=5 if label == "render_long" else 20,
+            plain_reps=2))
     return cases
 
 
@@ -602,16 +716,30 @@ def phase_kernels():
                 check.update(lse_max_abs_err=lerr, lse_limit=llim,
                              ok=check["ok"] and lerr <= llim)
             finite = bool(torch.isfinite(out).all())
+            reps = c.get("reps", 20)
             row = {
                 "phase": "kernels", "kernel": name, "case": label,
                 "dtype": dname, "shape": list(out.shape),
                 "max_abs_err": err, "finite": finite, "check": check,
                 "ref_max_abs": float(want.abs().max()),
                 "ref_rms": float(want.square().mean().sqrt()),
-                "kernel_ms": time_ms(c["fn"], reps=20),
-                "plain_ms": time_ms(c["ref"], reps=5),
-                "library_ms": time_ms(c["lib"], reps=20),
+                "kernel_ms": time_ms(c["fn"], reps=reps),
+                "plain_ms": time_ms(c["ref"], reps=c.get("plain_reps", 5),
+                                    warmup=1),
+                "library_ms": (time_ms(c["lib"], reps=reps)
+                               if c["lib"] is not None else None),
             }
+            if "sdpa" in c:
+                # no library call computes int8-score attention: SDPA on
+                # the same shape in this dtype, for scale only
+                row["sdpa_ms_for_scale"] = time_ms(c["sdpa"], reps=reps)
+            if "vs_k2" in c:
+                # how far int8 scores move the output from K2's (reported,
+                # not a gate)
+                a, b = out.float().flatten(), c["vs_k2"]().float().flatten()
+                row["vs_tower_cross"] = {
+                    "max_abs_diff": float((a - b).abs().max()),
+                    "cosine": float(a @ b / (a.norm() * b.norm()))}
             if "pallas_sums" in c:
                 # how far the kernel's (and its plain version's) bf16 sums
                 # sit from the Pallas kernel's summation
@@ -621,13 +749,15 @@ def phase_kernels():
                     "plain": float((want - ps).abs().max())}
             # the check plus warm-up and timed launches, from the counter
             row["launches"] = counter.launches - n0
-            row["bound_ms"], row["bound_by"] = bound_ms(c["flops"],
-                                                        c["bytes"], dname)
+            row["bound_ms"], row["bound_by"] = bound_ms(
+                c["flops"], c["bytes"], dname, c.get("int8_ops", 0))
             emit(row)
             if not (finite and check["ok"]):
                 raise AssertionError(f"{name} {label} {dname}: max abs err "
                                      f"{err}, check {check}, finite={finite}")
             rows[(name, label, dname)] = row
+            del out, want
+            torch.cuda.empty_cache()
     return rows
 
 
@@ -666,10 +796,12 @@ def _counters():
     from panst3r_torch.ops.flash_attention import flash_mha, flash_mha_bwd
     from panst3r_torch.ops.masked_attention import masked_mha
     from panst3r_torch.ops.tower_attention import (tower_cross_attention,
+                                                   tower_cross_int8,
                                                    tower_self_attention)
 
     return {"tower_self": tower_self_attention,
             "tower_cross": tower_cross_attention,
+            "tower_cross_int8": tower_cross_int8,
             "masked_attn": masked_mha,
             "flash_fwd": flash_mha,
             "flash_bwd": flash_mha_bwd}
@@ -705,6 +837,7 @@ def expected_launches(cfg, V, K, chunk):
         "masked_attn": pan.mask_transformer.dec_layers,
         "flash_fwd": n_heads * pan.upscaler.num_layers if loftup else 0,
         "flash_bwd": 0,
+        "tower_cross_int8": 0,
     }
 
 
@@ -737,6 +870,7 @@ def expected_train_launches(cfg, V, grid):
         "masked_attn": pan.mask_transformer.dec_layers,
         "flash_fwd": (len(calls) - k2) * dec.depth + loftup,
         "flash_bwd": 2 * loftup,
+        "tower_cross_int8": 0,
     }
 
 
@@ -1123,6 +1257,391 @@ def phase_train_v2():
     return counts_all[0]
 
 
+# ------------------------------------------------------------- serving --
+
+@contextlib.contextmanager
+def _env(name: str, value: str):
+    """Set an environment variable for the block (the engine reads
+    ``PANST3R_KV_INT8`` at call time, as the JAX package does)."""
+    import os
+
+    old = os.environ.get(name)
+    os.environ[name] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = old
+
+
+def expected_serve_launches(cfg, V, K, N, path="serve", upload_chunk=None,
+                            render_chunk=4, int8=False):
+    """Launches per kernel for one scene through a serve path: the towers
+    once over all V views (``serve``) or once per upload chunk (``latency``,
+    ``overlap``); the decoder once per memory update and per render call,
+    the render one call over all V views except in ``overlap``, which
+    renders the keyframes ``render_chunk`` views a call and the other views
+    in one call; a render call runs K2-int8 where its gate opens (``int8``
+    and Nq >= 16384); the mask transformer once (the keyframe call); the
+    v2 head's mixer and LoftUp once per head call."""
+    from panst3r_torch.models.upscalers import LoftUpUpscalerConfig
+    from panst3r_torch.ops.tower_attention import _INT8_MIN_NQ
+
+    n_updates = len(cfg.mem_batches(K))
+    towers = 1 if path == "serve" else math.ceil(V / upload_chunk)
+    if path == "overlap" and V > K:
+        renders = [min(render_chunk, K - s) * N
+                   for s in range(0, K, render_chunk)] + [(V - K) * N]
+    else:
+        renders = [V * N]
+    r8 = sum(int8 and nq >= _INT8_MIN_NQ for nq in renders)
+    dec = cfg.decoder.depth
+    pan = cfg.panoptic
+    n_heads = 2 if V > K else 1
+    mixer = pan.input_mixer.num_layers if pan.input_mixer else 0
+    loftup = isinstance(pan.upscaler, LoftUpUpscalerConfig)
+    return {
+        "tower_self": towers * (cfg.encoder.depth + cfg.dino.depth)
+        + (n_updates + len(renders)) * dec + n_heads * mixer,
+        "tower_cross": (n_updates + len(renders) - r8) * dec,
+        "masked_attn": pan.mask_transformer.dec_layers,
+        "flash_fwd": n_heads * pan.upscaler.num_layers if loftup else 0,
+        "flash_bwd": 0,
+        "tower_cross_int8": r8 * dec,
+    }
+
+
+def _timed(fn, *args, **kwargs):
+    """(host numpy wire, seconds) of one synchronized serve call, the
+    wire's download included."""
+    import torch
+
+    from panst3r_torch.engine.inference import fetch_wire
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wire = fetch_wire(fn(*args, **kwargs))
+    return wire, time.perf_counter() - t0
+
+
+def wire_agreement(a: dict, b: dict, conf_atol: float) -> dict:
+    """pan, seg_ids, labels and selected equal; conf within ``conf_atol``
+    (both unpacked wires)."""
+    eq = {k: bool(np.array_equal(a[k], b[k]))
+          for k in ("pan", "seg_ids", "labels", "selected")}
+    cdiff = float(np.abs(a["conf"] - b["conf"]).max())
+    eq["conf_max_abs_diff"] = cdiff
+    eq["ok"] = all(eq[k] for k in ("pan", "seg_ids", "labels", "selected")) \
+        and cdiff <= conf_atol + 1e-6
+    return eq
+
+
+def _pooled(conf, s):
+    V, H, W = conf.shape
+    c = conf.reshape(V, H // s, s, W // s, s).mean((2, 4))
+    return c.repeat(s, axis=1).repeat(s, axis=2)
+
+
+def segment_classes(eng, images, portrait, ncls: int = 32,
+                    alive: int = 4) -> np.ndarray:
+    """(ncls, lang_dim) class embeddings under which only queries
+    0..alive-1 pass the class threshold of fusion on this scene.  With
+    random weights every query passes it with random class embeddings,
+    the queries split the pixels, none passes the overlap test and every
+    map is void; a few live queries give real segments, so the wire
+    comparisons compare something.  The embeddings enter only the class
+    logits, which are linear in them: one probe with the identity gives
+    the logits' matrix, least squares the embeddings for logits of +4
+    (query i, class i) and -8 elsewhere."""
+    lang = eng.model.config.panoptic.mask_transformer.lang_dim
+    probe = eng.run_fused(images, portrait, np.eye(lang, dtype=np.float32))
+    probe = probe["pred_logits"].double().cpu().numpy()       # (Q, lang)
+    target = np.tile(-8.0 - 0.5 * np.arange(ncls), (probe.shape[0], 1))
+    for i in range(alive):
+        target[i, i] = 4.0
+    return np.linalg.lstsq(probe, target, rcond=None)[0].T.astype(np.float32)
+
+
+def phase_serve():
+    """The v1 serving wire at full width and depth (bf16, random weights
+    from seed 0, V=8 / K=4 at 384x512, 32 classes): ``serve_device`` with
+    every ``fusion_res`` and with cameras, the same from packed YUV420,
+    both latency paths (upload chunk 2) and ``serve_stream`` over 8 scenes
+    at queue depth 2, each held to the checks of tests/test_serve.py, with
+    launch counts, times, wire bytes and peak memory.  Returns the launches
+    of one ``serve_device`` scene."""
+    import torch
+
+    from panst3r_torch.core.bucketing import Bucket
+    from panst3r_torch.engine.inference import InferenceEngine, fetch_wire
+    from panst3r_torch.models.panst3r import build_model
+    from panst3r_torch.ops.image import rgb_to_yuv420, yuv420_decode
+
+    cfg = _config("v1")
+    V, K, H, W, chunk = 8, 4, 384, 512, 4
+    images, portrait, cls_emb = _inputs(V, H, W)
+    eng = InferenceEngine(build_model(cfg, seed=0), Bucket(H, W),
+                          num_keyframes=K, chunk=chunk, amp=True)
+    N = eng.n_tokens
+    cls_emb = segment_classes(eng, images, portrait)
+    port, cls = (torch.as_tensor(a, device="cuda") for a in (portrait,
+                                                             cls_emb))
+    unpack = eng.unpack_wire
+    checks, secs, nbytes, counts = {}, {}, {}, {}
+    eng.serve_device(images, port, cls)                        # warm-up
+
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    wire, secs["serve_device_full"] = _timed(eng.serve_device, images, port,
+                                             cls)
+    counts["serve"] = _read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    nbytes["full"] = wire.nbytes
+    full = unpack(wire, V)
+    pan, conf, seg, lab, sel = (fetch_wire(t) for t in eng.fuse_device(
+        eng.run_fused(images, port, cls), (H, W)))
+    fused = {"pan": pan[0], "conf": conf[0], "seg_ids": seg[0],
+             "labels": lab[0], "selected": sel[0].astype(bool)}
+    checks["full_vs_fuse_device"] = wire_agreement(full, fused, 1.0 / 255)
+    checks["segments"] = {"n": int(full["selected"].sum()),
+                          "pan_assigned_share": float((full["pan"] > 0)
+                                                      .mean())}
+    checks["segments"]["ok"] = checks["segments"]["n"] > 0
+
+    for fr, s in (("hybrid", 2), ("hybrid4", 4), ("mask", 0)):
+        w, secs[f"serve_device_{fr}"] = _timed(eng.serve_device, images,
+                                               port, cls, fusion_res=fr)
+        nbytes[fr] = w.nbytes
+        dec = unpack(w, V)
+        if s:
+            ref = dict(full, conf=_pooled(full["conf"], s))
+            checks[fr] = wire_agreement(dec, ref, 2.0 / 255)
+        else:
+            out = eng.run_fused(images, port, cls)
+            hm, wm = out["pred_masks"].shape[-2:]
+            p_half = fetch_wire(eng.fuse_device(out, (hm, wm))[0])[0]
+            up = p_half.repeat(H // hm, axis=1).repeat(W // wm, axis=2)
+            checks[fr] = {"pan_vs_fuse_at_mask_res":
+                          bool(np.array_equal(dec["pan"], up)),
+                          "shape": list(dec["pan"].shape)}
+            checks[fr]["ok"] = checks[fr]["pan_vs_fuse_at_mask_res"]
+
+    w, secs["serve_device_cameras"] = _timed(
+        eng.serve_device, images, port, cls, with_cameras=True)
+    dec = unpack(w, V, with_cameras=True)
+    checks["cameras"] = {
+        "pan_equal": bool(np.array_equal(dec["pan"], full["pan"])),
+        "finite": bool(np.isfinite(dec["focals"]).all()
+                       and np.isfinite(dec["cam2world"]).all()),
+        "last_row": bool(np.array_equal(dec["cam2world"][:, 3],
+                                        np.tile([0, 0, 0, 1.0], (V, 1))))}
+    checks["cameras"]["ok"] = all(checks["cameras"].values())
+
+    packed = rgb_to_yuv420(images)
+    decoded = fetch_wire(yuv420_decode(torch.as_tensor(packed,
+                                                       device="cuda")))
+    yuv = {}
+    for fr in ("full", "hybrid", "hybrid4", "mask"):
+        wp, secs[f"serve_device_yuv_{fr}"] = _timed(
+            eng.serve_device, packed, port, cls, fusion_res=fr)
+        wd = fetch_wire(eng.serve_device(decoded, port, cls, fusion_res=fr))
+        yuv[fr] = bool(np.array_equal(wp, wd))
+        if fr == "full":
+            w_yuv = wp
+    checks["yuv_equals_decoded_rgb"] = dict(yuv, ok=all(yuv.values()))
+    nbytes["upload_rgb"], nbytes["upload_yuv"] = images.nbytes, packed.nbytes
+
+    lat = {}
+    for name, fn, path in (
+            ("latency", eng.serve_latency_device, "latency"),
+            ("overlap", eng.serve_latency_overlap, "overlap")):
+        fn(images, port, cls, chunk=2)                         # warm-up
+        _reset_counts()
+        w, secs[f"serve_{name}"] = _timed(fn, images, port, cls, chunk=2)
+        counts[name] = _read_counts()
+        want = expected_serve_launches(cfg, V, K, N, path, upload_chunk=2,
+                                       render_chunk=chunk)
+        lat[name] = wire_agreement(unpack(w, V), full, 1.0 / 255)
+        lat[name]["launches_ok"] = counts[name] == want
+        wy = fetch_wire(fn(packed, port, cls, chunk=2))
+        lat[name]["yuv_wire_equal"] = bool(np.array_equal(wy, w_yuv))
+        lat[name]["ok"] = lat[name]["ok"] and lat[name]["launches_ok"]
+    checks.update(lat)
+
+    scenes = [np.ascontiguousarray(np.roll(images, s + 1, axis=0))
+              for s in range(8)]
+    seq_t0 = time.perf_counter()
+    seq = [unpack(fetch_wire(eng.serve_device(sc, port, cls,
+                                              fusion_res="hybrid")), V)
+           for sc in scenes]
+    secs["sequential_8_scenes"] = time.perf_counter() - seq_t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stream = list(eng.serve_stream(scenes, port, cls, queue_depth=2,
+                                   fusion_res="hybrid"))
+    secs["stream_8_scenes"] = time.perf_counter() - t0
+    same = [wire_agreement(a, b, 0.0)["ok"] for a, b in zip(stream, seq)]
+    checks["stream"] = {"n": len(stream),
+                        "ok": len(stream) == len(seq) and all(same)}
+
+    want = expected_serve_launches(cfg, V, K, N)
+    checks["launches"] = {"serve": counts["serve"], "expected": want,
+                          "ok": counts["serve"] == want}
+    emit({"phase": "serve", "views": V, "keyframes": K, "hw": [H, W],
+          "scene_s": secs, "stream_views_per_s": 8 * V /
+          secs["stream_8_scenes"], "sequential_views_per_s":
+          8 * V / secs["sequential_8_scenes"], "wire_bytes": nbytes,
+          "peak_mem_gib": peak, "launches": counts, "checks": checks})
+    bad = [k for k, c in checks.items() if not c["ok"]]
+    if bad:
+        raise AssertionError(f"serve: failed checks {bad}: "
+                             f"{ {k: checks[k] for k in bad} }")
+    del eng
+    torch.cuda.empty_cache()
+    return counts["serve"]
+
+
+def phase_serve_long():
+    """The long-memory serving regime: v1 at full width and depth, V=50
+    views and K=16 keyframes at 384x512 from packed YUV420, the hybrid wire,
+    ``PANST3R_KV_INT8=1``: one ``serve_device`` scene (K2-int8 exactly once
+    per decoder layer, in the one render call of Nq = 50·768), the stream
+    over 4 scenes at queue depth 6, and the same scene with int8 off (the
+    share of pan pixels the two wires agree on, and the largest change int8
+    makes to the raw outputs of ``run_fused``, are reported, not gated).
+    Returns the launches of the int8 scene."""
+    import torch
+
+    from panst3r_torch.core.bucketing import Bucket
+    from panst3r_torch.engine.inference import InferenceEngine
+    from panst3r_torch.models.panst3r import build_model
+    from panst3r_torch.ops.image import rgb_to_yuv420
+
+    cfg = _config("v1")
+    V, K, H, W = 50, 16, 384, 512
+    images, portrait, cls_emb = _inputs(V, H, W)
+    scenes = [rgb_to_yuv420(np.roll(images, 7 * s, axis=0))
+              for s in range(4)]
+    eng = InferenceEngine(build_model(cfg, seed=0), Bucket(H, W),
+                          num_keyframes=K, chunk=4, amp=True)
+    with _env("PANST3R_KV_INT8", "1"):
+        cls_emb = segment_classes(eng, scenes[0], portrait)
+    port, cls = (torch.as_tensor(a, device="cuda") for a in (portrait,
+                                                             cls_emb))
+    kw = dict(fusion_res="hybrid")
+    want = expected_serve_launches(cfg, V, K, eng.n_tokens, int8=True)
+    res = {"phase": "serve_long", "views": V, "keyframes": K, "hw": [H, W],
+           "input": "yuv420", "wire": "hybrid"}
+    with _env("PANST3R_KV_INT8", "1"):
+        eng.serve_device(scenes[0], port, cls, **kw)           # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        wire8, res["scene_s"] = _timed(eng.serve_device, scenes[0], port,
+                                       cls, **kw)
+        counts = _read_counts()
+        res["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        _reset_counts()
+        t0 = time.perf_counter()
+        stream = list(eng.serve_stream(scenes, port, cls, queue_depth=6,
+                                       **kw))
+        res["stream_4_scenes_s"] = time.perf_counter() - t0
+        stream_counts = _read_counts()
+        profile = _profile(lambda: eng.serve_device(scenes[0], port, cls,
+                                                    **kw).cpu())
+        out8 = eng.run_fused(scenes[0], port, cls)
+    with _env("PANST3R_KV_INT8", "0"):
+        _reset_counts()
+        wire16, res["scene_int8_off_s"] = _timed(eng.serve_device, scenes[0],
+                                                 port, cls, **kw)
+        counts_off = _read_counts()
+        out16 = eng.run_fused(scenes[0], port, cls)
+    # how far int8 scores move the pipeline's raw outputs (reported)
+    res["int8_vs_bf16_max_abs_diff"] = {
+        k: float((out8[k].float() - out16[k].float()).abs().max())
+        for k in ("pointmaps_raw", "pred_logits", "pred_masks")}
+    res["int8_vs_bf16_max_abs"] = {
+        k: float(out16[k].float().abs().max())
+        for k in ("pointmaps_raw", "pred_logits", "pred_masks")}
+    del out8, out16
+    dec8, dec16 = eng.unpack_wire(wire8, V), eng.unpack_wire(wire16, V)
+    res.update(
+        stream_views_per_s=4 * V / res["stream_4_scenes_s"],
+        scene_views_per_s=V / res["scene_s"], wire_bytes=wire8.nbytes,
+        upload_bytes=scenes[0].nbytes, launches=counts,
+        expected_launches=want, stream_launches=stream_counts,
+        launches_int8_off=counts_off,
+        pan_agree_int8_vs_bf16=float((dec8["pan"] == dec16["pan"]).mean()),
+        stream_first_equals_scene=wire_agreement(stream[0], dec8, 0.0)["ok"],
+        n_segments=int(dec8["selected"].sum()),
+        n_segments_int8_off=int(dec16["selected"].sum()),
+        pan_assigned_share=float((dec8["pan"] > 0).mean()))
+    emit(res)
+    emit({"phase": "serve_long_profile", **profile})
+    want_off = dict(want, tower_cross=want["tower_cross"]
+                    + want["tower_cross_int8"], tower_cross_int8=0)
+    want_stream = {k: 4 * n for k, n in want.items()}
+    if counts != want or counts_off != want_off \
+            or stream_counts != want_stream:
+        raise AssertionError(
+            f"serve_long: launches {counts} / off {counts_off} / stream "
+            f"{stream_counts} != {want} / {want_off} / {want_stream}")
+    if not (res["stream_first_equals_scene"] and len(stream) == 4
+            and dec8["pan"].shape == (V, H, W)):
+        raise AssertionError(f"serve_long: wrong outputs {res}")
+    del eng
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_small_serve():
+    """``serve_device(with_cameras=True)`` at full width and depth 2 (f32,
+    V=4 / K=3 at 384x512) on the card and on the CPU from the same weights:
+    seg_ids, labels and selected equal, pan equal on >= 99.9% of pixels,
+    focals and cam2world within 1e-3 of the CPU's, relative to the largest
+    |value| of each."""
+    import torch
+
+    from panst3r_torch.core.bucketing import Bucket
+    from panst3r_torch.engine.inference import InferenceEngine
+    from panst3r_torch.models.panst3r import build_model
+
+    cfg = _config("v1", depth=2)
+    V, K = 4, 3
+    images, portrait, cls_emb = _inputs(V)
+    cpu_model = build_model(cfg, device="cpu", seed=0)
+    gpu_model = build_model(cfg, device="cuda", seed=1)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    dec = {}
+    for name, model in (("cpu", cpu_model), ("cuda", gpu_model)):
+        eng = InferenceEngine(model, Bucket(384, 512), num_keyframes=K,
+                              chunk=4, amp=False, device=name)
+        if name == "cpu":
+            cls_emb = segment_classes(eng, images, portrait)
+        dec[name] = eng.unpack_wire(
+            eng.serve_device(images, portrait, cls_emb, with_cameras=True),
+            V, with_cameras=True)
+    a, b = dec["cuda"], dec["cpu"]
+    row = {"phase": "small", "model": "v1_serve", "compare": "cuda_vs_cpu",
+           "pan_agree": float((a["pan"] == b["pan"]).mean()),
+           "n_segments": int(b["selected"].sum())}
+    for k in ("seg_ids", "labels", "selected"):
+        row[k + "_equal"] = bool(np.array_equal(a[k], b[k]))
+    for k in ("focals", "cam2world"):
+        row[k + "_rel_err"] = float(np.abs(a[k] - b[k]).max()
+                                    / np.abs(b[k]).max())
+    emit(row)
+    if not (row["pan_agree"] >= 0.999 and row["n_segments"] > 0
+            and row["seg_ids_equal"]
+            and row["labels_equal"] and row["selected_equal"]
+            and row["focals_rel_err"] <= 1e-3
+            and row["cam2world_rel_err"] <= 1e-3):
+        raise AssertionError(f"small v1_serve: card and CPU disagree {row}")
+    del cpu_model, gpu_model
+    torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------------------ main --
 
 def main(argv=None) -> int:
@@ -1165,19 +1684,25 @@ def main(argv=None) -> int:
         phase_small("v1")
         phase_small("v2")
         phase_small_train()
+        phase_small_serve()
     launches = {p: phase_full(p) for p in ("v1", "v2") if p in phases}
     if "train_v2" in phases:
         launches["train_v2"] = phase_train_v2()
+    if "serve" in phases:
+        launches["serve"] = phase_serve()
+    if "serve_long" in phases:
+        launches["serve_long"] = phase_serve_long()
 
     kernels = []
     for name, (case, dname) in MAIN_CASE.items():
         r = rows.get((name, case, dname), {})
+        # this slice's path is serve_long; K4 and K5 run only in train_v2
+        on_path = launches.get("serve_long", {}).get(name)
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"panst3r_torch/csrc/{name}.cu",
             "replaces": REPLACES[name],
-            # this slice's path: one train_v2 micro-step runs all five
-            "launches": launches.get("train_v2", {}).get(name),
+            "launches": on_path or launches.get("train_v2", {}).get(name),
             "launches_by_path": {p: c.get(name) for p, c in launches.items()},
             "case": case, "dtype": dname,
             "max_abs_err": r.get("max_abs_err"), "ms": r.get("kernel_ms"),

@@ -19,6 +19,10 @@ class Bucket:
     def __post_init__(self):
         assert self.width >= self.height, "buckets are landscape-canonical"
 
+    @property
+    def shape(self) -> tuple[int, int]:
+        return (self.height, self.width)
+
     def grid(self, patch_size: int) -> tuple[int, int]:
         assert self.height % patch_size == 0 and self.width % patch_size == 0
         return (self.height // patch_size, self.width // patch_size)

@@ -17,12 +17,27 @@ Pipeline:
   5. masks back to input order.
 
 ``amp`` casts the floating parameters to bf16 and normalizes uint8 images
-in bf16 (as the JAX engine does).  ``run_fused``, the serving paths,
-``MultiBucketEngine`` and retrieval keyframes wait for later slices.
+in bf16 (as the JAX engine does).
+
+The serving wire path (the JAX engine's one-program serving, here eager
+calls with the same shapes): ``run_fused`` runs the encoder and DINO on
+all V views in one batch and renders ALL V views in ONE decoder call
+(``Nq = V·N``, which opens K2-int8's gate at render-scale V), then the
+keyframe and non-keyframe head calls; ``serve_device`` adds the on-device
+fusion, 8-bit quantization, optional cameras (``engine/pose.py``) and
+retrieval keyframes, and packs one uint8/uint16 wire buffer that
+``unpack_wire`` decodes on the host.  ``serve_latency_device`` and
+``serve_latency_overlap`` upload in chunks (packed YUV420 decoded per
+chunk) and run the towers per chunk; ``serve_stream`` pipelines scenes
+with a fetcher thread.  Every input may be packed YUV420
+(``ops/image.py``).  ``serve_many_device`` and ``MultiBucketEngine`` wait
+for later slices and raise.
 """
 from __future__ import annotations
 
 import dataclasses
+import queue as _queue
+import threading
 from typing import Optional
 
 import numpy as np
@@ -33,14 +48,12 @@ from panst3r_torch.core.device import resolve_device, tick
 from panst3r_torch.models import memory as memlib
 from panst3r_torch.models.decoder import postprocess
 from panst3r_torch.models.panst3r import PanSt3R
-from panst3r_torch.ops.image import image_cast
+from panst3r_torch.engine.retrieval import (
+    select_keyframes_linspace, select_keyframes_retrieval,
+    select_keyframes_retrieval_device)
+from panst3r_torch.ops.image import image_cast, is_packed_yuv, yuv420_decode
 
-
-def select_keyframes_linspace(n_views: int, num_keyframes) -> list[int]:
-    """Uniform keyframe selection (panst3r_tpu/engine/retrieval.py:242)."""
-    if num_keyframes is None or num_keyframes >= n_views:
-        return list(range(n_views))
-    return np.linspace(0, n_views - 1, num_keyframes, dtype=int).tolist()
+_FUSION_RES = ("full", "mask", "hybrid", "hybrid4")
 
 
 @dataclasses.dataclass
@@ -116,13 +129,16 @@ class InferenceEngine:
     @torch.inference_mode()
     def run_device(self, images, portrait, cls_embeddings,
                    num_keyframes: Optional[int] = None,
-                   stage_times: Optional[dict] = None) -> dict:
+                   stage_times: Optional[dict] = None,
+                   use_retrieval: bool = False) -> dict:
         """Device-resident pipeline.  images (V, H, W, 3) uint8 or float
         ([-1, 1]); portrait (V,) bool; cls_embeddings (ncls, lang_dim).
         Returns device tensors {pointmaps_raw (V, H, W, 7), pred_logits
         (Q, ncls), pred_masks (V, Q, Hm, Wm), out_queries, keyframes}.
         ``stage_times``: a dict to receive per-stage seconds (the device is
-        synchronized at each stage boundary only when it is given)."""
+        synchronized at each stage boundary only when it is given).
+        ``use_retrieval``: keyframes by pooled-cosine retrieval on the host
+        instead of linspace."""
         dev = self.device
         V = images.shape[0]
         K = min(num_keyframes or self.num_keyframes, V)
@@ -134,7 +150,10 @@ class InferenceEngine:
 
         x, pos = self.encode_batch(images)
         t = self._tick(stage_times, "encoder", t)
-        keyframes = select_keyframes_linspace(V, K)
+        if use_retrieval and V > K:
+            keyframes = select_keyframes_retrieval(x.float(), K)
+        else:
+            keyframes = select_keyframes_linspace(V, K)
         not_keyframes = sorted(set(range(V)) - set(keyframes))
         kf = torch.as_tensor(keyframes, device=dev)
         mem = self.build_memory(x[kf], pos[kf])
@@ -144,35 +163,39 @@ class InferenceEngine:
         dino_all = self.dino_batch(images)
         t = self._tick(stage_times, "dino", t)
 
-        def head_inputs(idx):
-            return ((x[idx][None], y_all[idx][None], dino_all[idx][None]),
-                    image_cast(images[idx], self.amp)[None], pos[idx][None],
-                    portrait[idx][None], cls_emb, self.grid)
-
-        panout_kf = self.model.panoptic(*head_inputs(kf),
-                                        deep_supervision=False)
-        masks = [panout_kf["pred_masks"][0]]
-        if not_keyframes:
-            nk = torch.as_tensor(not_keyframes, device=dev)
-            panout_nk = self.model.panoptic(
-                *head_inputs(nk), memory_queries=panout_kf["out_queries"])
-            masks.append(panout_nk["pred_masks"][0])
-        inv = torch.as_tensor(np.argsort(keyframes + not_keyframes),
-                              device=dev)
-        masks = torch.cat(masks)[inv]
+        nk = torch.as_tensor(not_keyframes, dtype=torch.int64, device=dev)
+        out = self._heads(image_cast(images, self.amp), x, y_all, dino_all,
+                          pos, portrait, cls_emb, kf, nk)
         self._tick(stage_times, "panoptic", t)
-        return {
-            "pointmaps_raw": pm_all,
-            "pred_logits": panout_kf["pred_logits"][0],
-            "pred_masks": masks,
-            "out_queries": panout_kf["out_queries"][0],
-            "keyframes": list(keyframes),
-        }
+        return {"pointmaps_raw": pm_all, **out, "keyframes": list(keyframes)}
+
+    def _heads(self, img, x, y, dino, pos, portrait, cls_emb, kf, nk) -> dict:
+        """The keyframe head call (joint mask-transformer decode), then the
+        other views' call with the frozen keyframe queries (two calls, as
+        in the JAX engine); masks back to input order.  ``img``: the cast
+        images; ``kf`` / ``nk``: index tensors."""
+        def head(idx, queries=None):
+            return self.model.panoptic(
+                (x[idx][None], y[idx][None], dino[idx][None]), img[idx][None],
+                pos[idx][None], portrait[idx][None], cls_emb, self.grid,
+                memory_queries=queries,
+                deep_supervision=False if queries is None else None)
+
+        panout_kf = head(kf)
+        masks = [panout_kf["pred_masks"][0]]
+        if nk.numel():
+            masks.append(head(nk, panout_kf["out_queries"])["pred_masks"][0])
+        inv = torch.argsort(torch.cat([kf, nk]))
+        return {"pred_logits": panout_kf["pred_logits"][0],
+                "pred_masks": torch.cat(masks)[inv],
+                "out_queries": panout_kf["out_queries"][0]}
 
     def run(self, images, portrait, cls_embeddings,
-            num_keyframes: Optional[int] = None) -> dict:
+            num_keyframes: Optional[int] = None,
+            use_retrieval: bool = False) -> dict:
         """run_device + postprocess, returned as host numpy arrays (f32)."""
-        out = self.run_device(images, portrait, cls_embeddings, num_keyframes)
+        out = self.run_device(images, portrait, cls_embeddings, num_keyframes,
+                              use_retrieval=use_retrieval)
         post = postprocess(out["pointmaps_raw"].float())
 
         def host(t):
@@ -198,3 +221,423 @@ class InferenceEngine:
                 torch.as_tensor(out_device["pred_logits"])[None].float(),
                 torch.as_tensor(out_device["pred_masks"])[None].float(),
                 true_shape, **fusion_kw)
+
+    def fuse_device(self, out_device: dict, true_shape: tuple[int, int],
+                    label_mode: str = "sigmoid", niters: int = 2):
+        """Fusion kept on the device: (pan (1, V, H, W) int32, conf,
+        seg_ids, labels, selected) as device tensors."""
+        from panst3r_torch.engine.fusion import _fusion_full
+
+        with torch.inference_mode():
+            return _fusion_full(
+                torch.as_tensor(out_device["pred_logits"])[None].float(),
+                torch.as_tensor(out_device["pred_masks"])[None].float(),
+                tuple(true_shape), label_mode, 0.1, None, 0.25, 0.5, niters,
+                0.1)
+
+    # ---- serving wire path: one upload, one wire download per scene ----
+
+    def _upload(self, x):
+        """A host array (or tensor) on the engine's device; host memory is
+        pinned first so that the copy is asynchronous on the card."""
+        t = torch.as_tensor(x)
+        if self.device.type == "cuda" and t.device.type == "cpu":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.to(self.device)
+
+    def _scene_args(self, portrait, cls_embeddings):
+        return (self._upload(portrait),
+                self._upload(cls_embeddings).to(self.dtype))
+
+    def _towers(self, images):
+        """Raw images (uint8, float or packed YUV420) on the device → cast
+        images and the encoder and DINO tokens of all of them in one
+        batch each."""
+        img = image_cast(images, self.amp)
+        x, pos = self.model.encode(img[None])
+        dino = self.model.encode_dino(img[None])
+        return img, x[0], pos[0], dino[0]
+
+    def _pipeline_tail(self, img, x, pos, dino, portrait, cls_emb, K: int,
+                       keyframe_mode: str = "linspace") -> dict:
+        """After the towers: keyframes → memory → ONE render of all views →
+        the keyframe head call → the non-keyframe call with the frozen
+        queries; masks back to input order."""
+        V = x.shape[0]
+        dev = x.device
+        if keyframe_mode == "retrieval":
+            kf = select_keyframes_retrieval_device(x, K)
+            is_kf = torch.zeros(V, dtype=torch.int32, device=dev) \
+                .index_fill(0, kf, 1)
+            nk = torch.argsort(is_kf, stable=True)[:V - K]
+        elif keyframe_mode == "linspace":
+            keyframes = select_keyframes_linspace(V, K)
+            kf = torch.as_tensor(keyframes, device=dev)
+            nk = torch.as_tensor(sorted(set(range(V)) - set(keyframes)),
+                                 dtype=torch.int64, device=dev)
+        else:
+            raise ValueError(f"keyframe_mode {keyframe_mode!r}")
+        mem = self.build_memory(x[kf], pos[kf])
+        pm, y = self.model.decoder_render(x[None], pos[None], mem, self.grid)
+        return {"pointmaps_raw": pm[0],           # already input order
+                **self._heads(img, x, y[0], dino, pos, portrait, cls_emb, kf,
+                              nk),
+                "keyframes_dev": kf}
+
+    def _fused(self, images, portrait, cls_emb, K: int,
+               keyframe_mode: str = "linspace") -> dict:
+        img, x, pos, dino = self._towers(images)
+        return self._pipeline_tail(img, x, pos, dino, portrait, cls_emb, K,
+                                   keyframe_mode)
+
+    @torch.inference_mode()
+    def run_fused(self, images, portrait, cls_embeddings,
+                  num_keyframes: Optional[int] = None) -> dict:
+        """The one-program pipeline's order of work (linspace keyframes):
+        device tensors like ``run_device`` plus ``keyframes``."""
+        V = images.shape[0]
+        K = min(num_keyframes or self.num_keyframes, V)
+        portrait, cls_emb = self._scene_args(portrait, cls_embeddings)
+        out = self._fused(self._upload(images), portrait, cls_emb, K)
+        out["keyframes"] = select_keyframes_linspace(V, K)
+        return out
+
+    def _pack_wire(self, out: dict, cls_emb, V: int, label_mode: str,
+                   niters: int, fusion_res: str, with_cameras: bool,
+                   keyframe_mode: str) -> torch.Tensor:
+        """Fusion + 8-bit quantization + wire packing of a pipeline output:
+        [pan | conf | seg_ids | labels | selected | keyframes? | cameras?]
+        as one uint8 wire (uint16 when an id may not fit a byte).
+        ``fusion_res``: "full" fuses at (H, W); "mask" at the mask
+        resolution (pan and conf at half size); "hybrid" / "hybrid4" fuse
+        at (H, W) and ship conf 2×2 / 4×4 mean-pooled."""
+        from panst3r_torch.engine.fusion import _fusion_full
+
+        if fusion_res not in _FUSION_RES:
+            raise ValueError(f"fusion_res {fusion_res!r} not in {_FUSION_RES}")
+        H, W = self.bucket.shape
+        Q = self.model.config.panoptic.mask_transformer.num_queries
+        ncls = cls_emb.shape[0]
+        kf_max = V if keyframe_mode == "retrieval" else 0
+        wdtype = (torch.uint8 if Q < 255 and ncls < 255 and kf_max <= 255
+                  else torch.uint16)
+        fh, fw = (tuple(out["pred_masks"].shape[-2:])
+                  if fusion_res == "mask" else (H, W))
+        pan, conf, seg_ids, labels, selected = _fusion_full(
+            out["pred_logits"][None].float(), out["pred_masks"][None].float(),
+            (fh, fw), label_mode, 0.1, None, 0.25, 0.5, niters, 0.1)
+        conf_hw = conf[0]
+        if fusion_res.startswith("hybrid"):
+            s = int(fusion_res[6:] or 2)
+            if fh % s or fw % s:
+                raise ValueError(f"fusion_res={fusion_res!r}: fusion grid "
+                                 f"{fh}x{fw} not divisible by {s}")
+            conf_hw = conf_hw.reshape(V, fh // s, s, fw // s, s) \
+                .mean(dim=(2, 4))
+        conf_q = torch.clamp(conf_hw * 255.0, 0, 255)
+        # parts are made in int32 and cast once: the card's torch may lack
+        # kernels for the unsigned 16-bit type beyond a copy
+        parts = [pan[0].reshape(-1).to(torch.int32),
+                 conf_q.reshape(-1).to(torch.int32),
+                 seg_ids[0].to(torch.int32), labels[0].to(torch.int32),
+                 selected[0].to(torch.int32)]
+        if keyframe_mode == "retrieval":
+            parts.append(out["keyframes_dev"].to(torch.int32))
+        if with_cameras:
+            from panst3r_torch.engine.pose import recover_cameras
+            from panst3r_torch.models.decoder import postprocess
+
+            post = postprocess(out["pointmaps_raw"].float())
+            focals, c2w = recover_cameras(post, (H, W))
+            cam = torch.cat([focals.reshape(-1), c2w.reshape(-1)]).float()
+            parts.append(cam.view(torch.uint8).to(torch.int32))
+        return torch.cat(parts).to(wdtype)
+
+    @torch.inference_mode()
+    def serve_device(self, images, portrait, cls_embeddings,
+                     num_keyframes: Optional[int] = None,
+                     label_mode: str = "sigmoid", niters: int = 2,
+                     fusion_res: str = "full", with_cameras: bool = False,
+                     keyframe_mode: str = "linspace") -> torch.Tensor:
+        """Whole scene → packed wire (a device tensor); fetch it with
+        ``fetch_wire`` and decode with ``unpack_wire``.  ``images``
+        (V, H, W, 3) uint8 or packed YUV420 (V, H·3/2, W); ``portrait`` and
+        ``cls_embeddings`` may be staged on the device once by the caller.
+        ``with_cameras`` appends the recovered focals and cam2world poses
+        as f32 bytes; ``keyframe_mode="retrieval"`` selects keyframes on
+        the device and ships them."""
+        V = images.shape[0]
+        K = min(num_keyframes or self.num_keyframes, V)
+        portrait, cls_emb = self._scene_args(portrait, cls_embeddings)
+        out = self._fused(self._upload(images), portrait, cls_emb, K,
+                          keyframe_mode)
+        return self._pack_wire(out, cls_emb, V, label_mode, niters,
+                               fusion_res, with_cameras, keyframe_mode)
+
+    def _tower_chunks(self, images, order, chunk: int, on_chunk=None):
+        """Upload ``images[order]`` in chunks, each decoded on the device
+        when packed YUV420 and run through the towers as it lands.
+        ``on_chunk(n_done)`` runs after each chunk.  Returns the uint8/float
+        chunks and the token lists."""
+        packed = is_packed_yuv(images)
+        imgs, xs, poss, dinos = [], [], [], []
+        done = 0
+        for s in range(0, len(order), chunk):
+            idx = order[s:s + chunk]
+            img = self._upload(images[idx] if torch.is_tensor(images)
+                               else np.asarray(images)[idx])
+            if packed:
+                img = yuv420_decode(img)
+            _, x, pos, dino = self._towers(img)
+            imgs.append(img)
+            xs.append(x)
+            poss.append(pos)
+            dinos.append(dino)
+            done += len(idx)
+            if on_chunk is not None:
+                on_chunk(done, imgs, xs, poss, dinos)
+        return imgs, xs, poss, dinos
+
+    @torch.inference_mode()
+    def serve_latency_device(self, images, portrait, cls_embeddings,
+                             num_keyframes: Optional[int] = None,
+                             label_mode: str = "sigmoid", niters: int = 2,
+                             fusion_res: str = "full",
+                             with_cameras: bool = False,
+                             keyframe_mode: str = "linspace",
+                             chunk: Optional[int] = None) -> torch.Tensor:
+        """Single-scene latency path: chunked uploads, each chunk's towers
+        launched as it lands, then one tail (memory → render → heads →
+        fusion → wire).  The same wire as ``serve_device``."""
+        V = images.shape[0]
+        K = min(num_keyframes or self.num_keyframes, V)
+        chunk = min(chunk or self.chunk, V)
+        portrait, cls_emb = self._scene_args(portrait, cls_embeddings)
+        imgs, xs, poss, dinos = self._tower_chunks(images, list(range(V)),
+                                                   chunk)
+        img = image_cast(torch.cat(imgs), self.amp)
+        out = self._pipeline_tail(img, torch.cat(xs), torch.cat(poss),
+                                  torch.cat(dinos), portrait, cls_emb, K,
+                                  keyframe_mode)
+        return self._pack_wire(out, cls_emb, V, label_mode, niters,
+                               fusion_res, with_cameras, keyframe_mode)
+
+    @torch.inference_mode()
+    def serve_latency_overlap(self, images, portrait, cls_embeddings,
+                              num_keyframes: Optional[int] = None,
+                              label_mode: str = "sigmoid", niters: int = 2,
+                              fusion_res: str = "full",
+                              with_cameras: bool = False,
+                              chunk: Optional[int] = None) -> torch.Tensor:
+        """Keyframes-first chunked uploads: once the K keyframes are
+        encoded, the memory build, the keyframe render (``render_batch``,
+        ``chunk`` views per call) and the keyframe head call are issued
+        while later chunks still upload; the last step renders the V − K
+        other views in one call, runs their head call with the frozen
+        queries, and packs the wire.  The same wire as ``serve_device``
+        (linspace keyframes only)."""
+        V = images.shape[0]
+        K = min(num_keyframes or self.num_keyframes, V)
+        chunk = min(chunk or self.chunk, V)
+        keyframes = select_keyframes_linspace(V, K)
+        nk_list = sorted(set(range(V)) - set(keyframes))
+        if not nk_list:
+            return self.serve_latency_device(
+                images, portrait, cls_embeddings, num_keyframes=K,
+                label_mode=label_mode, niters=niters, fusion_res=fusion_res,
+                with_cameras=with_cameras, chunk=chunk)
+        order = list(keyframes) + nk_list
+        portrait, cls_emb = self._scene_args(portrait, cls_embeddings)
+        port_ord = portrait[torch.as_tensor(order, device=self.device)]
+        mid = {}
+
+        def launch_mid(done, imgs, xs, poss, dinos):
+            if mid or done < K:
+                return
+            x, pos = torch.cat(xs)[:K], torch.cat(poss)[:K]
+            img = image_cast(torch.cat(imgs)[:K], self.amp)
+            mem = self.build_memory(x, pos)
+            pm_kf, y_kf = self.render_batch(x, pos, mem)
+            mid.update(mem=mem, pm_kf=pm_kf, panout=self.model.panoptic(
+                (x[None], y_kf[None], torch.cat(dinos)[:K][None]), img[None],
+                pos[None], port_ord[:K][None], cls_emb, self.grid,
+                deep_supervision=False))
+
+        imgs, xs, poss, dinos = self._tower_chunks(images, order, chunk,
+                                                   launch_mid)
+        x, pos = torch.cat(xs)[K:], torch.cat(poss)[K:]
+        img = image_cast(torch.cat(imgs)[K:], self.amp)
+        pm_nk, y_nk = self.model.decoder_render(x[None], pos[None],
+                                                mid["mem"], self.grid)
+        panout = mid["panout"]
+        panout_nk = self.model.panoptic(
+            (x[None], y_nk, torch.cat(dinos)[K:][None]), img[None], pos[None],
+            port_ord[K:][None], cls_emb, self.grid,
+            memory_queries=panout["out_queries"])
+        inv = torch.as_tensor(np.argsort(order), device=self.device)
+        out = {"pred_logits": panout["pred_logits"][0],
+               "pred_masks": torch.cat([panout["pred_masks"][0],
+                                        panout_nk["pred_masks"][0]])[inv]}
+        if with_cameras:
+            out["pointmaps_raw"] = torch.cat([mid["pm_kf"], pm_nk[0]])[inv]
+        return self._pack_wire(out, cls_emb, V, label_mode, niters,
+                               fusion_res, with_cameras, "linspace")
+
+    def serve_many_device(self, *args, **kwargs):
+        """One program over S scenes (JAX ``vmap``): not ported yet."""
+        raise NotImplementedError(
+            "serve_many_device waits for a later slice of the port; use "
+            "serve_device per scene or serve_stream")
+
+    def pipeline_flops(self, *args, **kwargs):
+        """The JAX engine's jaxpr FLOP count: not ported yet."""
+        raise NotImplementedError(
+            "pipeline_flops waits for the port's tooling slice (a torch "
+            "FLOP counter)")
+
+    def serve_stream(self, scenes, portrait, cls_embeddings,
+                     unpack: bool = True, queue_depth: int = 2,
+                     **serve_kw):
+        """Pipelined serving over an iterable of scenes.  The calling
+        thread uploads and launches one ``serve_device`` per scene and
+        copies its wire into pinned host memory without waiting (a CUDA
+        event marks the copy's end); a fetcher thread waits on each event
+        and decodes, so the fetch of one scene overlaps the next scene's
+        work.  At most ``queue_depth`` scenes are in flight.  Yields
+        ``unpack_wire`` dicts (raw numpy wires with ``unpack=False``) in
+        input order; an error in the fetcher is raised here."""
+        port_dev, cls_emb = self._scene_args(portrait, cls_embeddings)
+        V = int(port_dev.shape[0])
+        kf = serve_kw.get("keyframe_mode", "linspace")
+        K = min(serve_kw.get("num_keyframes") or self.num_keyframes, V)
+        unpack_kw = {"with_cameras": serve_kw.get("with_cameras", False),
+                     "with_keyframes": K if kf == "retrieval" else 0}
+        wires: _queue.Queue = _queue.Queue(maxsize=max(1, queue_depth))
+        out: _queue.Queue = _queue.Queue()
+        done = object()
+
+        def fetcher():
+            failed = False
+            while True:
+                item = wires.get()
+                if item is done:
+                    out.put(done)
+                    return
+                if failed:
+                    continue     # drain so that put() never blocks
+                try:
+                    host, event = item
+                    if event is not None:
+                        event.synchronize()
+                    arr = fetch_wire(host)
+                    out.put(self.unpack_wire(arr, V, **unpack_kw)
+                            if unpack else arr)
+                except BaseException as e:     # re-raised at the consumer
+                    out.put(("__error__", e))
+                    failed = True
+
+        th = threading.Thread(target=fetcher, daemon=True)
+        th.start()
+
+        def drain(item):
+            if isinstance(item, tuple) and item and item[0] == "__error__":
+                raise item[1]
+            return item
+
+        try:
+            for images in scenes:
+                wire = self.serve_device(images, port_dev, cls_emb,
+                                         **serve_kw)
+                event = None
+                if wire.device.type == "cuda":
+                    host = torch.empty(wire.shape, dtype=wire.dtype,
+                                       pin_memory=True)
+                    host.copy_(wire, non_blocking=True)
+                    event = torch.cuda.Event()
+                    event.record()
+                    wire = host
+                wires.put((wire, event))
+                while not out.empty():
+                    yield drain(out.get_nowait())
+            wires.put(done)
+            while True:
+                item = out.get()
+                if item is done:
+                    break
+                yield drain(item)
+        finally:
+            # abandoned generator or a failed fetch: unblock the fetcher
+            # without deadlocking on a full queue
+            while True:
+                try:
+                    wires.put_nowait(done)
+                    break
+                except _queue.Full:
+                    try:
+                        out.get(timeout=30)
+                    except _queue.Empty:
+                        break
+            th.join(timeout=60)
+
+    def unpack_wire(self, wire, V: int, with_cameras: bool = False,
+                    with_keyframes: int = 0) -> dict:
+        """Decode a fetched wire → {pan (V, H, W) int32, conf (V, H, W) f32
+        in [0, 1], seg_ids / labels / selected (Q,)} (+ keyframes (K,),
+        + focals (V,) and cam2world (V, 4, 4)).  Half-resolution planes are
+        nearest-upsampled to the bucket shape."""
+        wire = fetch_wire(wire)
+        H, W = self.bucket.shape
+        Q = self.model.config.panoptic.mask_transformer.num_queries
+        cam_tail = 4 * (V + V * 16) if with_cameras else 0
+        body = wire.size - 3 * Q - cam_tail - with_keyframes
+        nf, nh = V * H * W, V * (H // 2) * (W // 2)
+        nq = V * (H // 4) * (W // 4)
+        # full: 2nf; mask: 2nh; hybrid: nf + nh; hybrid4: nf + nq
+        layouts = {2 * nf: (nf, (H, W), nf, (H, W)),
+                   2 * nh: (nh, (H // 2, W // 2), nh, (H // 2, W // 2)),
+                   nf + nh: (nf, (H, W), nh, (H // 2, W // 2)),
+                   nf + nq: (nf, (H, W), nq, (H // 4, W // 4))}
+        if body not in layouts:
+            raise ValueError(f"wire of {wire.size} values does not fit V={V} "
+                             f"at ({H}, {W})")
+        n_pan, (ph, pw), n_conf, (ch, cw) = layouts[body]
+        pan = wire[:n_pan].astype(np.int32).reshape(V, ph, pw)
+        conf = (wire[n_pan:n_pan + n_conf].astype(np.float32)
+                .reshape(V, ch, cw) / 255.0)
+        if (ph, pw) != (H, W):
+            pan = pan.repeat(H // ph, axis=1).repeat(W // pw, axis=2)
+        if (ch, cw) != (H, W):
+            conf = conf.repeat(H // ch, axis=1).repeat(W // cw, axis=2)
+        n2 = n_pan + n_conf
+        res = {"pan": pan, "conf": conf,
+               "seg_ids": wire[n2:n2 + Q].astype(np.int32),
+               "labels": wire[n2 + Q:n2 + 2 * Q].astype(np.int32),
+               "selected": wire[n2 + 2 * Q:n2 + 3 * Q] != 0}
+        tail = n2 + 3 * Q
+        if with_keyframes:
+            res["keyframes"] = wire[tail:tail + with_keyframes].astype(
+                np.int32)
+            tail += with_keyframes
+        if with_cameras:
+            cam = np.frombuffer(wire[tail:].astype(np.uint8).tobytes(),
+                                np.float32)
+            res["focals"] = cam[:V].copy()
+            res["cam2world"] = cam[V:].reshape(V, 4, 4).copy()
+        return res
+
+
+class MultiBucketEngine:
+    """Mixed aspect-ratio scenes (the JAX engine's shared-memory,
+    multi-bucket pipeline): not ported yet."""
+
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError(
+            "MultiBucketEngine waits for a later slice of the port; run one "
+            "InferenceEngine per bucket")
+
+
+def fetch_wire(wire) -> np.ndarray:
+    """A wire (device or host tensor, or numpy) as a host numpy array."""
+    if torch.is_tensor(wire):
+        return wire.cpu().numpy()
+    return np.asarray(wire)

@@ -17,7 +17,9 @@ Two resize semantics are needed, and they differ:
   linear kernel and no antialias, its scale and translation given as
   device tensors (the mask loss's jittered grid).
 
-The YUV420 wire waits for the serving slice.
+The packed YUV420 serving input (``rgb_to_yuv420`` on the host,
+``yuv420_to_rgb`` on the device) and ``image_cast``, the engine's input
+normalization, close the module.
 """
 from __future__ import annotations
 
@@ -144,10 +146,76 @@ def scale_and_translate_linear(x: torch.Tensor, shape, spatial_dims,
     return x
 
 
+# ------------------------------------------------------- YUV420 wire ----
+# Serving input compression (panst3r_tpu/ops/image.py:57-109): full-range
+# BT.601 YUV with 2x2-mean-subsampled chroma, 12 bits a pixel instead of 24.
+# Layout (..., H*3/2, W) uint8: the Y plane (H, W) on top, below it the
+# half-resolution U and V planes side by side, [U | V] (H/2, W).
+
+
+def rgb_to_yuv420(img) -> np.ndarray:
+    """Host-side pack: (..., H, W, 3) uint8 RGB → (..., H*3/2, W) uint8."""
+    x = np.asarray(img, np.float32)
+    r, g, b = x[..., 0], x[..., 1], x[..., 2]
+    y = 0.299 * r + 0.587 * g + 0.114 * b
+    cb = -0.168736 * r - 0.331264 * g + 0.5 * b + 128.0
+    cr = 0.5 * r - 0.418688 * g - 0.081312 * b + 128.0
+    H, W = y.shape[-2:]
+    lead = y.shape[:-2]
+
+    def sub(c):        # 2x2 mean subsample
+        return c.reshape(*lead, H // 2, 2, W // 2, 2).mean(axis=(-3, -1))
+
+    bottom = np.concatenate([sub(cb), sub(cr)], axis=-1)      # (H/2, W)
+    packed = np.concatenate([y, bottom], axis=-2)             # (H*3/2, W)
+    return np.clip(np.rint(packed), 0, 255).astype(np.uint8)
+
+
+def yuv420_to_rgb(packed: torch.Tensor) -> torch.Tensor:
+    """Device-side unpack: (..., H*3/2, W) uint8 → f32 RGB in [0, 255]
+    (chroma nearest-upsampled), the same f32 operations in the same order
+    as the JAX function."""
+    H = packed.shape[-2] * 2 // 3
+    W = packed.shape[-1]
+    p = packed.to(torch.float32)
+    y = p[..., :H, :]
+    bottom = p[..., H:, :]
+    cb = bottom[..., :, :W // 2] - 128.0
+    cr = bottom[..., :, W // 2:] - 128.0
+
+    def up(c):         # nearest 2x upsample
+        return c.repeat_interleave(2, dim=-1).repeat_interleave(2, dim=-2)
+
+    cb, cr = up(cb), up(cr)
+    r = y + 1.402 * cr
+    g = y - 0.344136 * cb - 0.714136 * cr
+    b = y + 1.772 * cb
+    return torch.clamp(torch.stack([r, g, b], dim=-1), 0.0, 255.0)
+
+
+def is_packed_yuv(x) -> bool:
+    """A rank-3 uint8 array whose last dim is not 3 is the packed wire
+    (V, H*3/2, W); (V, H, W, 3) and a single (H, W, 3) are RGB."""
+    return (str(x.dtype).endswith("uint8") and x.ndim == 3
+            and x.shape[-1] != 3)
+
+
+def yuv420_decode(packed: torch.Tensor) -> torch.Tensor:
+    """Packed YUV420 → uint8 RGB (V, H, W, 3): rint before anything else,
+    so the packed input is exactly its decoded RGB on every serve path."""
+    return torch.round(yuv420_to_rgb(packed)).to(torch.uint8)
+
+
 def image_cast(x: torch.Tensor, amp: bool) -> torch.Tensor:
     """uint8 RGB → dust3r normalization ([-1, 1]) in bf16 (amp) or f32;
-    float input is only cast (to bf16 under amp)."""
+    float input is only cast (to bf16 under amp).  Packed YUV420 input is
+    decoded to uint8 RGB first and then takes the uint8 path, so
+    serve(pack(x)) equals serve(decode(pack(x))) bit for bit under amp
+    too (the JAX package normalizes packed input in f32 and casts after,
+    which equals this in f32 only: ROADMAP.md queue 3)."""
     dtype = torch.bfloat16 if amp else torch.float32
+    if is_packed_yuv(x):
+        x = yuv420_decode(x)
     if x.dtype == torch.uint8:
         # Divide by a device tensor, not a Python number: CUDA divides by a
         # host scalar through its reciprocal, one ulp off the quotient the

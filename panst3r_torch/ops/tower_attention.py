@@ -8,6 +8,14 @@ panst3r_tpu/ops/pallas/tower_attention.py).
   ``_cross_fwd`` (bf16/f32 path): cross-attention over projected
   (B, Nq, C) x (B, Nk, C) streams with per-side RoPE tables, a per-key
   additive bias and dead-tile skipping.
+- ``tower_cross_int8`` (K2-int8, ``csrc/tower_cross_int8.cu``) replaces
+  the ``kv_int8`` branch of ``_cross_fwd``: int8 x int8 -> int32 scores,
+  k quantized per tensor after its rotation (``int8_prepare``), q per row
+  over each head pair in the kernel.  ``tower_cross_attention`` routes to
+  it on a CUDA tensor exactly where the JAX gate opens (``int8_gate``:
+  ``PANST3R_KV_INT8=1`` or ``kv_int8=True``, RoPE tables, Nq >= 16384).
+  On a CPU tensor ``tower_cross_attention`` ignores int8, as the JAX
+  package's CPU path (the jnp formula) does.
 
 On a CPU tensor each wrapper runs its plain PyTorch version
 (``*_ref``), which follows the kernel's semantics: RoPE in f32 rounded to
@@ -23,15 +31,21 @@ is noted at the top of each ``.cu`` source.
 """
 from __future__ import annotations
 
+import math
 import os
 
 import torch
 
 from panst3r_torch.ops import cuda_build
 from panst3r_torch.ops.attention import NEG_INF, recompute_vjp
-from panst3r_torch.ops.rope import apply_rope_tables_f32
+from panst3r_torch.ops.rope import _rotate_half_2d, apply_rope_tables_f32
 
 _DTYPES = (torch.float32, torch.bfloat16)
+_LOG2E = math.log2(math.e)
+# int8 scores engage only at render-scale query counts
+# (panst3r_tpu/ops/pallas/tower_attention.py:45, :472); tests monkeypatch
+# this to run the path at small shapes.
+_INT8_MIN_NQ = 16384
 
 
 def supports_tower_attention(N: int, C: int, heads: int) -> bool:
@@ -221,17 +235,156 @@ def _tower_cross_kernel(q, k, v, qtab, ktab, kv_bias, scale):
     return out
 
 
+def int8_gate(Nq: int, qtab, kv_int8=None) -> bool:
+    """True where the JAX package runs K2's int8 branch: ``kv_int8`` (read
+    from ``PANST3R_KV_INT8`` at call time when None) with RoPE tables
+    (tower_attention.py:642-646) and ``Nq >= _INT8_MIN_NQ`` (:472)."""
+    if kv_int8 is None:
+        kv_int8 = os.environ.get("PANST3R_KV_INT8", "0") == "1"
+    return bool(kv_int8 and qtab is not None) and Nq >= _INT8_MIN_NQ
+
+
+def _const(x: float, like) -> torch.Tensor:
+    """An f32 0-d tensor on ``like``'s device: CUDA divides by a host scalar
+    through its reciprocal, one ulp off the quotient JAX computes."""
+    return torch.full((), x, dtype=torch.float32, device=like.device)
+
+
+def int8_prepare(k, qtab, ktab, kv_bias, scale):
+    """The int8 branch's work outside the kernel (tower_attention.py:483-497),
+    in plain torch on the tensors' device: k rotated in f32 with its tables
+    and quantized per tensor (one scale sk over batch, heads and keys; it
+    stays on the device), the q tables pre-multiplied by
+    scale·log2(e)·sk, and the key bias times log2(e).
+    Returns (k8 (B, Nk, C) int8, (qcos, qsin) (B, Nq, 64) f32, kb (B, Nk)
+    f32 or None)."""
+    B, Nk, C = k.shape
+    kf = k.float().reshape(B, Nk, C // 64, 64)
+    kr = kf * ktab[0].float()[:, :, None] \
+        + _rotate_half_2d(kf) * ktab[1].float()[:, :, None]
+    sig_k = torch.clamp(kr.abs().amax(), min=1e-20) / _const(127.0, k)
+    k8 = torch.round(kr / sig_k).to(torch.int8).reshape(B, Nk, C)
+    mul = (scale * _LOG2E) * sig_k
+    qtabs = tuple((t.float() * mul).contiguous() for t in qtab)
+    kb = None if kv_bias is None \
+        else (kv_bias.float() * _LOG2E).contiguous()
+    return k8, qtabs, kb
+
+
+def _int8_attend(q, k8, v, qcos, qsin, kb):
+    """The int8 branch's attention from ``int8_prepare``'s outputs, in
+    plain torch: q rotated in f32, amax over each head pair's 128 lanes,
+    q8 = rint(q_rot·127/amax), c = amax/127; integer scores (exact in f32);
+    the stabilizer m = rowmax(s)·c over the keys of live 64-key tiles (the
+    kernel's tiles; the zero scores of the last tile's padding keys count,
+    as in the kernel); p = exp2(s·c + kb − m) rounded to v's dtype before
+    both sums; rows without a live key → 0."""
+    B, Nq, C = q.shape
+    Nk = k8.shape[1]
+    H = C // 64
+    qf = q.float().reshape(B, Nq, H, 64)
+    qrot = qf * qcos[:, :, None] + _rotate_half_2d(qf) * qsin[:, :, None]
+    pairs = qrot.reshape(B, Nq, H // 2, 128)
+    amax = torch.clamp(pairs.abs().amax(-1, keepdim=True), min=1e-20)
+    q8 = torch.round(pairs * (_const(127.0, q) / amax))
+    c = (amax * (1.0 / 127.0)).repeat_interleave(2, dim=2)   # (B,Nq,H,1)
+    q8 = q8.reshape(B, Nq, H, 64).transpose(1, 2)
+    c = c.transpose(1, 2)                                     # (B,H,Nq,1)
+    kh = k8.float().reshape(B, Nk, H, 64).transpose(1, 2)
+    s = torch.matmul(q8, kh.transpose(-1, -2))
+    kbf = torch.zeros(B, Nk, device=q.device) if kb is None else kb
+    n_tiles = -(-Nk // 64)
+    padded = torch.full((B, n_tiles * 64), NEG_INF, device=q.device)
+    padded[:, :Nk] = kbf
+    live = (padded.view(B, n_tiles, 64) > NEG_INF / 2).any(-1)
+    live_key = live.repeat_interleave(64, dim=1)[:, :Nk]      # (B, Nk)
+    smax = torch.where(live_key[:, None, None], s,
+                       torch.full_like(s, -math.inf)).amax(-1, keepdim=True)
+    if Nk % 64:
+        tail = live[:, -1][:, None, None, None]
+        smax = torch.where(tail, torch.clamp(smax, min=0.0), smax)
+    m = smax * c
+    safe = torch.where(m <= NEG_INF / 2, torch.zeros_like(m), m)
+    sf = s * c + kbf[:, None, None, :]
+    p = torch.where(live_key[:, None, None], torch.exp2(sf - safe),
+                    torch.zeros_like(sf)).to(v.dtype).float()
+    vh = _split_heads(v, 64).float()
+    num = torch.matmul(p, vh)
+    den = p.sum(-1, keepdim=True)
+    den = torch.where(den == 0, torch.ones_like(den), den)
+    return _merge_heads((num / den).to(q.dtype))
+
+
+def tower_cross_int8_ref(q, k, v, qtab, ktab, kv_bias=None, scale=None):
+    """Plain version of K2-int8 (same arguments as ``tower_cross_int8``)."""
+    if scale is None:
+        scale = 64 ** -0.5
+    k8, (qcos, qsin), kb = int8_prepare(k, qtab, ktab, kv_bias, scale)
+    return _int8_attend(q, k8, v, qcos, qsin, kb)
+
+
+def _tower_cross_int8_kernel(q, k, v, qtab, ktab, kv_bias, scale):
+    """Launch K2-int8 after ``int8_prepare``."""
+    import ctypes
+
+    B, Nq, C = q.shape
+    Nk = k.shape[1]
+    if C % 128:
+        raise NotImplementedError(
+            f"tower_cross_int8 takes head pairs of d=64 (C={C})")
+    if qtab is None or ktab is None:
+        raise ValueError("tower_cross_int8 needs both RoPE tables")
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"tower_cross_int8 takes f32/bf16, not {q.dtype}")
+    if scale is None:
+        scale = 64 ** -0.5
+    dev = q.device
+    _check(q, "q", (B, Nq, C), q.dtype, dev)
+    _check(k, "k", (B, Nk, C), q.dtype, dev)
+    _check(v, "v", (B, Nk, C), q.dtype, dev)
+    _tables(qtab, B, Nq, dev, "qtab")
+    _tables(ktab, B, Nk, dev, "ktab")
+    if kv_bias is not None:
+        _check(kv_bias, "kv_bias", (B, Nk), torch.float32, dev)
+    k8, (qcos, qsin), kb = int8_prepare(k, qtab, ktab, kv_bias, scale)
+    out = torch.empty((B, Nq, C), dtype=q.dtype, device=dev)
+    p = ctypes.c_void_p
+    lib, fn = cuda_build.function("tower_cross_int8", "p3_tower_cross_int8",
+                                  [p] * 7 + [ctypes.c_int] * 5 + [p])
+    P = cuda_build.ptr
+    err = fn(P(q), P(k8), P(v), P(qcos), P(qsin), P(kb), P(out), B, Nq, Nk,
+             C, int(q.dtype == torch.bfloat16), cuda_build.stream_of(q))
+    cuda_build.check(lib, err, "tower_cross_int8")
+    tower_cross_int8.launches += 1
+    return out
+
+
+def tower_cross_int8(q, k, v, qtab, ktab, kv_bias=None, scale=None):
+    """K2-int8.  q (B, Nq, C), k/v (B, Nk, C) f32 or bf16, C % 128 == 0;
+    qtab/ktab: f32 (cos, sin) tables (B, N, 64), both required; kv_bias:
+    optional f32 (B, Nk), ≤ 0.  Returns (B, Nq, C).  Differentiable in q,
+    k, v through the plain f32/bf16 formula, as the JAX custom_vjp is
+    (tower_attention.py:612-618): the int8 path is for inference."""
+    def run(fn):
+        return lambda q, k, v: fn(q, k, v, qtab, ktab, kv_bias, scale)
+
+    fwd = tower_cross_int8_ref if q.device.type == "cpu" \
+        else _tower_cross_int8_kernel
+    return recompute_vjp(run(fwd), run(tower_cross_attention_ref), q, k, v)
+
+
+tower_cross_int8.launches = 0
+
+
 def tower_cross_attention(q, k, v, qtab=None, ktab=None, kv_bias=None,
                           scale=None, kv_int8=None):
     """K2.  q (B, Nq, C), k/v (B, Nk, C); qtab/ktab: optional f32
     (cos, sin) tables (B, N, 64), both or neither; kv_bias: optional f32
     (B, Nk) additive bias.  Returns (B, Nq, C).  Differentiable in q, k, v
-    through the plain version."""
-    if kv_int8 is None:
-        kv_int8 = os.environ.get("PANST3R_KV_INT8", "0") == "1"
-    if kv_int8 and q.device.type != "cpu":
-        raise NotImplementedError(
-            "tower_cross_attention: the int8 score path is not ported")
+    through the plain version.  On a CUDA tensor where ``int8_gate`` opens
+    it is K2-int8 (``tower_cross_int8``), which launches or raises."""
+    if q.device.type != "cpu" and int8_gate(q.shape[1], qtab, kv_int8):
+        return tower_cross_int8(q, k, v, qtab, ktab, kv_bias, scale)
 
     def run(fn):
         return lambda q, k, v: fn(q, k, v, qtab, ktab, kv_bias, scale)

@@ -1,9 +1,10 @@
-"""K1-K5 CUDA kernels against their plain versions at edge shapes (ragged
-tiles, dead key tiles, rows with no live key, strided views), f32 and
-bf16, with the limits of chip_smoke.py; gradients through K1-K4 on the
-card against the plain versions'; and a small v2 train step on the card
-against the CPU.  Needs a CUDA card; skips without one.  On the card (no
-JAX there, so without the repo's conftest):
+"""K1-K5 and K2-int8 CUDA kernels against their plain versions at edge
+shapes (ragged tiles, dead key tiles, rows with no live key, strided
+views), f32 and bf16, with the limits of chip_smoke.py; the int8 gate's
+launches; gradients through K1-K4 on the card against the plain versions';
+a small v2 train step and small v1 serve wires on the card against the
+CPU.  Needs a CUDA card; skips without one.  On the card (no JAX there, so
+without the repo's conftest):
 
     python -m pytest --noconftest -o addopts="" -p no:cacheprovider \
         -m cuda tests/test_torch_cuda.py
@@ -296,3 +297,107 @@ def test_small_train_step_card_matches_cpu(dev):
     against the CPU: chip_smoke.py's ``small`` comparison (assignments,
     loss, gradients, frozen parameters)."""
     chip_smoke.phase_small_train(shape=(1, 2, 64, 96, 8), depth=1)
+
+
+def _int8_inputs(g, dev, dtype, B, Nq, Nk, C, bias):
+    q = _rnd(g, dev, dtype, B, Nq, C, s=QK_STD)
+    k = _rnd(g, dev, dtype, B, Nk, C, s=QK_STD)
+    v = _rnd(g, dev, dtype, B, Nk, C)
+    if B == 2:
+        k[1] *= 3                         # the k scale spans the batch
+    qtab, ktab = (rope2d_tables(torch.randint(0, 32, (B, n, 2), generator=g,
+                                              device=dev), 64)
+                  for n in (Nq, Nk))
+    kb = None
+    if bias:
+        kb = torch.zeros(B, Nk, device=dev)
+        kb[:, 64:700] = NEG               # dead key tiles
+        kb[:, 5:40] = -0.7                # a soft-biased span
+        kb[:, -3:] = -float("inf")
+    return q, k, v, qtab, ktab, kb
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Nq,Nk,C,bias", [
+    (1, 130, 333, 256, True), (1, 1, 64, 128, False),
+    (1, 16384, 3000, 768, True),          # chip_smoke's gate_edge
+    (2, 2000, 3072, 768, False)])         # batch2
+def test_tower_cross_int8_kernel(dev, dtype, B, Nq, Nk, C, bias):
+    """K2-int8 against its plain version (f32 within 1e-4, bf16 by the
+    bf16 rule against the plain version with f32 v and p)."""
+    g = torch.Generator(device=dev).manual_seed(Nq + Nk)
+    args = _int8_inputs(g, dev, dtype, B, Nq, Nk, C, bias)
+    n0 = ta.tower_cross_int8.launches
+    out = ta.tower_cross_int8(*args)
+    assert ta.tower_cross_int8.launches == n0 + 1
+    _close(out, lambda q, k, v, *rest: chip_smoke._by_rows(
+        ta.tower_cross_int8_ref, q, rest[0], k, v, *rest[1:]), *args)
+
+
+def test_int8_gate_launches(dev, monkeypatch):
+    """With PANST3R_KV_INT8=1 the int8 kernel launches exactly where the
+    JAX gate opens (tables and Nq >= 16384) and K2 elsewhere; on a shape
+    the int8 kernel does not take it raises and launches nothing."""
+    monkeypatch.setenv("PANST3R_KV_INT8", "1")
+    g = torch.Generator(device=dev).manual_seed(3)
+    for Nq, tables, want in ((16383, True, "k2"), (16384, True, "int8"),
+                             (16384, False, "k2")):
+        q, k, v, qtab, ktab, _ = _int8_inputs(g, dev, torch.bfloat16, 1, Nq,
+                                              200, 128, False)
+        if not tables:
+            qtab = ktab = None
+        n8 = ta.tower_cross_int8.launches
+        n2 = ta.tower_cross_attention.launches
+        ta.tower_cross_attention(q, k, v, qtab, ktab)
+        assert (ta.tower_cross_int8.launches - n8,
+                ta.tower_cross_attention.launches - n2) == \
+            ((1, 0) if want == "int8" else (0, 1))
+    q, k, v, qtab, ktab, _ = _int8_inputs(g, dev, torch.bfloat16, 1, 16384,
+                                          200, 64, False)
+    n8, n2 = ta.tower_cross_int8.launches, ta.tower_cross_attention.launches
+    with pytest.raises(NotImplementedError, match="head pairs"):
+        ta.tower_cross_attention(q, k, v, qtab, ktab)
+    assert (ta.tower_cross_int8.launches,
+            ta.tower_cross_attention.launches) == (n8, n2)
+
+
+def test_small_serve_wires_card_match_cpu(dev):
+    """The serve wires (every fusion_res, cameras, packed YUV input, the
+    latency paths) of v1 at full width and depth 1 (V=5 at 64x96, f32) on
+    the card against the CPU: seg_ids, labels and selected equal, pan on
+    >= 99.9% of pixels, conf within 1/255 where pan agrees, cameras within
+    1e-3 relative.  (The tiny preset's 32-wide heads run only on the CPU.)"""
+    from panst3r_torch.core.bucketing import Bucket
+    from panst3r_torch.engine.inference import InferenceEngine
+    from panst3r_torch.models.panst3r import build_model
+    from panst3r_torch.ops.image import rgb_to_yuv420
+
+    V, H, W = 5, 64, 96
+    images, portrait, _ = chip_smoke._inputs(V, H, W)
+    cfg = chip_smoke._config("v1", depth=1)
+    cpu = build_model(cfg, device="cpu", seed=0)
+    card = build_model(cfg, device="cuda", seed=1)
+    card.load_state_dict(cpu.state_dict())
+    engs = {d: InferenceEngine(m, Bucket(H, W), num_keyframes=3, chunk=2,
+                               amp=False, device=d)
+            for d, m in (("cuda", card), ("cpu", cpu))}
+    cls_emb = chip_smoke.segment_classes(engs["cpu"], images, portrait)
+    calls = [("serve_device", images, dict(fusion_res=fr, with_cameras=True))
+             for fr in ("full", "mask", "hybrid", "hybrid4")]
+    calls += [("serve_device", rgb_to_yuv420(images), {}),
+              ("serve_latency_device", images, dict(chunk=2)),
+              ("serve_latency_overlap", images, dict(chunk=2))]
+    for name, imgs, kw in calls:
+        a, b = (e.unpack_wire(getattr(e, name)(imgs, portrait, cls_emb, **kw),
+                              V, with_cameras=kw.get("with_cameras", False))
+                for e in (engs["cuda"], engs["cpu"]))
+        assert b["selected"].any()
+        for k in ("seg_ids", "labels", "selected"):
+            np.testing.assert_array_equal(a[k], b[k])
+        same = a["pan"] == b["pan"]
+        assert same.mean() >= 0.999, (name, kw, same.mean())
+        assert np.abs(a["conf"] - b["conf"])[same].max() <= 1 / 255 + 1e-6
+        for k in ("focals", "cam2world"):
+            if k in a:
+                assert np.abs(a[k] - b[k]).max() \
+                    <= 1e-3 * np.abs(b[k]).max(), (name, k)

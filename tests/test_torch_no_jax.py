@@ -41,6 +41,14 @@ out = eng.run_device(rng.integers(0, 256, (3, 32, 48, 3), dtype=np.uint8),
                      rng.standard_normal((4, 24)).astype(np.float32))
 fused = eng.fuse(out, (32, 48))
 assert fused[0]["pan"].shape == (3, 32, 48)
+from panst3r_torch.ops.image import rgb_to_yuv420
+images = rng.integers(0, 256, (3, 32, 48, 3), dtype=np.uint8)
+wire = eng.serve_device(rgb_to_yuv420(images), np.zeros(3, bool),
+                        rng.standard_normal((4, 24)).astype(np.float32),
+                        fusion_res="hybrid", with_cameras=True,
+                        keyframe_mode="retrieval")
+dec = eng.unpack_wire(wire, 3, with_cameras=True, with_keyframes=2)
+assert dec["pan"].shape == (3, 32, 48) and dec["focals"].shape == (3,)
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in FORBIDDEN)
 assert not loaded, loaded
 print("modules", len(names))
