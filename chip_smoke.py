@@ -10,39 +10,46 @@ Run from the root of a checkout.  It builds the CUDA kernels of
 ``panst3r_torch/_build``), then runs, each phase printing JSON lines:
 
 1. ``kernels``: K1 (tower_self), K2 (tower_cross), K2-int8
-   (tower_cross_int8), K3 (masked_attn) and K4 (flash_fwd) against their
+   (tower_cross_int8), K3 (masked_attn), K4 (flash_fwd) and K6
+   (packed_flash) against their
    plain PyTorch versions at the main paths' shapes, in f32 and bf16, with
    the max abs error and its limit, the kernel's time, the plain version's
    time, one PyTorch library call on the same work
    (``scaled_dot_product_attention``, a yardstick only — the port never
    calls it; none computes int8-score attention, so K2-int8 records SDPA
    for scale and its distance from K2) and the least time the card could
-   take (``bound_ms``); K5 (flash_bwd) likewise against its plain version
+   take (``panst3r_torch/ops/flops.py::bound_ms``); K5 (flash_bwd) likewise against its plain version
    from K4's own output and LSE, and K4 + K5 through autograd; gradients
    through K1-K3 on the card bit-equal to their plain formulas';
 2. ``small``: v1 and v2 widths at depth 2 (v2 with its full mixer and
    LoftUp), f32, V=4 / K=3 at 384x512, the same seeded weights on the card
-   (kernels) and on the CPU (plain versions), outputs compared; one v2
-   train step (B=1, V=3 at 160x512), card against CPU; one v1 serve wire
-   with cameras, card against CPU;
+   (kernels) and on the CPU (plain versions), outputs and FLOP counts
+   (``ops/flops.py``) compared; one v2 train step (B=1, V=3 at 160x512),
+   card against CPU, its FLOP count included; one v1 serve wire with
+   cameras, card against CPU;
 3. ``v1`` and ``v2``: the full v1 and v2 main paths
    (``InferenceEngine.run_device`` + ``fuse``, bf16, V=8 / K=4 at 384x512,
    random seeded weights), stage times, peak memory, finiteness and shapes,
-   a profile by kernel, and each kernel's launch count against the count
-   the config and schedule imply;
+   a profile by kernel, each kernel's launch count against the count the
+   config and schedule imply, the scene's FLOPs (``pipeline_flops``, held
+   to the JAX package's count) and its MFU, and (v1) each stage's MFU;
 4. ``train_v2``: four micro-steps (two updates) of the v2 train step at
    full width and depth (frozen towers stored in bf16, the train_v2 recipe,
    B=2 x V=5 at 384x512), step and stage times, peak memory, gradients on
-   every trainable leaf, frozen parameters unchanged, launch counts, and a
-   profile by kernel;
+   every trainable leaf, frozen parameters unchanged, launch counts, a
+   profile by kernel, and one micro-step's FLOPs and MFU;
 5. ``serve``: the v1 serving wire at full width and depth (V=8 / K=4):
    every ``fusion_res``, cameras, packed YUV420 input, both latency paths
    and ``serve_stream``, held to the checks of tests/test_serve.py, with
-   times, wire bytes, peak memory and launch counts;
+   times, wire bytes, peak memory, launch counts, FLOPs and MFU;
 6. ``serve_long``: V=50 / K=16 from packed YUV420 on the hybrid wire with
    ``PANST3R_KV_INT8=1``: K2-int8 exactly once per decoder layer per
-   scene, the stream at queue depth 6, the same scene with int8 off, and a
-   profile by kernel;
+   scene, the stream at queue depth 6, the same scene with int8 off, a
+   profile by kernel, FLOPs and MFU;
+7. ``ab_packed``: K6's path, the A/B tool
+   (``panst3r_torch/tools/ab_attention_packed.py``) at full shape:
+   exactly 24 K6 launches per run of the ``packed`` variant, K6 against
+   K4, every variant's ms per layer and the bound;
 
 then one ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``.  Any failed phase raises, and the script exits non-zero without
@@ -62,9 +69,6 @@ import time
 
 import numpy as np
 
-# H100 SXM, dense: bf16 and f32 FLOP/s, int8 operations/s
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
-HBM_BYTES_PER_S = 3.35e12
 # f32: a kernel within 1e-4 abs of its plain version.  bf16: against the
 # plain version run in f32 on the same (bf16) inputs, the kernel's max abs
 # error at most 1.5 times the plain bf16 version's own (plus 1e-5) and its
@@ -87,8 +91,10 @@ REPLACES = {
     "masked_attn": "panst3r_tpu/ops/pallas/masked_attention.py:119",
     "flash_fwd": "panst3r_tpu/ops/pallas/flash_attention.py:171",
     "flash_bwd": "panst3r_tpu/ops/pallas/flash_attention_bwd.py:115",
+    "packed_flash": "tools/ab_attention_packed.py:84",
 }
-PHASES = ("kernels", "small", "v1", "v2", "train_v2", "serve", "serve_long")
+PHASES = ("kernels", "small", "v1", "v2", "train_v2", "serve", "serve_long",
+          "ab_packed")
 # the case and dtype of each kernel on its main path: K1-K3 under v1's bf16,
 # K4 in LoftUp's f32 (flax promotes that branch to f32 under amp)
 MAIN_CASE = {"tower_self": ("encoder_rope", "bfloat16"),
@@ -96,9 +102,21 @@ MAIN_CASE = {"tower_self": ("encoder_rope", "bfloat16"),
              "tower_cross_int8": ("render_long", "bfloat16"),
              "masked_attn": ("mask_transformer", "bfloat16"),
              "flash_fwd": ("loftup", "float32"),
-             "flash_bwd": ("loftup_train", "float32")}
+             "flash_bwd": ("loftup_train", "float32"),
+             "packed_flash": ("tool", "bfloat16")}
 # K4's LSE against its plain version's: f32 logits on both sides
 LSE_RTOL = 1e-4
+# The JAX package's matmul/conv FLOPs of one run_device + fusion scene at
+# 384x512 (preset, V, K): panst3r_tpu's InferenceEngine.pipeline_flops over
+# jax.eval_shape parameters, run on the CPU (the per-stage split is
+# tools/mfu_report.py::stage_flops).  The port's pipeline_flops must equal
+# them within FLOPS_RTOL.
+JAX_SCENE_FLOPS = {("v1", 8, 4): 14_320_910_696_448,
+                   ("v2", 8, 4): 16_343_079_026_688,
+                   ("v1", 50, 16): 110_496_179_601_408}
+FLOPS_RTOL = 1e-6
+# K6 against K4 in the A/B tool: a few bf16 units of outputs of size ~1
+AB_PARITY_ATOL = 2.0 ** -6
 
 
 def emit(obj) -> None:
@@ -133,16 +151,6 @@ def bf16_check(out, plain, plain_f32) -> dict:
     return {"kernel_max": kmax, "plain_max": pmax, "limit_max": lmax,
             "kernel_rms": krms, "plain_rms": prms, "limit_rms": lrms,
             "ok": kmax <= lmax and krms <= lrms}
-
-
-def bound_ms(flops: float, nbytes: float, dtype: str, int8_ops: float = 0):
-    """max(operations over their peak rates, bytes over the HBM rate), in
-    ms, and which of the two bounds it; ``int8_ops`` run at the int8 rate,
-    ``flops`` at ``dtype``'s."""
-    t_ops = flops / PEAK_FLOPS[dtype] + int8_ops / PEAK_FLOPS["int8"]
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
-                                       else "bytes")
 
 
 # ------------------------------------------------------------ phase 1 ----
@@ -287,6 +295,35 @@ def kernel_cases(dtype, dev):
         pallas_sums=lambda: _masked_mha_pallas_sums(q, k, v, blocked),
         flops=4.0 * H * live_tiles * 64 * 64 * D, bytes=nbytes))
     cases += _k4_cases(rnd, g, es, dtype, dev, blocked)
+    cases += _k6_cases(rnd, es)
+    return cases
+
+
+def _k6_cases(rnd, es):
+    """K6 at the A/B tool's shape (B=8 views x 8 head pairs x 768 tokens)
+    and with two 768-key Pallas blocks (one view, N=1536); the library
+    call is SDPA on the same heads split out."""
+    import torch.nn.functional as F
+
+    from panst3r_torch.ops import packed_attention as pa
+
+    cases = []
+    for label, (B, P, N) in (("tool", (8, 8, 768)),
+                             ("two_key_blocks", (1, 8, 1536))):
+        q, k = rnd(B, P, N, 128, s=QK_STD), rnd(B, P, N, 128, s=QK_STD)
+        v = rnd(B, P, N, 128)
+        qh, kh, vh = (t.view(B, P, N, 2, 64).transpose(2, 3)
+                      .reshape(B, 2 * P, N, 64) for t in (q, k, v))
+        cases.append(dict(
+            kernel="packed_flash", case=label,
+            fn=lambda q=q, k=k, v=v: pa.packed_mha(q, k, v),
+            ref=lambda q=q, k=k, v=v: pa.packed_mha_ref(q, k, v),
+            f32=lambda q=q, k=k, v=v: pa.packed_mha_ref(q.float(), k.float(),
+                                                        v.float()),
+            lib=lambda qh=qh, kh=kh, vh=vh:
+                F.scaled_dot_product_attention(qh, kh, vh),
+            flops=4.0 * B * 2 * P * N * N * 64,
+            bytes=4 * q.numel() * es))
     return cases
 
 
@@ -566,6 +603,7 @@ def phase_k5(dtype, dname: str, dev, rows: dict) -> None:
     import torch
 
     from panst3r_torch.ops import flash_attention as fa
+    from panst3r_torch.ops.flops import bound_ms
 
     def leaves(*ts):
         return [t.detach().clone().requires_grad_() for t in ts]
@@ -688,6 +726,8 @@ def phase_autograd(dtype, dname: str, dev) -> None:
 def phase_kernels():
     import torch
 
+    from panst3r_torch.ops.flops import bound_ms
+
     dev = torch.device("cuda")
     rows = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -795,6 +835,7 @@ def _inputs(V, H=384, W=512, ncls=32):
 def _counters():
     from panst3r_torch.ops.flash_attention import flash_mha, flash_mha_bwd
     from panst3r_torch.ops.masked_attention import masked_mha
+    from panst3r_torch.ops.packed_attention import packed_mha
     from panst3r_torch.ops.tower_attention import (tower_cross_attention,
                                                    tower_cross_int8,
                                                    tower_self_attention)
@@ -804,7 +845,8 @@ def _counters():
             "tower_cross_int8": tower_cross_int8,
             "masked_attn": masked_mha,
             "flash_fwd": flash_mha,
-            "flash_bwd": flash_mha_bwd}
+            "flash_bwd": flash_mha_bwd,
+            "packed_flash": packed_mha}
 
 
 def _reset_counts():
@@ -838,6 +880,7 @@ def expected_launches(cfg, V, K, chunk):
         "flash_fwd": n_heads * pan.upscaler.num_layers if loftup else 0,
         "flash_bwd": 0,
         "tower_cross_int8": 0,
+        "packed_flash": 0,
     }
 
 
@@ -871,6 +914,7 @@ def expected_train_launches(cfg, V, grid):
         "flash_fwd": (len(calls) - k2) * dec.depth + loftup,
         "flash_bwd": 2 * loftup,
         "tower_cross_int8": 0,
+        "packed_flash": 0,
     }
 
 
@@ -880,6 +924,7 @@ def phase_small(preset: str):
     from panst3r_torch.core.bucketing import Bucket
     from panst3r_torch.engine.inference import InferenceEngine
     from panst3r_torch.models.panst3r import build_model
+    from panst3r_torch.ops.flops import FlopCounter
 
     cfg = _config(preset, depth=2)
     V, K = 4, 3
@@ -887,23 +932,27 @@ def phase_small(preset: str):
     cpu_model = build_model(cfg, device="cpu", seed=0)
     gpu_model = build_model(cfg, device="cuda", seed=1)
     gpu_model.load_state_dict(cpu_model.state_dict())
-    outs = {}
+    outs, flops = {}, {}
     for name, model in (("cuda", gpu_model), ("cpu", cpu_model)):
         eng = InferenceEngine(model, Bucket(384, 512), num_keyframes=K,
                               chunk=4, amp=False, device=name)
         _reset_counts()
         t0 = time.perf_counter()
-        outs[name] = eng.run(images, portrait, cls_emb)
+        with FlopCounter() as fc:          # its time is in "seconds"
+            outs[name] = eng.run(images, portrait, cls_emb)
         counts = _read_counts()
+        flops[name] = fc.total
         emit({"phase": "small", "model": preset, "device": name,
-              "seconds": time.perf_counter() - t0, "launches": counts})
+              "seconds": time.perf_counter() - t0, "launches": counts,
+              "flops": fc.total})
         if name == "cuda":
             want = expected_launches(cfg, V, K, 4)
             if counts != want:
                 raise AssertionError(f"small {preset}: launches {counts} "
                                      f"!= {want}")
     a, b = outs["cuda"], outs["cpu"]
-    row = {"phase": "small", "model": preset, "compare": "cuda_vs_cpu"}
+    row = {"phase": "small", "model": preset, "compare": "cuda_vs_cpu",
+           "flops_equal": flops["cuda"] == flops["cpu"]}
     for key, atol, rtol in (("pointmaps_raw", 2e-4, 0.0),
                             ("pred_logits", 2e-3, 0.0),
                             ("pred_masks", 1e-2, 1e-2)):
@@ -914,6 +963,8 @@ def phase_small(preset: str):
     emit(row)
     bad = [k for k in ("pointmaps_raw", "pred_logits", "pred_masks")
            if not row[k]["ok"]]
+    if not row["flops_equal"]:
+        bad.append(f"flops {flops}")
     if bad or a["keyframes"] != b["keyframes"]:
         raise AssertionError(f"small {preset}: card and CPU disagree on "
                              f"{bad}")
@@ -921,33 +972,14 @@ def phase_small(preset: str):
     torch.cuda.empty_cache()
 
 
-def _profile(fn, top: int = 15):
-    """One traced run: device time by kernel name (CUPTI through
-    torch.profiler) and the device's idle share of the traced wall time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with profile(activities=acts):          # the tracer's own start-up
-        torch.ones(1, device="cuda").add_(1)
-        torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=acts) as prof:
-        fn()
-        torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    by_name: dict = {}
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        ms, n = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
-    busy = sum(ms for ms, _ in by_name.values())
-    rows = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
-    return {"wall_ms": wall_ms, "device_busy_ms": busy,
-            "device_idle_share": (1 - busy / wall_ms) if busy else None,
-            "top": [{"name": k[:90], "ms": ms, "calls": n}
-                    for k, (ms, n) in rows]}
+def check_scene_flops(fl: float, preset: str, V: int, K: int) -> None:
+    """Hold the port's count of a scene (``pipeline_flops``, computed
+    outside the timed windows: it drives the stages once more, on zeros)
+    to the JAX package's (``JAX_SCENE_FLOPS``)."""
+    want = JAX_SCENE_FLOPS[(preset, V, K)]
+    if abs(fl - want) > FLOPS_RTOL * want:
+        raise AssertionError(f"{preset} V={V} K={K}: pipeline_flops {fl} != "
+                             f"the JAX count {want}")
 
 
 def phase_full(preset: str):
@@ -955,8 +987,11 @@ def phase_full(preset: str):
     import torch
 
     from panst3r_torch.core.bucketing import Bucket
+    from panst3r_torch.core.profiling import profile_by_kernel
     from panst3r_torch.engine.inference import InferenceEngine
     from panst3r_torch.models.panst3r import build_model
+    from panst3r_torch.ops.flops import mfu
+    from panst3r_torch.tools.mfu_report import stage_mfu
 
     cfg = _config(preset)
     V, K, chunk, H, W = 8, 4, 4, 384, 512
@@ -988,7 +1023,7 @@ def phase_full(preset: str):
     torch.cuda.synchronize()
     e2e = time.perf_counter() - t3
 
-    profile = _profile(lambda: eng.fuse(
+    profile = profile_by_kernel(lambda: eng.fuse(
         eng.run_device(images, portrait, cls_emb), (H, W)))
 
     Q, ncls = cfg.panoptic.mask_transformer.num_queries, cls_emb.shape[0]
@@ -999,13 +1034,21 @@ def phase_full(preset: str):
               for k, s in shapes.items()}
     pan = fused[0]["pan"]
     want = expected_launches(cfg, V, K, chunk)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    st = eng.stage_flops(V, K)
+    flops = sum(st.values())
     emit({"phase": preset, "views": V, "keyframes": out["keyframes"],
           "setup_s": setup_s, "stage_s": stage,
           "run_plus_fuse_s": t2 - t0, "run_plus_fuse_nosync_s": e2e,
-          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+          "peak_mem_gib": peak,
           "n_segments": len(fused[0]["segments_info"]),
           "pan_shape": list(pan.shape), "checks": checks,
-          "launches": counts, "expected_launches": want})
+          "launches": counts, "expected_launches": want,
+          "flops": flops, "stage_flops": st,
+          "jax_flops": JAX_SCENE_FLOPS[(preset, V, K)],
+          "mfu": mfu(flops, e2e),
+          "mfu_device": mfu(flops, profile["device_busy_ms"] / 1e3),
+          "stage_mfu": stage_mfu(st, stage)})
     # the tracer slows the host; the untraced run's wall is the fairer
     # denominator for the device's idle share
     profile["device_idle_share_untraced"] = 1 - profile["device_busy_ms"] \
@@ -1018,6 +1061,7 @@ def phase_full(preset: str):
     if counts != want:
         raise AssertionError(f"{preset}: launches {counts} != expected "
                              f"{want}")
+    check_scene_flops(flops, preset, V, K)
     del eng, model, out, fused
     torch.cuda.empty_cache()
     return counts
@@ -1108,6 +1152,7 @@ def phase_small_train(shape=SMALL_TRAIN_SHAPE, depth: int = 2):
 
     from panst3r_torch.engine import train as tr
     from panst3r_torch.models.panst3r import build_model
+    from panst3r_torch.ops.flops import FlopCounter
 
     cfg = _config("v2", depth=depth)
     B, V, H, W, ncls = shape
@@ -1133,11 +1178,14 @@ def phase_small_train(shape=SMALL_TRAIN_SHAPE, depth: int = 2):
         step = tr.make_train_step(model, opt, tcfg.loss, (H // 16, W // 16))
         _reset_counts()
         t0 = time.perf_counter()
-        loss, det = step(tr.batch_to(batch, name),
-                         torch.as_tensor(cls, device=name), draws=draws)
+        # the count covers the backward, which the card runs on autograd's
+        # device thread (K5's declaration and the matmuls' gradients)
+        with FlopCounter() as fc:
+            loss, det = step(tr.batch_to(batch, name),
+                             torch.as_tensor(cls, device=name), draws=draws)
         counts = _read_counts()
         res[name] = dict(
-            loss=float(loss), assign=det["assign"].cpu(),
+            flops=fc.total, loss=float(loss), assign=det["assign"].cpu(),
             grads={n: x.cpu() for n, x in opt.grads.items()},
             frozen_same=all(torch.equal(p, before[n]) for n, p in
                             model.named_parameters() if not mask[n]),
@@ -1145,7 +1193,7 @@ def phase_small_train(shape=SMALL_TRAIN_SHAPE, depth: int = 2):
                         model.named_parameters() if mask[n]))
         emit({"phase": "small", "model": "v2_train", "device": name,
               "seconds": time.perf_counter() - t0, "loss": res[name]["loss"],
-              "launches": counts, "frozen_bit_identical":
+              "flops": fc.total, "launches": counts, "frozen_bit_identical":
               res[name]["frozen_same"],
               "trainable_leaves_changed": res[name]["trained"]})
         if name == "cuda":
@@ -1163,13 +1211,15 @@ def phase_small_train(shape=SMALL_TRAIN_SHAPE, depth: int = 2):
         if err > lim:
             bad.append(n)
     row = {"phase": "small", "model": "v2_train", "compare": "cuda_vs_cpu",
+           "flops_equal": a["flops"] == b["flops"],
            "assign_equal": bool(torch.equal(a["assign"], b["assign"])),
            "loss_rel_err": abs(a["loss"] - b["loss"]) / abs(b["loss"]),
            "grad_err_over_limit_max": worst, "grads_bad": bad[:40],
            "n_trainable_leaves": len(b["grads"])}
     emit(row)
     if not (row["assign_equal"] and row["loss_rel_err"] <= 1e-4 and not bad
-            and a["frozen_same"] and b["frozen_same"]):
+            and a["frozen_same"] and b["frozen_same"]
+            and row["flops_equal"]):
         raise AssertionError(f"small v2_train: card and CPU disagree: {row}")
     del cpu_model, model
     torch.cuda.empty_cache()
@@ -1183,8 +1233,10 @@ def phase_train_v2():
     import torch
 
     from panst3r_torch.core import rng as prng
+    from panst3r_torch.core.profiling import profile_by_kernel
     from panst3r_torch.engine import train as tr
     from panst3r_torch.models.panst3r import build_model
+    from panst3r_torch.ops.flops import count_flops, mfu
 
     cfg = _config("v2")
     B, V, H, W, ncls = TRAIN_SHAPE
@@ -1228,12 +1280,21 @@ def phase_train_v2():
     split = {}
     step(batches[0], cls_emb, prng.generator(tcfg.seed, 0, 4, device="cuda"),
          stage_times=split)
-    profile = _profile(lambda: step(batches[1], cls_emb, prng.generator(
+    profile = profile_by_kernel(lambda: step(batches[1], cls_emb, prng.generator(
         tcfg.seed, 0, 5, device="cuda")))
+    # one more micro-step under the counter (the counterpart of
+    # tools/train_step_bench.py:196-205): forward, criterion and backward
+    flops = count_flops(step, batches[0], cls_emb,
+                        prng.generator(tcfg.seed, 0, 6, device="cuda"))
     secs = sorted(s["seconds"] for s in steps[1:])
+    median = secs[len(secs) // 2]
     emit({"phase": "train_v2", "batch": B, "views": V, "hw": [H, W],
           "setup_s": setup_s, "steps": steps,
-          "median_step_s_2_to_4": secs[len(secs) // 2],
+          "median_step_s_2_to_4": median,
+          # the step computes in f32 (frozen towers stored in bf16): MFU
+          # against the dense bf16 peak (the convention) and the f32 one
+          "flops": flops, "mfu": mfu(flops, median),
+          "mfu_f32_peak": mfu(flops, median, "float32"),
           "stage_s": split, "peak_mem_gib": peak,
           "n_trainable_leaves": len(train),
           "trainable_params": sum(p.numel() for p in train.values()),
@@ -1310,6 +1371,7 @@ def expected_serve_launches(cfg, V, K, N, path="serve", upload_chunk=None,
         "flash_fwd": n_heads * pan.upscaler.num_layers if loftup else 0,
         "flash_bwd": 0,
         "tower_cross_int8": r8 * dec,
+        "packed_flash": 0,
     }
 
 
@@ -1377,6 +1439,7 @@ def phase_serve():
     from panst3r_torch.core.bucketing import Bucket
     from panst3r_torch.engine.inference import InferenceEngine, fetch_wire
     from panst3r_torch.models.panst3r import build_model
+    from panst3r_torch.ops.flops import mfu
     from panst3r_torch.ops.image import rgb_to_yuv420, yuv420_decode
 
     cfg = _config("v1")
@@ -1489,7 +1552,9 @@ def phase_serve():
     want = expected_serve_launches(cfg, V, K, N)
     checks["launches"] = {"serve": counts["serve"], "expected": want,
                           "ok": counts["serve"] == want}
+    flops = eng.pipeline_flops(V, K)
     emit({"phase": "serve", "views": V, "keyframes": K, "hw": [H, W],
+          "flops": flops, "mfu": mfu(flops, secs["serve_device_full"]),
           "scene_s": secs, "stream_views_per_s": 8 * V /
           secs["stream_8_scenes"], "sequential_views_per_s":
           8 * V / secs["sequential_8_scenes"], "wire_bytes": nbytes,
@@ -1498,6 +1563,7 @@ def phase_serve():
     if bad:
         raise AssertionError(f"serve: failed checks {bad}: "
                              f"{ {k: checks[k] for k in bad} }")
+    check_scene_flops(flops, "v1", V, K)
     del eng
     torch.cuda.empty_cache()
     return counts["serve"]
@@ -1515,8 +1581,10 @@ def phase_serve_long():
     import torch
 
     from panst3r_torch.core.bucketing import Bucket
+    from panst3r_torch.core.profiling import profile_by_kernel
     from panst3r_torch.engine.inference import InferenceEngine
     from panst3r_torch.models.panst3r import build_model
+    from panst3r_torch.ops.flops import mfu
     from panst3r_torch.ops.image import rgb_to_yuv420
 
     cfg = _config("v1")
@@ -1548,7 +1616,7 @@ def phase_serve_long():
                                        **kw))
         res["stream_4_scenes_s"] = time.perf_counter() - t0
         stream_counts = _read_counts()
-        profile = _profile(lambda: eng.serve_device(scenes[0], port, cls,
+        profile = profile_by_kernel(lambda: eng.serve_device(scenes[0], port, cls,
                                                     **kw).cpu())
         out8 = eng.run_fused(scenes[0], port, cls)
     with _env("PANST3R_KV_INT8", "0"):
@@ -1566,7 +1634,10 @@ def phase_serve_long():
         for k in ("pointmaps_raw", "pred_logits", "pred_masks")}
     del out8, out16
     dec8, dec16 = eng.unpack_wire(wire8, V), eng.unpack_wire(wire16, V)
+    flops = eng.pipeline_flops(V, K)
     res.update(
+        flops=flops, mfu=mfu(flops, res["scene_s"]),
+        mfu_device=mfu(flops, profile["device_busy_ms"] / 1e3),
         stream_views_per_s=4 * V / res["stream_4_scenes_s"],
         scene_views_per_s=V / res["scene_s"], wire_bytes=wire8.nbytes,
         upload_bytes=scenes[0].nbytes, launches=counts,
@@ -1590,6 +1661,7 @@ def phase_serve_long():
     if not (res["stream_first_equals_scene"] and len(stream) == 4
             and dec8["pan"].shape == (V, H, W)):
         raise AssertionError(f"serve_long: wrong outputs {res}")
+    check_scene_flops(flops, "v1", V, K)
     del eng
     torch.cuda.empty_cache()
     return counts
@@ -1642,6 +1714,50 @@ def phase_small_serve():
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------- A/B tool --
+
+def phase_ab_packed():
+    """K6's path: the A/B tool (``panst3r_torch/tools/
+    ab_attention_packed.py``) at full shape (B=8, H=16, N=768, D=64, bf16,
+    24 layers): one run of the ``packed`` variant launches K6 exactly once
+    per layer and nothing else, its output is finite, K6 agrees with K4
+    (the tool's parity check), and every variant's ms per layer and the
+    card's bound per layer are emitted.  Returns the launches of one
+    ``packed`` run."""
+    import torch
+
+    from panst3r_torch.ops.packed_attention import packed_mha
+    from panst3r_torch.tools import ab_attention_packed as ab
+
+    layers, reps = 24, 5
+    x, kx, vx, tabs = ab.inputs(torch.device("cuda"))
+    packed = ab.variants(kx, vx, tabs)["packed"]
+    with torch.inference_mode():
+        _reset_counts()
+        out = ab.run_layers(packed, x, layers)
+        torch.cuda.synchronize()
+        counts = _read_counts()
+    finite = bool(torch.isfinite(out).all())
+    n0 = packed_mha.launches
+    res = ab.run("cuda", layers=layers, reps=reps)
+    # the parity call, the warm-up run and the timed runs
+    timed_launches = packed_mha.launches - n0
+    want = dict.fromkeys(counts, 0)
+    want["packed_flash"] = layers
+    emit({"phase": "ab_packed", **res, "launches": counts,
+          "expected_launches": want, "finite": finite,
+          "timed_launches": timed_launches,
+          "parity_limit": AB_PARITY_ATOL})
+    if counts != want or timed_launches != 1 + layers * (1 + reps):
+        raise AssertionError(f"ab_packed: launches {counts} (timed "
+                             f"{timed_launches}) != {want}")
+    if not finite or res["packed_vs_unpacked_max_abs_err"] > AB_PARITY_ATOL:
+        raise AssertionError(f"ab_packed: finite={finite}, K6 vs K4 "
+                             f"{res['packed_vs_unpacked_max_abs_err']}")
+    torch.cuda.empty_cache()
+    return counts
+
+
 # ------------------------------------------------------------------ main --
 
 def main(argv=None) -> int:
@@ -1692,17 +1808,21 @@ def main(argv=None) -> int:
         launches["serve"] = phase_serve()
     if "serve_long" in phases:
         launches["serve_long"] = phase_serve_long()
+    if "ab_packed" in phases:
+        launches["ab_packed"] = phase_ab_packed()
 
     kernels = []
     for name, (case, dname) in MAIN_CASE.items():
         r = rows.get((name, case, dname), {})
-        # this slice's path is serve_long; K4 and K5 run only in train_v2
-        on_path = launches.get("serve_long", {}).get(name)
+        # each kernel's count on its path: K6 on the A/B tool (this slice's
+        # path), K4 and K5 on train_v2, the others on serve_long
+        path = {"packed_flash": "ab_packed", "flash_fwd": "train_v2",
+                "flash_bwd": "train_v2"}.get(name, "serve_long")
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"panst3r_torch/csrc/{name}.cu",
             "replaces": REPLACES[name],
-            "launches": on_path or launches.get("train_v2", {}).get(name),
+            "launches": launches.get(path, {}).get(name),
             "launches_by_path": {p: c.get(name) for p, c in launches.items()},
             "case": case, "dtype": dname,
             "max_abs_err": r.get("max_abs_err"), "ms": r.get("kernel_ms"),

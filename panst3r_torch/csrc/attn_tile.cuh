@@ -1,6 +1,7 @@
-// Shared block engine of the four attention forward kernels (K1
-// tower_self, K2 tower_cross, K3 masked_attn, K4 flash_fwd); K5
-// (flash_bwd.cu) takes its constants, conversions and rope_at.
+// Shared block engine of the attention forward kernels (K1 tower_self, K2
+// tower_cross, K3 masked_attn, K4 flash_fwd, K6 packed_flash, which runs
+// two tiles in one block); K5 (flash_bwd.cu) takes its constants,
+// conversions and rope_at.
 //
 // One thread block owns a 64-row query tile of one (batch, head) and walks
 // the key tiles (64 keys each) with an online softmax in f32.  Four warps;
@@ -116,7 +117,11 @@ struct Tile {
   float m, l;            // running max / sum of row (w*16 + lane/2)
   float oreg[16][DJ];    // f32 path accumulator
 
-  __device__ void init(unsigned char* smem) {
+  __device__ void init(unsigned char* smem) { init(smem, threadIdx.x >> 5); }
+
+  // ``warp``: this warp's index among the tile's four (a block may hold
+  // more than one tile, K6).
+  __device__ void init(unsigned char* smem, int warp) {
     unsigned char* ptr = smem;
     q = reinterpret_cast<T*>(ptr); ptr += kQ;
     k = reinterpret_cast<T*>(ptr); ptr += kKV;
@@ -137,7 +142,7 @@ struct Tile {
     kbias = vc + D;
     ptr += kMisc;
     mask = ptr;
-    w = threadIdx.x >> 5;
+    w = warp;
     lane = threadIdx.x & 31;
     m = NEG;
     l = 0.f;

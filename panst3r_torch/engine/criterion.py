@@ -93,13 +93,23 @@ def _grid_shape(num_points: int, H: int, W: int):
     return gh, max(1, num_points // gh)
 
 
+def _grid_points(m, grid):
+    """(B, K, V, h, w) masks at the grid matcher's (gh, gw) quadrature
+    points of every view, bilinear without antialias: (B, K, V·gh·gw)."""
+    gh, gw = grid
+    r = resize(m, (*m.shape[:3], gh, gw), "bilinear", antialias=False)
+    return r.reshape(m.shape[0], m.shape[1], -1)
+
+
 @torch.no_grad()
 def match_costs(pred_logits, pred_masks, targets: Targets,
-                c: PanopticLossConfig, points=None):
+                c: PanopticLossConfig, points=None, tgt_pts=None):
     """Matching costs (B, Q, T) with invalid columns at a large constant,
     the span of the real costs (B,), and the column validity (B, T).
     pred_masks (B, V, Q, h, w); ``points`` (B, V, P, 2) for the random
-    matcher."""
+    matcher; ``tgt_pts``: the grid matcher's target samples when the
+    caller has them (``set_criterion`` samples them once for every level,
+    as the JAX vmap over the levels does)."""
     B, Q = pred_logits.shape[:2]
     V = pred_masks.shape[1]
     T = targets.labels.shape[1]
@@ -109,11 +119,10 @@ def match_costs(pred_logits, pred_masks, targets: Targets,
     masks_q = pred_masks.float().transpose(1, 2)             # (B, Q, V, h, w)
     masks_t = targets.masks.float()                          # (B, T, V, H, W)
     if c.matcher_sampling == "grid":
-        gh, gw = _grid_shape(c.num_points, *masks_t.shape[-2:])
+        grid = _grid_shape(c.num_points, *masks_t.shape[-2:])
 
         def sample(m):
-            r = resize(m, (*m.shape[:3], gh, gw), "bilinear", antialias=False)
-            return r.reshape(B, m.shape[1], -1)
+            return _grid_points(m, grid)
     else:
         def sample(m):
             return torch.stack([torch.stack([
@@ -121,7 +130,9 @@ def match_costs(pred_logits, pred_masks, targets: Targets,
                 for v in range(V)], 1) for b in range(B)]).reshape(
                     B, m.shape[1], -1)
 
-    out_pts, tgt_pts = sample(masks_q), sample(masks_t)
+    out_pts = sample(masks_q)
+    if tgt_pts is None:
+        tgt_pts = sample(masks_t)
     cost = (c.mask_weight * _batch_sigmoid_ce(out_pts, tgt_pts)
             + c.class_weight * cost_class
             + c.dice_weight * _batch_dice(out_pts, tgt_pts))
@@ -262,7 +273,11 @@ def set_criterion(outputs: dict, targets: Targets, c: PanopticLossConfig,
                 d["match"] = torch.rand(
                     (B, V, c.num_points, 2), generator=generator,
                     device=targets.masks.device)
-    costs = [match_costs(lg, m, targets, c, d.get("match"))
+    tgt_pts = None
+    if c.matcher_sampling == "grid":    # the same targets at every level
+        tgt_pts = _grid_points(targets.masks.float(), _grid_shape(
+            c.num_points, *targets.masks.shape[-2:]))
+    costs = [match_costs(lg, m, targets, c, d.get("match"), tgt_pts)
              for (lg, m), d in zip(levels, draws)]
     assign = auction_lap(torch.stack([x[0] for x in costs]),
                          span=torch.stack([x[1] for x in costs]),

@@ -31,7 +31,8 @@ retrieval keyframes, and packs one uint8/uint16 wire buffer that
 chunk) and run the towers per chunk; ``serve_stream`` pipelines scenes
 with a fetcher thread.  Every input may be packed YUV420
 (``ops/image.py``).  ``serve_many_device`` and ``MultiBucketEngine`` wait
-for later slices and raise.
+for later slices and raise.  ``stage_flops`` / ``pipeline_flops`` count a
+scene's matmul work for MFU (``ops/flops.py``).
 """
 from __future__ import annotations
 
@@ -489,11 +490,71 @@ class InferenceEngine:
             "serve_many_device waits for a later slice of the port; use "
             "serve_device per scene or serve_stream")
 
-    def pipeline_flops(self, *args, **kwargs):
-        """The JAX engine's jaxpr FLOP count: not ported yet."""
-        raise NotImplementedError(
-            "pipeline_flops waits for the port's tooling slice (a torch "
-            "FLOP counter)")
+    def stage_flops(self, V: int, num_keyframes: Optional[int] = None
+                    ) -> dict:
+        """Matmul/conv FLOPs of one ``run_device`` + fusion scene of V views
+        by stage (``ops/flops.py``; the stages and keys of the JAX
+        engine's ``pipeline_flops`` and ``tools/mfu_report.py``): the
+        encoder and DINO over V views, the memory build over K keyframes,
+        the render of V views, the keyframe head call, the other views'
+        head call, and fusion at the mask resolution with 32 classes.  Each
+        stage runs once under the counter on zeros of its shapes, on the
+        engine's device, without gradients; kernels count the work they
+        declare, so the count depends on the shapes only."""
+        from panst3r_torch.engine.fusion import _fusion_full
+        from panst3r_torch.ops.flops import count_flops
+
+        c = self.model.config
+        K = min(num_keyframes or self.num_keyframes, V)
+        H, W = self.bucket.shape
+        N = self.n_tokens
+        mt = c.panoptic.mask_transformer
+        dev, dt = self.device, self.dtype
+
+        def zeros(*shape, dtype=dt):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        img = zeros(V, H, W, 3, dtype=torch.uint8)
+        x = zeros(V, N, c.encoder.embed_dim)
+        pos = zeros(V, N, 2, dtype=torch.int64)
+        y = zeros(V, N, c.decoder.dim)
+        dino = zeros(V, N, c.dino.embed_dim)
+        portrait = zeros(V, dtype=torch.bool)
+        cls_emb = zeros(32, mt.lang_dim)
+        cast = image_cast(img, self.amp)
+        mem = memlib.init_memory(c.decoder.depth, 1, K * N, c.decoder.dim,
+                                 dtype=dt, device=dev)
+
+        def head(n, queries=None):
+            return self.model.panoptic(
+                (x[None, :n], y[None, :n], dino[None, :n]), cast[None, :n],
+                pos[None, :n], portrait[None, :n], cls_emb, self.grid,
+                memory_queries=queries,
+                deep_supervision=False if queries is None else None)
+
+        out = {}
+        with torch.no_grad():
+            out["encoder"] = count_flops(self.encode_batch, img)
+            out["dino"] = count_flops(self.dino_batch, img)
+            out["memory"] = count_flops(self.build_memory, x[:K], pos[:K])
+            out["render"] = count_flops(self.render_batch, x, pos, mem)
+            out["pan_joint"] = count_flops(head, K)
+            out["pan_queries"] = count_flops(
+                head, V - K, zeros(1, mt.num_queries, mt.hidden_dim)) \
+                if V > K else 0.0
+            out["fusion"] = count_flops(
+                _fusion_full, zeros(1, mt.num_queries, 32,
+                                    dtype=torch.float32),
+                zeros(1, V, mt.num_queries, H // 2, W // 2,
+                      dtype=torch.float32),
+                (H, W), "sigmoid", 0.1, None, 0.25, 0.5, 2, 0.1)
+        return out
+
+    def pipeline_flops(self, V: int, num_keyframes: Optional[int] = None
+                       ) -> float:
+        """Matmul/conv FLOPs of one ``run_device`` + fusion scene: the sum
+        of ``stage_flops``."""
+        return sum(self.stage_flops(V, num_keyframes).values())
 
     def serve_stream(self, scenes, portrait, cls_embeddings,
                      unpack: bool = True, queue_depth: int = 2,

@@ -24,6 +24,7 @@ from panst3r_torch.models import memory as memlib
 from panst3r_torch.models.blocks import (LN_EPS, CrossAttention, Mlp,
                                          SelfAttention)
 from panst3r_torch.models.memory import TokenMemory
+from panst3r_torch.ops import flops
 from panst3r_torch.ops.attention import memory_mask_bias
 from panst3r_torch.ops.rope import rope2d_tables
 
@@ -96,6 +97,12 @@ class MemoryDecoder(nn.Module):
         gh, gw = grid
         assert gh * gw == N, (grid, N)
         x = self.decoder_embed(x_enc)
+        if c.feedback == "single_mlp":
+            # the JAX decoder calls feedback_mlp on one zero token to create
+            # its flax parameters (decoder.py:143); XLA drops the call and
+            # the JAX FLOP counter counts it: two Dense layers of
+            # 2·dim·2dim FLOPs each
+            flops.add_traced_only(8.0 * c.dim * c.dim)
 
         flat_pos = pos.reshape(B, V * N, 2)
         hd = c.dim // c.num_heads

@@ -20,6 +20,7 @@ import os
 
 import torch
 
+from panst3r_torch.ops import flops
 from panst3r_torch.ops.rope import apply_rope_tables
 
 NEG_INF = float(torch.finfo(torch.float32).min)
@@ -36,7 +37,10 @@ def needs_k4(t: torch.Tensor, what: str) -> None:
 
 class _Recompute(torch.autograd.Function):
     """``fwd(*xs)`` with the vector-Jacobian product of ``plain(*xs)``,
-    recomputed with autograd in the backward (``recompute_vjp``)."""
+    recomputed with autograd in the backward (``recompute_vjp``).  A FLOP
+    count takes the products of that backward but not the recomputed
+    forward: model work, as the JAX package's CPU count (plain jnp, no
+    ``custom_vjp``) has it."""
 
     @staticmethod
     def forward(ctx, fwd, plain, need_grad, *xs):
@@ -51,7 +55,8 @@ class _Recompute(torch.autograd.Function):
         with torch.enable_grad():
             xs = [None if x is None else x.detach().requires_grad_(n)
                   for x, n in zip(ctx.saved_tensors, needs)]
-            out = ctx.plain(*xs)
+            with flops.declare(0):
+                out = ctx.plain(*xs)
             grads = iter(torch.autograd.grad(
                 out, [x for x, n in zip(xs, needs) if n], g))
         return (None, None, None) + tuple(next(grads) if n else None

@@ -23,7 +23,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 KERNEL_SOURCES = ("tower_self", "tower_cross", "tower_cross_int8",
-                  "masked_attn", "flash_fwd", "flash_bwd")
+                  "masked_attn", "flash_fwd", "flash_bwd", "packed_flash")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -118,9 +118,14 @@ def check_tensor(t, name: str, shape, dtype, device) -> None:
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise on a launch's error code, or on a launch whose FLOPs no
+    wrapper declared to an open counter (``ops/flops.py``)."""
     if err != 0:
         raise RuntimeError(
             f"{what}: CUDA error {err}: {lib.p3_error_string(err).decode()}")
+    from panst3r_torch.ops import flops
+
+    flops.check_declared(what)
 
 
 def ptr(t) -> ctypes.c_void_p | None:

@@ -39,7 +39,7 @@ import ctypes
 
 import torch
 
-from panst3r_torch.ops import cuda_build
+from panst3r_torch.ops import cuda_build, flops
 from panst3r_torch.ops.attention import NEG_INF
 from panst3r_torch.ops.rope import _rotate_half_2d, apply_rope_tables_f32
 
@@ -219,8 +219,10 @@ def flash_mha(q, k, v, bias=None, kv_valid=None, rope=None, scale=None,
     need_grad = torch.is_grad_enabled() and any(
         t.requires_grad for t in (q, k, v))
     tabs = (None,) * 4 if rope is None else tuple(rope)
-    return _FlashMHA.apply(q, k, v, bias, kv_valid, *tabs, float(scale),
-                           with_lse, need_grad)
+    B, H, Nq, D = q.shape
+    with flops.declare(flops.attention_flops(B, H, Nq, k.shape[2], D)):
+        return _FlashMHA.apply(q, k, v, bias, kv_valid, *tabs, float(scale),
+                               with_lse, need_grad)
 
 
 flash_mha.launches = 0
@@ -264,10 +266,19 @@ def flash_mha_bwd(q, k, v, o, lse, do, bias=None, kv_valid=None, rope=None,
     rope, scale)`` with respect to the unrotated q, k, v, in their dtypes,
     from its output ``o``, its LSE ``lse`` (B, H, Nq) f32 and the output
     gradient ``do``.  The bias, validity and tables as ``flash_mha`` takes
-    them; none of them gets a gradient."""
-    if q.device.type == "cpu":
-        return flash_mha_bwd_ref(q, k, v, o, lse, do, bias, kv_valid, rope,
+    them; none of them gets a gradient.  Declares the four products of the
+    dense backward (8·B·H·Nq·Nk·D), not the kernels' recompute of p."""
+    B, H, Nq, D = q.shape
+    with flops.declare(2 * flops.attention_flops(B, H, Nq, k.shape[2], D)):
+        if q.device.type == "cpu":
+            return flash_mha_bwd_ref(q, k, v, o, lse, do, bias, kv_valid,
+                                     rope, scale)
+        return _flash_bwd_kernel(q, k, v, o, lse, do, bias, kv_valid, rope,
                                  scale)
+
+
+def _flash_bwd_kernel(q, k, v, o, lse, do, bias, kv_valid, rope, scale):
+    """Launch K5's two kernels."""
     _check_qkv("flash_mha_bwd", q, k, v)
     B, H, Nq, D = q.shape
     Nk = k.shape[2]

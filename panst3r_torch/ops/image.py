@@ -24,9 +24,13 @@ normalization, close the module.
 from __future__ import annotations
 
 import functools
+import itertools
+import math
 
 import numpy as np
 import torch
+
+from panst3r_torch.ops import flops
 
 
 def _axis_lerp(out_size: int, in_size: int, device, dtype=torch.float32):
@@ -94,22 +98,67 @@ def resize_weights(in_size: int, out_size: int, method: str,
     return np.where(inside[None, :], w, f32(0.0)).astype(f32)
 
 
+def einsum_flops(in_shape, out_shape, dims) -> float:
+    """FLOPs of contracting x of ``in_shape`` with one weight matrix per
+    dim of ``dims``, in ``jnp.einsum``'s order (opt_einsum's optimal path:
+    the fewest multiply-adds): what the JAX counter counts for
+    ``jax.image.resize`` / ``scale_and_translate``, and for their
+    backward (one product per contraction again).  The port contracts the
+    last dim first (``_Separable``), which is that order for fusion's
+    landscape upsampling; elsewhere its work differs from this count by a
+    few multiply-adds per output, and it declares this count."""
+    best = None
+    for perm in itertools.permutations(dims):
+        cur, cost = list(in_shape), 0
+        for d in perm:
+            cost += math.prod(cur) * out_shape[d]
+            cur[d] = out_shape[d]
+        best = cost if best is None else min(best, cost)
+    return 2.0 * (best or 0)
+
+
+class _Separable(torch.autograd.Function):
+    """x contracted with the matrix ``w`` of each dim ``d`` of ``pairs``,
+    in that order, each product rounded to x's dtype; differentiable in x
+    (the weights are constants).  Forward and backward declare
+    ``count`` FLOPs (``einsum_flops``) to an open counter."""
+
+    @staticmethod
+    def _contract(x, d, w):
+        return torch.movedim(torch.matmul(torch.movedim(x, d, -1), w), -1,
+                             d)
+
+    @staticmethod
+    def forward(ctx, x, pairs, count):
+        ctx.pairs, ctx.count = pairs, count
+        with flops.declare(count):
+            for d, w in pairs:
+                x = _Separable._contract(x, d, w)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        with flops.declare(ctx.count):
+            for d, w in reversed(ctx.pairs):
+                g = _Separable._contract(g, d, w.t())
+        return g, None, None
+
+
 def resize(x: torch.Tensor, shape, method: str,
            antialias: bool = True) -> torch.Tensor:
     """``jax.image.resize(x, shape, method, antialias)`` for the bilinear
     and bicubic kernels: one separable contraction per resized dim, with
     the weights cast to x's dtype.  XLA contracts the last resized dim
-    first and rounds between the contractions; the same order makes the
-    bf16 fusion masks bit-identical."""
+    first for fusion's masks and rounds between the contractions; the
+    same order makes the bf16 fusion masks bit-identical.  Declares
+    ``einsum_flops``."""
     assert len(shape) == x.ndim
-    for d in reversed(range(x.ndim)):
-        n_in, n_out = x.shape[d], shape[d]
-        if n_in == n_out:
-            continue
-        w = torch.as_tensor(resize_weights(n_in, n_out, method, antialias),
-                            device=x.device).to(x.dtype)
-        x = torch.movedim(torch.matmul(torch.movedim(x, d, -1), w), -1, d)
-    return x
+    dims = [d for d in range(x.ndim) if x.shape[d] != shape[d]]
+    pairs = [(d, torch.as_tensor(resize_weights(x.shape[d], shape[d], method,
+                                                antialias),
+                                 device=x.device).to(x.dtype))
+             for d in reversed(dims)]
+    return _Separable.apply(x, pairs, einsum_flops(x.shape, shape, dims))
 
 
 def _linear_weights(in_size: int, out_size: int, scale, translation):
@@ -138,12 +187,13 @@ def scale_and_translate_linear(x: torch.Tensor, shape, spatial_dims,
     """``jax.image.scale_and_translate(x, shape, spatial_dims, scale,
     translation, method="linear", antialias=False)`` on an f32 ``x``;
     ``scale`` and ``translation`` are f32 tensors with one entry per spatial
-    dim.  The last spatial dim is contracted first, as for ``resize``."""
-    for i in reversed(range(len(spatial_dims))):
-        d = spatial_dims[i]
-        w = _linear_weights(x.shape[d], shape[d], scale[i], translation[i])
-        x = torch.movedim(torch.matmul(torch.movedim(x, d, -1), w), -1, d)
-    return x
+    dim.  The last spatial dim is contracted first, as for ``resize``;
+    declares ``einsum_flops``."""
+    pairs = [(d, _linear_weights(x.shape[d], shape[d], scale[i],
+                                 translation[i]))
+             for i, d in reversed(list(enumerate(spatial_dims)))]
+    return _Separable.apply(x, pairs,
+                            einsum_flops(x.shape, shape, list(spatial_dims)))
 
 
 # ------------------------------------------------------- YUV420 wire ----

@@ -20,7 +20,7 @@ import ctypes
 
 import torch
 
-from panst3r_torch.ops import cuda_build
+from panst3r_torch.ops import cuda_build, flops
 from panst3r_torch.ops.attention import (NEG_INF, dot_product_attention,
                                          recompute_vjp)
 from panst3r_torch.ops.tower_attention import _softmax_rounded
@@ -72,12 +72,17 @@ def masked_mha(q, k, v, blocked, scale=None):
     k, v: the backward recomputes dense masked attention, as the JAX
     ``custom_vjp`` does (masked_attention.py:197-212); ``blocked`` gets no
     gradient."""
-    fwd = masked_mha_ref if q.device.type == "cpu" else _masked_mha_kernel
-    return recompute_vjp(
-        lambda q, k, v: fwd(q, k, v, blocked, scale),
-        lambda q, k, v: dot_product_attention(q, k, v, mask=~blocked[:, None],
-                                              scale=scale),
-        q, k, v)
+    B, H, Nq, D = q.shape
+    # dense work, not the tiles the plan visits: the JAX count of the jnp
+    # formula, independent of the mask
+    with flops.declare(flops.attention_flops(B, H, Nq, k.shape[2], D)):
+        fwd = masked_mha_ref if q.device.type == "cpu" \
+            else _masked_mha_kernel
+        return recompute_vjp(
+            lambda q, k, v: fwd(q, k, v, blocked, scale),
+            lambda q, k, v: dot_product_attention(
+                q, k, v, mask=~blocked[:, None], scale=scale),
+            q, k, v)
 
 
 masked_mha.launches = 0

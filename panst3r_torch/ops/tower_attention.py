@@ -36,7 +36,7 @@ import os
 
 import torch
 
-from panst3r_torch.ops import cuda_build
+from panst3r_torch.ops import cuda_build, flops
 from panst3r_torch.ops.attention import NEG_INF, recompute_vjp
 from panst3r_torch.ops.rope import _rotate_half_2d, apply_rope_tables_f32
 
@@ -189,10 +189,14 @@ def tower_self_attention(qkv, heads: int, tabs=None, cls_kv=None,
         return lambda qkv, kc, vc: fn(qkv, heads, tabs,
                                       None if kc is None else (kc, vc), scale)
 
-    fwd = tower_self_attention_ref if qkv.device.type == "cpu" \
-        else _tower_self_kernel
-    return recompute_vjp(run(fwd), run(tower_self_attention_ref), qkv, kc,
-                         vc)
+    B, N, C3 = qkv.shape
+    # the jnp formula's work: the cls column is one more key
+    with flops.declare(flops.attention_flops(
+            B, heads, N, N + (cls_kv is not None), C3 // 3 // heads)):
+        fwd = tower_self_attention_ref if qkv.device.type == "cpu" \
+            else _tower_self_kernel
+        return recompute_vjp(run(fwd), run(tower_self_attention_ref), qkv,
+                             kc, vc)
 
 
 tower_self_attention.launches = 0
@@ -233,6 +237,12 @@ def _tower_cross_kernel(q, k, v, qtab, ktab, kv_bias, scale):
     cuda_build.check(lib, err, "tower_cross_attention")
     tower_cross_attention.launches += 1
     return out
+
+
+def _cross_flops(q, k) -> float:
+    """Dense work over every key, live or not (64-wide heads)."""
+    B, Nq, C = q.shape
+    return flops.attention_flops(B, C // 64, Nq, k.shape[1], 64)
 
 
 def int8_gate(Nq: int, qtab, kv_int8=None) -> bool:
@@ -368,9 +378,12 @@ def tower_cross_int8(q, k, v, qtab, ktab, kv_bias=None, scale=None):
     def run(fn):
         return lambda q, k, v: fn(q, k, v, qtab, ktab, kv_bias, scale)
 
-    fwd = tower_cross_int8_ref if q.device.type == "cpu" \
-        else _tower_cross_int8_kernel
-    return recompute_vjp(run(fwd), run(tower_cross_attention_ref), q, k, v)
+    # declared as K2's dense work, as the JAX package counts the jnp formula
+    with flops.declare(_cross_flops(q, k)):
+        fwd = tower_cross_int8_ref if q.device.type == "cpu" \
+            else _tower_cross_int8_kernel
+        return recompute_vjp(run(fwd), run(tower_cross_attention_ref), q, k,
+                             v)
 
 
 tower_cross_int8.launches = 0
@@ -389,9 +402,11 @@ def tower_cross_attention(q, k, v, qtab=None, ktab=None, kv_bias=None,
     def run(fn):
         return lambda q, k, v: fn(q, k, v, qtab, ktab, kv_bias, scale)
 
-    fwd = tower_cross_attention_ref if q.device.type == "cpu" \
-        else _tower_cross_kernel
-    return recompute_vjp(run(fwd), run(tower_cross_attention_ref), q, k, v)
+    with flops.declare(_cross_flops(q, k)):
+        fwd = tower_cross_attention_ref if q.device.type == "cpu" \
+            else _tower_cross_kernel
+        return recompute_vjp(run(fwd), run(tower_cross_attention_ref), q, k,
+                             v)
 
 
 tower_cross_attention.launches = 0

@@ -1,9 +1,9 @@
-"""K1-K5 and K2-int8 CUDA kernels against their plain versions at edge
+"""K1-K6 and K2-int8 CUDA kernels against their plain versions at edge
 shapes (ragged tiles, dead key tiles, rows with no live key, strided
 views), f32 and bf16, with the limits of chip_smoke.py; the int8 gate's
 launches; gradients through K1-K4 on the card against the plain versions';
 a small v2 train step and small v1 serve wires on the card against the
-CPU.  Needs a CUDA card; skips without one.  On the card (no JAX there, so
+CPU; FLOP counts on the card equal to the CPU's.  Needs a CUDA card; skips without one.  On the card (no JAX there, so
 without the repo's conftest):
 
     python -m pytest --noconftest -o addopts="" -p no:cacheprovider \
@@ -18,6 +18,7 @@ from chip_smoke import F32_TOL, QK_STD, bf16_check
 from panst3r_torch.ops import flash_attention as fa
 from panst3r_torch.ops.image import image_cast
 from panst3r_torch.ops import masked_attention as ma
+from panst3r_torch.ops import packed_attention as pa
 from panst3r_torch.ops import tower_attention as ta
 from panst3r_torch.ops.rope import rope2d_tables
 
@@ -401,3 +402,52 @@ def test_small_serve_wires_card_match_cpu(dev):
             if k in a:
                 assert np.abs(a[k] - b[k]).max() \
                     <= 1e-3 * np.abs(b[k]).max(), (name, k)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,P,N,view", [
+    (1, 1, 64, False), (2, 3, 768, True), (1, 8, 1536, False)])
+def test_packed_flash_kernel(dev, dtype, B, P, N, view):
+    """K6 on contiguous (B, P, N, 128) tensors and on the head-pair views
+    of a (B, N, P·128) projection, one and several key tiles."""
+    g = torch.Generator(device=dev).manual_seed(N + P)
+
+    def make(s):
+        if view:
+            return _rnd(g, dev, dtype, B, N, P * 128, s=s) \
+                .view(B, N, P, 128).transpose(1, 2)
+        return _rnd(g, dev, dtype, B, P, N, 128, s=s)
+
+    q, k, v = make(QK_STD), make(QK_STD), make(1.0)
+    n0 = pa.packed_mha.launches
+    out = pa.packed_mha(q, k, v)
+    assert pa.packed_mha.launches == n0 + 1
+    assert out.shape == (B, P, N, 128) and out.dtype == dtype
+    _close(out, pa.packed_mha_ref, q, k, v)
+
+
+def test_packed_flash_refuses(dev):
+    """N not a multiple of the 64-row tiles, and a tensor that wants a
+    gradient (K6 is forward-only), raise before any launch."""
+    q = torch.zeros(1, 2, 100, 128, device=dev)
+    with pytest.raises(NotImplementedError):
+        pa.packed_mha(q, q, q)
+    q = torch.zeros(1, 2, 64, 128, device=dev, requires_grad=True)
+    with pytest.raises(NotImplementedError):
+        pa.packed_mha(q, q, q)
+
+
+@pytest.mark.parametrize("preset", ["v1", "v2"])
+def test_stage_flops_card_equal_cpu(dev, preset):
+    """``stage_flops`` of the full-width model at depth 1 (V=3, K=2 at
+    64x96): the kernels' declarations make the card's count the CPU's."""
+    from panst3r_torch.core.bucketing import Bucket
+    from panst3r_torch.engine.inference import InferenceEngine
+    from panst3r_torch.models.panst3r import build_model
+
+    cfg = chip_smoke._config(preset, depth=1)
+    counts = [InferenceEngine(build_model(cfg, device=d, seed=0),
+                              Bucket(64, 96), num_keyframes=2, chunk=2,
+                              amp=True, device=d).stage_flops(3, 2)
+              for d in ("cuda", "cpu")]
+    assert counts[0] == counts[1]

@@ -380,8 +380,6 @@ def test_later_slices_raise(engines):
         teng.serve_many_device(images[None], portrait[None], cls_emb)
     with pytest.raises(NotImplementedError, match="later slice"):
         MultiBucketEngine()
-    with pytest.raises(NotImplementedError, match="tooling slice"):
-        teng.pipeline_flops(V)
     with pytest.raises(NotImplementedError, match="retrieval head"):
         tret.select_keyframes_retrieval(torch.zeros(3, 4, 8), 2,
                                         head=object())
