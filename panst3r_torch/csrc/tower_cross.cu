@@ -1,19 +1,19 @@
-// K2 — memory cross-attention over projected (B, Nq, C) x (B, Nk, C).
+// K2, f32 — memory cross-attention over projected (B, Nq, C) x (B, Nk, C)
+// (the bf16 path is tower_cross_sm90.cu, the int8 path tower_cross_int8.cu).
 //
 // Replaces panst3r_tpu/ops/pallas/tower_attention.py::_cross_fwd (body
-// _cross_kernel), bf16/f32 path: per d=64 head, q and k get their own 2D-RoPE
+// _cross_kernel), f32 path: per d=64 head, q and k get their own 2D-RoPE
 // (cos, sin) tables in f32, the softmax scale is applied to q after the
 // rotation (q is rounded to its dtype once, rotated and scaled), a per-key
 // additive bias (B, Nk) in f32 (the memory validity) joins the logits, and a
 // key tile whose bias is all <= finfo.min/2 is skipped entirely (no loads,
-// no products).  Rows that saw no live key write 0.  The opt-in int8 score
-// path of the JAX package (PANST3R_KV_INT8) is not ported.
+// no products).  Rows that saw no live key write 0.
 //
 // Bound on the H100: at the render shape (Nq = 3072, Nk = 3072, H = 12,
 // d=64) the work is 4*Nq*Nk*C = 29 GFLOP against ~19 MB of bf16 traffic,
 // so it is bound by operations; tile skipping removes the dead memory slots
-// of a partly filled memory from both.  Design as K1: 64x64 tiles, online
-// softmax, WMMA bf16 products with f32 accumulation.
+// of a partly filled memory from both.  Design as K1's f32 path: 64x64
+// tiles, online softmax, plain f32 FMA products (no TF32).
 #include "attn_tile.cuh"
 
 using namespace p3;
@@ -109,17 +109,13 @@ static cudaError_t launch(const void* q, const void* k, const void* v,
 
 P3_ERROR_STRING_FN
 
-// q (B, Nq, C); k/v (B, Nk, C); q/k tables (B, N, 64) f32 or all null;
+// q (B, Nq, C) f32; k/v (B, Nk, C); q/k tables (B, N, 64) f32 or all null;
 // bias (B, Nk) f32 or null; out (B, Nq, C).
 extern "C" int p3_tower_cross(const void* q, const void* k, const void* v,
                               const void* qcos, const void* qsin,
                               const void* kcos, const void* ksin,
                               const void* bias, void* out, int B, int Nq,
-                              int Nk, int C, float scale, int bf16,
-                              void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch<__nv_bfloat16>(q, k, v, qcos, qsin, kcos, ksin, bias,
-                                      out, B, Nq, Nk, C, scale, s)
-              : launch<float>(q, k, v, qcos, qsin, kcos, ksin, bias, out, B,
-                              Nq, Nk, C, scale, s);
+                              int Nk, int C, float scale, void* stream) {
+  return launch<float>(q, k, v, qcos, qsin, kcos, ksin, bias, out, B, Nq, Nk,
+                       C, scale, static_cast<cudaStream_t>(stream));
 }

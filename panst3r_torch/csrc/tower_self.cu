@@ -1,4 +1,5 @@
-// K1 — tower self-attention straight from the fused qkv projection.
+// K1, f32 — tower self-attention straight from the fused qkv projection
+// (the bf16 path is tower_self_sm90.cu).
 //
 // Replaces panst3r_tpu/ops/pallas/tower_attention.py::_tower_fwd (body
 // _kernel): softmax(q k^T * scale) v per d=64 head, q/k/v read out of the
@@ -13,9 +14,9 @@
 // work is 4*B*H*N^2*d = 9.7 GFLOP against 2*B*N*3C + ... ~25 MB of bf16
 // traffic, so it is bound by operations (the tensor cores), not bytes.
 // Design: tiles of 64 queries x 64 keys with an online softmax (a 768-key
-// K+V block in shared memory would leave one block per SM); bf16 products
-// on the tensor cores through WMMA with f32 accumulation.  wgmma/TMA and
-// warp specialisation are later work.
+// K+V block in shared memory would leave one block per SM), plain f32 FMA
+// products (full f32: the tensor cores would need TF32, which the 1e-4
+// f32 limits do not allow).
 #include "attn_tile.cuh"
 
 using namespace p3;
@@ -101,14 +102,12 @@ static cudaError_t launch(const void* qkv, const void* cosb, const void* sinb,
 
 P3_ERROR_STRING_FN
 
-// qkv (B, N, 3C); cos/sin (B, N, 64) f32 or null; kc/vc (B, 1, C) or null;
-// out (B, N, C).  bf16 != 0 selects __nv_bfloat16, else float.
+// qkv (B, N, 3C) f32; cos/sin (B, N, 64) f32 or null; kc/vc (B, 1, C) or
+// null; out (B, N, C).
 extern "C" int p3_tower_self(const void* qkv, const void* cosb,
                              const void* sinb, const void* kc, const void* vc,
                              void* out, int B, int N, int C, float scale,
-                             int bf16, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch<__nv_bfloat16>(qkv, cosb, sinb, kc, vc, out, B, N, C,
-                                      scale, s)
-              : launch<float>(qkv, cosb, sinb, kc, vc, out, B, N, C, scale, s);
+                             void* stream) {
+  return launch<float>(qkv, cosb, sinb, kc, vc, out, B, N, C, scale,
+                       static_cast<cudaStream_t>(stream));
 }

@@ -1,13 +1,17 @@
 """K1 and K2: transpose-free tower attention (counterpart of
 panst3r_tpu/ops/pallas/tower_attention.py).
 
-- ``tower_self_attention`` (K1, ``csrc/tower_self.cu``) replaces
-  ``_tower_fwd``: self-attention straight from the fused qkv projection
-  (B, N, 3C) with optional 2D-RoPE tables and an optional cls key/value.
-- ``tower_cross_attention`` (K2, ``csrc/tower_cross.cu``) replaces
-  ``_cross_fwd`` (bf16/f32 path): cross-attention over projected
-  (B, Nq, C) x (B, Nk, C) streams with per-side RoPE tables, a per-key
-  additive bias and dead-tile skipping.
+- ``tower_self_attention`` (K1) replaces ``_tower_fwd``: self-attention
+  straight from the fused qkv projection (B, N, 3C) with optional 2D-RoPE
+  tables and an optional cls key/value.  bf16 runs ``csrc/tower_self_sm90.cu``
+  (the Hopper engine ``csrc/attn_sm90.cuh``: TMA ring, wgmma, softmax in
+  registers), f32 ``csrc/tower_self.cu``.
+- ``tower_cross_attention`` (K2) replaces ``_cross_fwd`` (bf16/f32 path):
+  cross-attention over projected (B, Nq, C) x (B, Nk, C) streams with
+  per-side RoPE tables, a per-key additive bias and dead-tile skipping.
+  bf16 runs ``csrc/tower_cross_sm90.cu`` (q and k rotated once per call, a
+  list of live key tiles, split-KV with a fixed merge order:
+  ``split_plan``), f32 ``csrc/tower_cross.cu``.
 - ``tower_cross_int8`` (K2-int8, ``csrc/tower_cross_int8.cu``) replaces
   the ``kv_int8`` branch of ``_cross_fwd``: int8 x int8 -> int32 scores,
   k quantized per tensor after its rotation (``int8_prepare``), q per row
@@ -42,6 +46,14 @@ from panst3r_torch.ops.rope import _rotate_half_2d, apply_rope_tables_f32
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _LOG2E = math.log2(math.e)
+# The Hopper engine's key tile (BKT in csrc/attn_sm90.cuh) and K2's fixed
+# split: a batch's live key tiles are cut into runs of SPLIT_TILES, which
+# the wrapper passes to csrc/tower_cross_sm90.cu.  N_SMS: the H100's SMs,
+# for the choice of 64- or 128-row CTAs only (it changes no row's
+# arithmetic).
+BLOCK_K = 128
+SPLIT_TILES = 16
+N_SMS = 132
 # int8 scores engage only at render-scale query counts
 # (panst3r_tpu/ops/pallas/tower_attention.py:45, :472); tests monkeypatch
 # this to run the path at small shapes.
@@ -131,6 +143,106 @@ def tower_cross_attention_ref(q, k, v, qtab=None, ktab=None, kv_bias=None,
     return _merge_heads(_softmax_rounded(s, vh).to(q.dtype))
 
 
+def key_tiles(Nk: int) -> int:
+    """Key tiles of BLOCK_K that cover Nk keys."""
+    return -(-Nk // BLOCK_K)
+
+
+def max_splits(Nk: int) -> int:
+    """Splits of the fullest batch (every tile live): the grid's depth."""
+    return max(1, -(-key_tiles(Nk) // SPLIT_TILES))
+
+
+def split_plan(live_tiles: int, split_tiles: int = SPLIT_TILES):
+    """K2's split of a batch's live key tiles: [start, stop) ranges into its
+    list of live tiles, runs of ``split_tiles`` in order, at least one (an
+    empty one when no tile is live).  It depends on the live-tile count
+    alone, so no row's result depends on B, Nq or the grid."""
+    if live_tiles == 0:
+        return [(0, 0)]
+    return [(a, min(a + split_tiles, live_tiles))
+            for a in range(0, live_tiles, split_tiles)]
+
+
+def cta_warpgroups(B: int, heads: int, Nq: int, splits: int = 1) -> int:
+    """Consumer warpgroups per CTA (rows = 64 x this): 1 where 128-row CTAs
+    would not fill the SMs, else 2."""
+    return 1 if B * heads * -(-Nq // 128) * splits < N_SMS else 2
+
+
+def cross_prepass_ref(q, k, qtab=None, ktab=None, kv_bias=None, scale=None):
+    """Plain version of K2's pre-pass (``cross_rotate``, ``cross_tiles``):
+    q~ = scale·rope(q) and k~ = rope(k) (k itself without tables), rotated
+    in f32 and rounded to the input dtype once; the key bias in log2 units
+    padded to whole tiles, NEG where dead (bias <= finfo.min/2, -inf
+    included) or past Nk; per batch the live tiles in order.  Returns
+    (q~, k~, bias_log2 (B, tiles·BLOCK_K) f32, [live tile indices] per
+    batch)."""
+    if scale is None:
+        scale = 64 ** -0.5
+    B, Nk, C = k.shape
+    qh, kh = _split_heads(q, 64), _split_heads(k, 64)
+    if qtab is not None:
+        qf = apply_rope_tables_f32(qh.float(), *qtab)
+        kh = apply_rope_tables_f32(kh, *ktab)
+    else:
+        qf = qh.float()
+    qs = _merge_heads((qf * scale).to(q.dtype))
+    ks = _merge_heads(kh)
+    nt = key_tiles(Nk)
+    x = torch.full((B, nt * BLOCK_K), NEG_INF, device=k.device)
+    x[:, :Nk] = 0.0 if kv_bias is None else kv_bias.float()
+    live = x > NEG_INF / 2
+    bl = torch.where(live, x * _LOG2E, torch.full_like(x, NEG_INF))
+    tiles = [torch.nonzero(row).flatten().tolist()
+             for row in live.view(B, nt, BLOCK_K).any(-1)]
+    return qs, ks, bl, tiles
+
+
+def tower_cross_split_ref(q, k, v, qtab=None, ktab=None, kv_bias=None,
+                          scale=None, split_tiles: int = SPLIT_TILES):
+    """Plain version of K2's split-then-merge arithmetic (bf16 path) from
+    ``cross_prepass_ref``: per batch and split, logits x = s·log2(e) + bias
+    over the split's live tiles, m = max(NEG, max x) (0 where <= NEG/2), p =
+    exp2(x − m) rounded to v's dtype in both O and l; one split is O / l,
+    more merge in split order with weights exp2(m_s − max m) (0 for a split
+    without a live key).  Rows without a live key are 0."""
+    qs, ks, bl, tiles = cross_prepass_ref(q, k, qtab, ktab, kv_bias, scale)
+    B, Nq, C = q.shape
+    Nk = k.shape[1]
+    qh, kh = _split_heads(qs, 64).float(), _split_heads(ks, 64).float()
+    vh = _split_heads(v, 64)
+    out = torch.zeros(B, C // 64, Nq, 64, device=q.device)
+    for b in range(B):
+        parts = []
+        for a, z in split_plan(len(tiles[b]), split_tiles):
+            keys = [j for t in tiles[b][a:z]
+                    for j in range(t * BLOCK_K, min((t + 1) * BLOCK_K, Nk))]
+            idx = torch.tensor(keys, dtype=torch.long, device=q.device)
+            x = torch.matmul(qh[b], kh[b][:, idx].transpose(-1, -2)) \
+                * _LOG2E + bl[b, idx]
+            m = torch.full(x.shape[:-1] + (1,), NEG_INF, device=q.device)
+            if keys:
+                m = torch.maximum(m, x.amax(-1, keepdim=True))
+            safe = torch.where(m <= NEG_INF / 2, torch.zeros_like(m), m)
+            p = torch.where(x <= NEG_INF / 2, torch.zeros_like(x),
+                            torch.exp2(x - safe)).to(v.dtype).float()
+            parts.append((torch.matmul(p, vh[b][:, idx].float()), m,
+                          p.sum(-1, keepdim=True)))
+        if len(parts) == 1:
+            num, _, den = parts[0]
+        else:
+            mx = torch.stack([m for _, m, _ in parts]).amax(0)
+            safe = torch.where(mx <= NEG_INF / 2, torch.zeros_like(mx), mx)
+            num = den = 0.0
+            for o, m, l in parts:
+                w = torch.where(m <= NEG_INF / 2, torch.zeros_like(m),
+                                torch.exp2(m - safe))
+                num, den = num + w * o, den + w * l
+        out[b] = num / torch.where(den == 0, torch.ones_like(den), den)
+    return _merge_heads(out.to(q.dtype))
+
+
 _check = cuda_build.check_tensor
 
 
@@ -144,7 +256,8 @@ def _tables(tabs, B, N, device, name):
 
 
 def _tower_self_kernel(qkv, heads: int, tabs, cls_kv, scale):
-    """Launch K1."""
+    """Launch K1: one launch as counted, whatever CUDA launches the call
+    makes (bf16: the rotation pre-pass and the main kernel)."""
     import ctypes
 
     B, N, C3 = qkv.shape
@@ -165,16 +278,25 @@ def _tower_self_kernel(qkv, heads: int, tabs, cls_kv, scale):
         _check(kc, "kc", (B, 1, C), qkv.dtype, dev)
         _check(vc, "vc", (B, 1, C), qkv.dtype, dev)
     out = torch.empty((B, N, C), dtype=qkv.dtype, device=dev)
-    p = ctypes.c_void_p
-    lib, fn = cuda_build.function("tower_self", "p3_tower_self",
-                                  [p] * 6 + [ctypes.c_int] * 3
-                                  + [ctypes.c_float, ctypes.c_int, p])
-    P = cuda_build.ptr
-    err = fn(P(qkv), P(cos), P(sin), P(kc), P(vc), P(out), B, N, C,
-             float(scale), int(qkv.dtype == torch.bfloat16),
-             cuda_build.stream_of(qkv))
+    p, i32, P = ctypes.c_void_p, ctypes.c_int, cuda_build.ptr
+    if qkv.dtype == torch.bfloat16:     # the Hopper engine
+        qk = None if cos is None else torch.empty(
+            (B, N, 2 * C), dtype=qkv.dtype, device=dev)
+        lib, fn = cuda_build.function(
+            "tower_self_sm90", "p3_tower_self_sm90",
+            [p] * 7 + [i32] * 3 + [ctypes.c_float, i32, p])
+        err = fn(P(qkv), P(cos), P(sin), P(kc), P(vc), P(out), P(qk), B, N,
+                 C, float(scale), cta_warpgroups(B, heads, N),
+                 cuda_build.stream_of(qkv))
+    else:
+        lib, fn = cuda_build.function("tower_self", "p3_tower_self",
+                                      [p] * 6 + [i32] * 3
+                                      + [ctypes.c_float, p])
+        err = fn(P(qkv), P(cos), P(sin), P(kc), P(vc), P(out), B, N, C,
+                 float(scale), cuda_build.stream_of(qkv))
     cuda_build.check(lib, err, "tower_self_attention")
     tower_self_attention.launches += 1
+    tower_self_attention.launches_f32 += int(qkv.dtype == torch.float32)
     return out
 
 
@@ -199,11 +321,13 @@ def tower_self_attention(qkv, heads: int, tabs=None, cls_kv=None,
                              kc, vc)
 
 
-tower_self_attention.launches = 0
+# launches: every call; launches_f32: those of them on the f32 kernel
+tower_self_attention.launches = tower_self_attention.launches_f32 = 0
 
 
 def _tower_cross_kernel(q, k, v, qtab, ktab, kv_bias, scale):
-    """Launch K2."""
+    """Launch K2: one launch as counted, whatever CUDA launches the call
+    makes (bf16: the pre-passes, the main kernel and the split merge)."""
     import ctypes
 
     B, Nq, C = q.shape
@@ -226,16 +350,40 @@ def _tower_cross_kernel(q, k, v, qtab, ktab, kv_bias, scale):
     if kv_bias is not None:
         _check(kv_bias, "kv_bias", (B, Nk), torch.float32, dev)
     out = torch.empty((B, Nq, C), dtype=q.dtype, device=dev)
-    p = ctypes.c_void_p
-    lib, fn = cuda_build.function("tower_cross", "p3_tower_cross",
-                                  [p] * 9 + [ctypes.c_int] * 4
-                                  + [ctypes.c_float, ctypes.c_int, p])
-    P = cuda_build.ptr
-    err = fn(P(q), P(k), P(v), P(qcos), P(qsin), P(kcos), P(ksin),
-             P(kv_bias), P(out), B, Nq, Nk, C, float(scale),
-             int(q.dtype == torch.bfloat16), cuda_build.stream_of(q))
+    p, i32, P = ctypes.c_void_p, ctypes.c_int, cuda_build.ptr
+    if q.dtype == torch.bfloat16:       # the Hopper engine, split-KV
+        nt, ms = key_tiles(Nk), max_splits(Nk)
+
+        def scratch(*shape, dtype=torch.float32):
+            return torch.empty(shape, dtype=dtype, device=dev)
+
+        qs = scratch(B, Nq, C, dtype=q.dtype)
+        ks = None if qcos is None else scratch(B, Nk, C, dtype=q.dtype)
+        bl = scratch(B, nt * BLOCK_K)
+        tiles = scratch(B, nt, dtype=torch.int32)
+        count = scratch(B, dtype=torch.int32)
+        opart = ml = None
+        if ms > 1:
+            opart = scratch(ms, B, Nq, C)
+            ml = scratch(ms, B, C // 64, Nq, 2)
+        lib, fn = cuda_build.function(
+            "tower_cross_sm90", "p3_tower_cross_sm90",
+            [p] * 16 + [i32] * 4 + [ctypes.c_float] + [i32] * 2 + [p])
+        err = fn(P(q), P(k), P(v), P(qcos), P(qsin), P(kcos), P(ksin),
+                 P(kv_bias), P(out), P(qs), P(ks), P(bl), P(tiles),
+                 P(count), P(opart), P(ml), B, Nq, Nk, C, float(scale),
+                 cta_warpgroups(B, C // 64, Nq, ms), SPLIT_TILES,
+                 cuda_build.stream_of(q))
+    else:
+        lib, fn = cuda_build.function("tower_cross", "p3_tower_cross",
+                                      [p] * 9 + [i32] * 4
+                                      + [ctypes.c_float, p])
+        err = fn(P(q), P(k), P(v), P(qcos), P(qsin), P(kcos), P(ksin),
+                 P(kv_bias), P(out), B, Nq, Nk, C, float(scale),
+                 cuda_build.stream_of(q))
     cuda_build.check(lib, err, "tower_cross_attention")
     tower_cross_attention.launches += 1
+    tower_cross_attention.launches_f32 += int(q.dtype == torch.float32)
     return out
 
 
@@ -409,4 +557,4 @@ def tower_cross_attention(q, k, v, qtab=None, ktab=None, kv_bias=None,
                              v)
 
 
-tower_cross_attention.launches = 0
+tower_cross_attention.launches = tower_cross_attention.launches_f32 = 0

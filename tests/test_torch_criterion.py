@@ -340,3 +340,31 @@ def test_loss_config_registered_with_every_field():
     assert jf == tf
     c = t_crit.PanopticLossConfig(num_points=64, label_mode="softmax")
     assert t_cfg.from_dict(t_cfg.to_dict(c)) == c
+
+
+def test_small_train_check_pins_one_assignment():
+    """chip_smoke.py's card-vs-CPU train check: ``_pinned_auction`` records
+    each auction's own assignment and hands back the pinned one, and
+    ``eps_optimal`` holds an assignment to T·ε of scipy's optimum (it
+    passes the auction's own and refuses one far from optimal)."""
+    import chip_smoke
+
+    criterion = t_crit
+    g = torch.Generator().manual_seed(0)
+    cost = torch.rand(3, 2, 10, 6, generator=g)
+    valid = torch.ones(3, 2, 6, dtype=torch.bool)
+    valid[1, 0, 4:] = False
+    span = torch.rand(3, 2, generator=g) + 0.5
+    real = criterion.auction_lap
+    calls = []
+    with chip_smoke._pinned_auction(calls):
+        own = criterion.auction_lap(cost, span=span, col_valid=valid)
+    assert criterion.auction_lap is real
+    assert chip_smoke.eps_optimal(calls[0])["ok"]
+    pin = torch.zeros_like(own)
+    pinned = []
+    with chip_smoke._pinned_auction(pinned, [pin]):
+        got = criterion.auction_lap(cost, span=span, col_valid=valid)
+    assert torch.equal(got, pin) and torch.equal(pinned[0]["assign"], own)
+    far = dict(calls[0], assign=pin)
+    assert not chip_smoke.eps_optimal(far)["ok"]

@@ -1,6 +1,8 @@
 """K1-K6 and K2-int8 CUDA kernels against their plain versions at edge
-shapes (ragged tiles, dead key tiles, rows with no live key, strided
-views), f32 and bf16, with the limits of chip_smoke.py; the int8 gate's
+shapes (ragged tiles, dead key tiles, rows with no live key, -inf keys,
+strided views), f32 and bf16, with the limits of chip_smoke.py; bf16 K1
+and K2 on the Hopper engine batch- and chunk-invariant bit for bit and
+routed by dtype; the int8 gate's
 launches; gradients through K1-K4 on the card against the plain versions';
 a small v2 train step and small v1 serve wires on the card against the
 CPU; FLOP counts on the card equal to the CPU's.  Needs a CUDA card; skips without one.  On the card (no JAX there, so
@@ -62,7 +64,10 @@ def _close(out, plain, *args):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,N,C,rope,cls", [
     (1, 1, 128, False, False), (2, 100, 128, True, False),
-    (3, 200, 256, False, True), (2, 1024, 768, True, True)])
+    (3, 200, 256, False, True), (2, 1024, 768, True, True),
+    (1, 768, 768, True, False),           # memory build: 64-row CTAs
+    (4, 768, 1024, True, False),          # encoder: 128-row CTAs
+    (4, 768, 1024, False, True)])         # DINO's cls column
 def test_tower_self_kernel(dev, dtype, B, N, C, rope, cls):
     g = torch.Generator(device=dev).manual_seed(N)
     qkv = torch.cat([_rnd(g, dev, dtype, B, N, 2 * C, s=QK_STD),
@@ -78,13 +83,24 @@ def test_tower_self_kernel(dev, dtype, B, N, C, rope, cls):
     _close(out, ta.tower_self_attention_ref, qkv, C // 64, tabs, ckv)
 
 
+def _memory_bias(B, Nk, valid_slots, capacity, dev):
+    """A memory-build key bias: ``valid_slots`` of ``capacity`` slots
+    valid, then the update's own tokens (all valid)."""
+    valid = torch.ones(B, Nk, dtype=torch.bool, device=dev)
+    valid[:, valid_slots:capacity] = False
+    return torch.where(valid, 0.0, NEG)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,Nq,Nk,rope,bias", [
     (1, 70, 130, True, "none"), (2, 300, 1000, True, "dead_tiles"),
-    (2, 64, 257, False, "row_dead"), (1, 1, 64, True, "random")])
+    (2, 64, 257, False, "row_dead"), (1, 1, 64, True, "random"),
+    (1, 768, 13056, True, "update_long"),   # serve_long's last update
+    (2, 300, 2950, True, "dead_tiles"),     # ragged Nk, two splits
+    (2, 200, 2950, False, "neg_inf")])      # -inf keys and a -inf tile
 def test_tower_cross_kernel(dev, dtype, B, Nq, Nk, rope, bias):
     g = torch.Generator(device=dev).manual_seed(Nq + Nk)
-    C = 128
+    C = 768 if bias == "update_long" else 128
     q = _rnd(g, dev, dtype, B, Nq, C, s=QK_STD)
     k = _rnd(g, dev, dtype, B, Nk, C, s=QK_STD)
     v = _rnd(g, dev, dtype, B, Nk, C)
@@ -102,10 +118,108 @@ def test_tower_cross_kernel(dev, dtype, B, Nq, Nk, rope, bias):
         if bias == "row_dead":
             valid[1] = False                  # batch 1 sees no key at all
         kb = torch.where(valid, 0.0, NEG)
+        if bias == "update_long":
+            kb = _memory_bias(B, Nk, 11520, 12288, dev)
+        if bias == "neg_inf":
+            kb[:, -3:] = -float("inf")
+            kb[:, 128:256] = -float("inf")    # a whole tile at -inf
     out = ta.tower_cross_attention(q, k, v, qtab, ktab, kb)
     _close(out, ta.tower_cross_attention_ref, q, k, v, qtab, ktab, kb)
     if bias == "row_dead":
         assert (out[1] == 0).all()
+
+
+def test_tower_kernels_batch_and_chunk_invariant(dev):
+    """bf16 K1 and K2 on the Hopper engine: the rows of batch b, and (K2)
+    query rows [a, a + n), equal the slice of the full call bit for bit,
+    though the slices run other grids, 64- instead of 128-row CTAs
+    (``ta.cta_warpgroups``) and, for K2, other batches' split counts; two
+    runs of one call are bit-equal."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    dt = torch.bfloat16
+    B, N, C = 4, 768, 768
+    qkv = torch.cat([_rnd(g, dev, dt, B, N, 2 * C, s=QK_STD),
+                     _rnd(g, dev, dt, B, N, C)], -1)
+    tabs = rope2d_tables(torch.randint(0, 40, (B, N, 2), generator=g,
+                                       device=dev), 64)
+    full = ta.tower_self_attention(qkv, C // 64, tabs=tabs)
+    assert torch.equal(full, ta.tower_self_attention(qkv, C // 64,
+                                                     tabs=tabs))
+    assert ta.cta_warpgroups(B, C // 64, N) == 2
+    assert ta.cta_warpgroups(1, C // 64, N) == 1
+    for b in range(B):
+        part = ta.tower_self_attention(
+            qkv[b:b + 1].contiguous(), C // 64,
+            tabs=tuple(t[b:b + 1].contiguous() for t in tabs))
+        assert torch.equal(part, full[b:b + 1]), b
+
+    Nq, Nk = 768, 2950                  # 24 key tiles: up to two splits
+    q = _rnd(g, dev, dt, B, Nq, C, s=QK_STD)
+    k = _rnd(g, dev, dt, B, Nk, C, s=QK_STD)
+    v = _rnd(g, dev, dt, B, Nk, C)
+    qtab, ktab = (rope2d_tables(torch.randint(0, 40, (B, n, 2), generator=g,
+                                              device=dev), 64)
+                  for n in (Nq, Nk))
+    valid = torch.ones(B, Nk, dtype=torch.bool, device=dev)
+    valid[1, 1000:] = False             # 8 live tiles: one split
+    valid[2] = False                    # no live key: zeros
+    valid[3, 640:1600] = False          # dead tiles inside, two splits
+    kb = torch.where(valid, 0.0, NEG)
+    kb[0, -3:] = -float("inf")
+    full = ta.tower_cross_attention(q, k, v, qtab, ktab, kb)
+    assert torch.equal(full, ta.tower_cross_attention(q, k, v, qtab, ktab,
+                                                      kb))
+    assert (full[2] == 0).all()
+    for b in range(B):
+        sl = slice(b, b + 1)
+        part = ta.tower_cross_attention(
+            q[sl].contiguous(), k[sl].contiguous(), v[sl].contiguous(),
+            tuple(t[sl].contiguous() for t in qtab),
+            tuple(t[sl].contiguous() for t in ktab), kb[sl].contiguous())
+        assert torch.equal(part, full[sl]), b
+    for a, n in ((0, 100), (100, 668), (37, 1)):
+        rows = slice(a, a + n)
+        part = ta.tower_cross_attention(
+            q[:, rows].contiguous(), k, v,
+            tuple(t[:, rows].contiguous() for t in qtab), ktab, kb)
+        assert torch.equal(part, full[:, rows]), (a, n)
+    assert ta.cta_warpgroups(1, C // 64, 100, ta.max_splits(Nk)) == 1
+
+
+@pytest.mark.parametrize("op", ["self", "cross"])
+def test_tower_kernels_route_by_dtype(dev, monkeypatch, op):
+    """bf16 runs the Hopper library, f32 the old engine; the wrapper counts
+    one launch per call either way (bf16 makes several CUDA launches), and
+    ``launches_f32`` the f32 ones."""
+    from panst3r_torch.ops import cuda_build
+
+    names = []
+    real = cuda_build.function
+
+    def recording(name, *a, **kw):
+        names.append(name)
+        return real(name, *a, **kw)
+
+    monkeypatch.setattr(cuda_build, "function", recording)
+    g = torch.Generator(device=dev).manual_seed(3)
+    counter = getattr(ta, f"tower_{op}_attention")
+    for dtype, lib in ((torch.bfloat16, f"tower_{op}_sm90"),
+                       (torch.float32, f"tower_{op}")):
+        n0, f0 = counter.launches, counter.launches_f32
+        if op == "self":
+            qkv = _rnd(g, dev, dtype, 2, 300, 3 * 128)
+            tabs = rope2d_tables(torch.randint(0, 40, (2, 300, 2),
+                                               generator=g, device=dev), 64)
+            ta.tower_self_attention(qkv, 2, tabs=tabs)
+        else:
+            q = _rnd(g, dev, dtype, 1, 300, 128)
+            k = _rnd(g, dev, dtype, 1, 2950, 128)
+            ta.tower_cross_attention(q, k, k, kv_bias=torch.zeros(
+                1, 2950, device=dev))
+        torch.cuda.synchronize()
+        assert counter.launches == n0 + 1
+        assert counter.launches_f32 == f0 + (dtype == torch.float32)
+        assert names[-1] == lib, names
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
