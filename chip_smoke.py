@@ -18,9 +18,12 @@ Run from the root of a checkout.  It builds the CUDA kernels of
    (``scaled_dot_product_attention``, a yardstick only — the port never
    calls it; none computes int8-score attention, so K2-int8 records SDPA
    for scale and its distance from K2) and the least time the card could
-   take (``panst3r_torch/ops/flops.py::bound_ms``); K5 (flash_bwd) likewise against its plain version
-   from K4's own output and LSE, and K4 + K5 through autograd; gradients
-   through K1-K3 on the card bit-equal to their plain formulas';
+   take (``panst3r_torch/ops/flops.py::bound_ms``); the bf16 K1, K2, K3
+   and K6 (the Hopper engine) also with the device ms of each CUDA kernel
+   of one traced call, K2 and K3 with each split size of
+   ``SPLIT_TILES_TRIED``; K5 (flash_bwd) likewise against its plain
+   version from K4's own output and LSE, and K4 + K5 through autograd;
+   gradients through K1-K3 on the card bit-equal to their plain formulas';
 2. ``small``: v1 and v2 widths at depth 2 (v2 with its full mixer and
    LoftUp), f32, V=4 / K=3 at 384x512, the same seeded weights on the card
    (kernels) and on the CPU (plain versions), outputs and FLOP counts
@@ -49,7 +52,8 @@ Run from the root of a checkout.  It builds the CUDA kernels of
 7. ``ab_packed``: K6's path, the A/B tool
    (``panst3r_torch/tools/ab_attention_packed.py``) at full shape:
    exactly 24 K6 launches per run of the ``packed`` variant, K6 against
-   K4, every variant's ms per layer and the bound;
+   K4, every variant's ms per layer and the bound; one f32 run of the
+   ``packed`` variant (24 launches of the f32 K6);
 
 then one ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``.  Any failed phase raises, and the script exits non-zero without
@@ -92,30 +96,37 @@ REPLACES = {
     "tower_cross_int8": "panst3r_tpu/ops/pallas/tower_attention.py:411 "
                         "(kv_int8)",
     "masked_attn": "panst3r_tpu/ops/pallas/masked_attention.py:119",
+    "masked_attn_f32": "panst3r_tpu/ops/pallas/masked_attention.py:119 "
+                       "(f32)",
     "flash_fwd": "panst3r_tpu/ops/pallas/flash_attention.py:171",
     "flash_bwd": "panst3r_tpu/ops/pallas/flash_attention_bwd.py:115",
     "packed_flash": "tools/ab_attention_packed.py:84",
+    "packed_flash_f32": "tools/ab_attention_packed.py:84 (f32)",
 }
 PHASES = ("kernels", "small", "v1", "v2", "train_v2", "serve", "serve_long",
           "ab_packed")
-# the bf16 K1 and K2 run the Hopper engine; their f32 paths (entries
-# ``*_f32`` of the kernels line) stay on tower_self.cu / tower_cross.cu
-SOURCE = {"tower_self": "tower_self_sm90", "tower_cross": "tower_cross_sm90"}
+# the bf16 K1, K2, K3 and K6 run the Hopper engine; their f32 paths
+# (entries ``*_f32`` of the kernels line) stay on the old sources
+SOURCE = {"tower_self": "tower_self_sm90", "tower_cross": "tower_cross_sm90",
+          "masked_attn": "masked_attn_sm90",
+          "packed_flash": "packed_flash_sm90"}
 # the case and dtype of each kernel on its main path: K1-K3 under v1's bf16,
 # K4 in LoftUp's f32 (flax promotes that branch to f32 under amp), the f32
-# K1 and K2 in train_v2
+# K1-K3 in train_v2, K6 in the A/B tool (bf16, and its f32 run)
 MAIN_CASE = {"tower_self": ("encoder_rope", "bfloat16"),
              "tower_cross": ("render", "bfloat16"),
              "tower_self_f32": ("encoder_rope", "float32"),
              "tower_cross_f32": ("render", "float32"),
              "tower_cross_int8": ("render_long", "bfloat16"),
              "masked_attn": ("mask_transformer", "bfloat16"),
+             "masked_attn_f32": ("mask_transformer", "float32"),
              "flash_fwd": ("loftup", "float32"),
              "flash_bwd": ("loftup_train", "float32"),
-             "packed_flash": ("tool", "bfloat16")}
-# K2's fixed split (key tiles per split) and a larger one, each timed on
-# the bf16 K2 cases in the same run
-SPLIT_TILES_TRIED = (16, 48)
+             "packed_flash": ("tool", "bfloat16"),
+             "packed_flash_f32": ("tool", "float32")}
+# K2's and K3's fixed splits (key tiles per split) and a larger one, each
+# timed on the kernel's bf16 cases in the same run
+SPLIT_TILES_TRIED = {"tower_cross": (16, 48), "masked_attn": (8, 16)}
 # K4's LSE against its plain version's: f32 logits on both sides
 LSE_RTOL = 1e-4
 # The JAX package's matmul/conv FLOPs of one run_device + fusion scene at
@@ -294,9 +305,27 @@ def kernel_cases(dtype, dev):
     cases += _int8_cases(rnd, g, es, dtype, dev)
 
     # K3: mask-transformer cross-attention, 200 queries x 4 views x 768
-    # tokens, 8 heads of 96, object-like blocked mask with dead tiles and
-    # some fully blocked rows.
-    B, H, Nq, Nk, D = 1, 8, 200, 3072, 96
+    # tokens (and x 16 keyframes x 768 at serve_long), 8 heads of 96,
+    # object-like blocked mask with dead tiles and some fully blocked rows.
+    # The long case is drawn last, so the others keep their inputs.
+    blocked = _k3_case(cases, "mask_transformer", 3072, rnd, g, es, dev)
+    cases += _k4_cases(rnd, g, es, dtype, dev, blocked)
+    cases += _k6_cases(rnd, es)
+    _k3_case(cases, "mask_transformer_long", 12288, rnd, g, es, dev)
+    return cases
+
+
+def _k3_case(cases, label, Nk, rnd, g, es, dev):
+    """Appends K3's case at (1, 8, 200, Nk), D=96; returns its mask."""
+    import torch
+    import torch.nn.functional as F
+
+    from panst3r_torch.ops import masked_attention as ma
+
+    def f32(t):
+        return t.float()
+
+    B, H, Nq, D = 1, 8, 200, 96
     q, k = rnd(B, H, Nq, D, s=QK_STD), rnd(B, H, Nk, D, s=QK_STD)
     v = rnd(B, H, Nk, D)
     blocked = torch.ones(B, Nq, Nk, dtype=torch.bool, device=dev)
@@ -311,17 +340,16 @@ def kernel_cases(dtype, dev):
     live_kb = int((~blocked.view(B, Nq, Nk // 64, 64).all(-1).all(1)).sum())
     nbytes = (2 * q.numel() + 2 * H * live_kb * 64 * D) * es + blocked.numel()
     cases.append(dict(
-        kernel="masked_attn", case="mask_transformer",
+        kernel="masked_attn", case=label,
         fn=lambda: ma.masked_mha(q, k, v, blocked),
         ref=lambda: ma.masked_mha_ref(q, k, v, blocked),
         f32=lambda: ma.masked_mha_ref(f32(q), f32(k), f32(v), blocked),
         lib=lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=~blocked[:, None]),
         pallas_sums=lambda: _masked_mha_pallas_sums(q, k, v, blocked),
-        flops=4.0 * H * live_tiles * 64 * 64 * D, bytes=nbytes))
-    cases += _k4_cases(rnd, g, es, dtype, dev, blocked)
-    cases += _k6_cases(rnd, es)
-    return cases
+        flops=4.0 * H * live_tiles * 64 * 64 * D, bytes=nbytes,
+        splits=ma.max_splits(Nk), warpgroups=1))
+    return blocked
 
 
 def _k6_cases(rnd, es):
@@ -348,7 +376,7 @@ def _k6_cases(rnd, es):
             lib=lambda qh=qh, kh=kh, vh=vh:
                 F.scaled_dot_product_attention(qh, kh, vh),
             flops=4.0 * B * 2 * P * N * N * 64,
-            bytes=4 * q.numel() * es))
+            bytes=4 * q.numel() * es, warpgroups=2))
     return cases
 
 
@@ -817,15 +845,15 @@ def phase_kernels():
                     "plain": float((want - ps).abs().max())}
             if name in SOURCE and dtype == torch.bfloat16:
                 # one traced call of the Hopper engine: device ms of its
-                # pre-passes, main kernel and (K2) split merge, beside
+                # pre-passes, main kernel and (K2, K3) split merge, beside
                 # kernel_ms, which holds the wrapper's host time where
                 # that is the longer
                 prof = profile_by_kernel(c["fn"], top=8)
                 if not prof["top"]:         # a trace that caught nothing
                     prof = profile_by_kernel(c["fn"], top=8)
                 row["device_ms_by_kernel"] = {
-                    t["name"].split("(")[0].replace("void ", ""): t["ms"]
-                    for t in prof["top"]}
+                    _short(t["name"]): t["ms"] for t in prof["top"]}
+                row["device_ms"] = prof["device_busy_ms"]
                 row["cta_warpgroups"] = c["warpgroups"]
                 if "splits" in c:
                     row["max_splits"] = c["splits"]
@@ -845,18 +873,26 @@ def phase_kernels():
     return rows
 
 
+def _short(name: str) -> str:
+    """A CUDA kernel's name without its arguments and namespaces."""
+    name = name.replace("(anonymous namespace)::", "").replace("void ", "")
+    return name.split("(")[0].split("::")[-1]
+
+
 def _split_tiles_tried(c, reps, want, want_f32) -> dict:
-    """K2's bf16 case timed (CUDA events over back-to-back calls, and the
-    device time of one traced call), and held to the bf16 rule, with each
-    fixed split of SPLIT_TILES_TRIED in turn (``tower_attention.SPLIT_TILES``
-    restored after)."""
+    """A K2 or K3 bf16 case timed (CUDA events over back-to-back calls, and
+    the device time of one traced call), and held to the bf16 rule, with
+    each fixed split of SPLIT_TILES_TRIED in turn (the module's
+    ``SPLIT_TILES`` restored after)."""
     from panst3r_torch.core.profiling import profile_by_kernel
+    from panst3r_torch.ops import masked_attention as ma
     from panst3r_torch.ops import tower_attention as ta
 
-    keep, res = ta.SPLIT_TILES, {}
+    mod = {"tower_cross": ta, "masked_attn": ma}[c["kernel"]]
+    keep, res = mod.SPLIT_TILES, {}
     try:
-        for st in SPLIT_TILES_TRIED:
-            ta.SPLIT_TILES = st
+        for st in SPLIT_TILES_TRIED[c["kernel"]]:
+            mod.SPLIT_TILES = st
             out = c["fn"]().float()
             busy = profile_by_kernel(c["fn"], top=8)["device_busy_ms"] \
                 or profile_by_kernel(c["fn"], top=8)["device_busy_ms"]
@@ -864,7 +900,7 @@ def _split_tiles_tried(c, reps, want, want_f32) -> dict:
                             "device_ms": busy,
                             "ok": bf16_check(out, want, want_f32)["ok"]}
     finally:
-        ta.SPLIT_TILES = keep
+        mod.SPLIT_TILES = keep
     return res
 
 
@@ -1883,10 +1919,11 @@ def phase_ab_packed():
     """K6's path: the A/B tool (``panst3r_torch/tools/
     ab_attention_packed.py``) at full shape (B=8, H=16, N=768, D=64, bf16,
     24 layers): one run of the ``packed`` variant launches K6 exactly once
-    per layer and nothing else, its output is finite, K6 agrees with K4
-    (the tool's parity check), and every variant's ms per layer and the
-    card's bound per layer are emitted.  Returns the launches of one
-    ``packed`` run."""
+    per layer (the bf16 kernel) and nothing else, its output is finite, K6
+    agrees with K4 (the tool's parity check), and every variant's ms per
+    layer and the card's bound per layer are emitted; then one run of the
+    ``packed`` variant in f32 launches the f32 K6 once per layer.  Returns
+    the launches of the bf16 and of the f32 ``packed`` run."""
     import torch
 
     from panst3r_torch.ops.packed_attention import packed_mha
@@ -1917,8 +1954,25 @@ def phase_ab_packed():
     if not finite or res["packed_vs_unpacked_max_abs_err"] > AB_PARITY_ATOL:
         raise AssertionError(f"ab_packed: finite={finite}, K6 vs K4 "
                              f"{res['packed_vs_unpacked_max_abs_err']}")
+    if F32_LAUNCHES["ab_packed"]["packed_flash"]:
+        raise AssertionError("ab_packed: bf16 run reached the f32 K6")
+
+    x, kx, vx, tabs = ab.inputs(torch.device("cuda"), torch.float32)
+    packed = ab.variants(kx, vx, tabs)["packed"]
+    with torch.inference_mode():
+        _reset_counts()
+        out = ab.run_layers(packed, x, layers)
+        torch.cuda.synchronize()
+        counts32 = _read_counts("ab_packed_f32")
+    finite = bool(torch.isfinite(out).all())
+    f32 = F32_LAUNCHES["ab_packed_f32"]["packed_flash"]
+    emit({"phase": "ab_packed", "dtype": "float32", "launches": counts32,
+          "launches_f32": f32, "finite": finite})
+    if counts32 != want or f32 != layers or not finite:
+        raise AssertionError(f"ab_packed f32: launches {counts32} (f32 "
+                             f"{f32}) != {want}, finite={finite}")
     torch.cuda.empty_cache()
-    return counts
+    return counts, counts32
 
 
 # ------------------------------------------------------------------ main --
@@ -1979,11 +2033,12 @@ def main(argv=None) -> int:
     if "serve_long" in phases:
         launches["serve_long"] = phase_serve_long()
     if "ab_packed" in phases:
-        launches["ab_packed"] = phase_ab_packed()
+        launches["ab_packed"], launches["ab_packed_f32"] = phase_ab_packed()
 
     def count(entry, path):
-        """An entry's launches on a path: K1's and K2's wrapper counts
-        split into the Hopper engine's (bf16) and the f32 kernel's."""
+        """An entry's launches on a path: the wrapper counts of K1, K2, K3
+        and K6 split into the Hopper engine's (bf16) and the f32
+        kernel's."""
         name = entry.removesuffix("_f32")
         n = launches.get(path, {}).get(name)
         if n is None or name not in SOURCE:
@@ -1995,12 +2050,14 @@ def main(argv=None) -> int:
     for entry, (case, dname) in MAIN_CASE.items():
         name = entry.removesuffix("_f32")
         r = rows.get((name, case, dname), {})
-        # each kernel's count on its path: K6 on the A/B tool (this slice's
-        # path), K4, K5 and the f32 K1/K2 on train_v2, the others on
+        # each kernel's count on its path: K6 on the A/B tool (bf16, and
+        # its f32 run), K4, K5 and the f32 K1-K3 on train_v2, the others on
         # serve_long
-        path = {"packed_flash": "ab_packed", "flash_fwd": "train_v2",
-                "flash_bwd": "train_v2", "tower_self_f32": "train_v2",
-                "tower_cross_f32": "train_v2"}.get(entry, "serve_long")
+        path = {"packed_flash": "ab_packed",
+                "packed_flash_f32": "ab_packed_f32",
+                "flash_fwd": "train_v2", "flash_bwd": "train_v2",
+                "tower_self_f32": "train_v2", "tower_cross_f32": "train_v2",
+                "masked_attn_f32": "train_v2"}.get(entry, "serve_long")
         kernels.append({
             "name": entry, "route": "cuda",
             "source": f"panst3r_torch/csrc/{SOURCE.get(entry, name)}.cu",

@@ -1,5 +1,8 @@
-// Hopper engine of the bf16 forwards of K1 (tower_self_sm90.cu) and K2
-// (tower_cross_sm90.cu): d=64 heads, keys in tiles of 128.
+// Hopper engine of the bf16 forwards of K1 (tower_self_sm90.cu), K2
+// (tower_cross_sm90.cu) and K6 (packed_flash_sm90.cu): d=64 heads, keys in
+// tiles of 128.  K3 (masked_attn_sm90.cu, d=96, 64-key tiles) reuses its
+// barriers, TMA and wgmma wrappers, its softmax step and its row state
+// with a layout of its own.
 //
 // A CTA holds NWG (1 or 2) consumer warpgroups and one producer
 // warpgroup, in that order.  Consumer warpgroup g owns query rows
@@ -29,8 +32,9 @@
 // (log2 e folded into the scale, so exp2 replaces exp); a masked logit is
 // NEG and a logit <= NEG/2 gives p = 0 exactly; the running max is
 // replaced by 0 while a row has seen no live key; p is rounded to bf16
-// before it enters the numerator and the rounded p goes into the row sum;
-// a row with no live key writes 0.
+// before it enters the numerator and the rounded p goes into the row sum
+// (K6 sums the unrounded p: ``RoundedSum`` false); a row with no live key
+// writes 0.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums only: nothing links libcuda
@@ -141,6 +145,29 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// One box of a 2-D tensor map at (c0, c1).
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+
+// One box of a 4-D tensor map at (c0, c1, c2, c3).
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
 // ``bytes`` contiguous bytes (a multiple of 16, 16-byte aligned).
 __device__ __forceinline__ void bulk_load(void* dst, const void* src,
                                           uint32_t bytes, uint64_t* bar) {
@@ -178,12 +205,17 @@ __device__ __forceinline__ void regs_inc() {
 // wgmma shared-memory descriptor of a 128B-swizzled tile whose base is
 // 1024-byte aligned: start address, leading and stride byte offsets in
 // 16-byte units, layout type 1 (128B swizzle), base offset 0.
-__device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo,
-                                               uint32_t sbo) {
+// Layout type 2 is the 64B swizzle (K3's 32-lane sub-tiles).
+template <uint64_t Layout = 1>
+__device__ __forceinline__ uint64_t desc_sw(const void* p, uint32_t lbo,
+                                           uint32_t sbo) {
   return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>(lbo & 0x3FFF) << 16) |
-         (static_cast<uint64_t>(sbo & 0x3FFF) << 32) |
-         (static_cast<uint64_t>(1) << 62);
+         (static_cast<uint64_t>(sbo & 0x3FFF) << 32) | (Layout << 62);
+}
+__device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo,
+                                               uint32_t sbo) {
+  return desc_sw<1>(p, lbo, sbo);
 }
 // K-major operand (Q, K: 64 lanes = 128 B per row): 8-row groups 1024 B
 // apart (SBO); LBO is unused for a swizzled K-major operand.  Step kk of
@@ -235,6 +267,42 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+
+// D (64 x 64, f32 in registers) += A (64 x 16, smem) . B (64 x 16, smem)^T,
+// both operands K-major behind swizzle descriptors (K3's scores).
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                            uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 96, f32 in registers) += A (64 x 16, bf16 in registers) .
+// B (16 x 96, smem, MN-major behind a swizzle descriptor) (K3's P V).
+__device__ __forceinline__ void wgmma_rs_n96(float (&d)[48],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+      "{%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
@@ -309,16 +377,19 @@ struct Rows {
   __device__ static int hi(int i) { return (i >> 1) & 1; }
 };
 
-struct RowState {
-  float o[32];
+// O has NO registers: 32 for 64 lanes, 48 for K3's 96.
+template <int NO>
+struct RowStateN {
+  float o[NO];
   float m[2], l[2];  // running max (log2 units) and row sum, rows r0/r1
   __device__ void zero() {
 #pragma unroll
-    for (int i = 0; i < 32; ++i) o[i] = 0.f;
+    for (int i = 0; i < NO; ++i) o[i] = 0.f;
     m[0] = m[1] = NEG;
     l[0] = l[1] = 0.f;
   }
 };
+using RowState = RowStateN<32>;
 
 // 2^x on the special-function unit (relative error 2^-22, subnormal
 // results flushed to 0): every value it gives is rounded to bf16 or
@@ -376,17 +447,20 @@ __device__ __forceinline__ void issue_pv(float (&o)[32],
   wg_commit();
 }
 
-// The online-softmax step on a finished S: logits (``logit(raw, key)``,
-// key in [0, 128) of the tile, log2 units, NEG where masked), the new row
-// max, P rounded to bf16 and packed in pairs, the row sum of the rounded
-// P.  Leaves O alone: returns the factor ``alpha`` O must be scaled by.
-template <class Logit>
-__device__ __forceinline__ void softmax_step(RowState& st, const Rows& rw,
-                                             float (&s)[64], uint32_t (&p)[32],
+// The online-softmax step on a finished S of NS registers (64: 128 keys,
+// 32: 64 keys): logits (``logit(raw, key)``, key in the tile, log2 units,
+// NEG where masked), the new row max, P rounded to bf16 and packed in
+// pairs, the row sum of the rounded P (of the unrounded f32 p without
+// ``RoundedSum``).  Leaves O alone: returns the factor ``alpha`` O must be
+// scaled by.
+template <bool RoundedSum = true, int NO, int NS, class Logit>
+__device__ __forceinline__ void softmax_step(RowStateN<NO>& st, const Rows& rw,
+                                             float (&s)[NS],
+                                             uint32_t (&p)[NS / 2],
                                              float (&alpha)[2], Logit logit) {
   float mx[2] = {NEG, NEG};
 #pragma unroll
-  for (int i = 0; i < 64; ++i) {
+  for (int i = 0; i < NS; ++i) {
     s[i] = logit(s[i], Rows::col(i) + rw.cq);
     mx[Rows::hi(i)] = fmaxf(mx[Rows::hi(i)], s[i]);
   }
@@ -399,30 +473,33 @@ __device__ __forceinline__ void softmax_step(RowState& st, const Rows& rw,
     st.m[h] = m_new;
   }
 #pragma unroll
-  for (int i = 0; i < 64; i += 2) {
+  for (int i = 0; i < NS; i += 2) {
     const int h = Rows::hi(i);
     const float x0 = s[i], x1 = s[i + 1];
-    const __nv_bfloat16 b0 = __float2bfloat16_rn(
-        (x0 <= 0.5f * NEG) ? 0.f : exp2_approx(x0 - safe[h]));
-    const __nv_bfloat16 b1 = __float2bfloat16_rn(
-        (x1 <= 0.5f * NEG) ? 0.f : exp2_approx(x1 - safe[h]));
-    sum[h] += __bfloat162float(b0) + __bfloat162float(b1);
+    const float f0 = (x0 <= 0.5f * NEG) ? 0.f : exp2_approx(x0 - safe[h]);
+    const float f1 = (x1 <= 0.5f * NEG) ? 0.f : exp2_approx(x1 - safe[h]);
+    const __nv_bfloat16 b0 = __float2bfloat16_rn(f0);
+    const __nv_bfloat16 b1 = __float2bfloat16_rn(f1);
+    sum[h] += RoundedSum ? __bfloat162float(b0) + __bfloat162float(b1)
+                         : f0 + f1;
     p[i / 2] = pack_bf16(b0, b1);
   }
 #pragma unroll
   for (int h = 0; h < 2; ++h) st.l[h] = st.l[h] * alpha[h] + quad_sum(sum[h]);
 }
 
-__device__ __forceinline__ void rescale(RowState& st, const float (&alpha)[2]) {
+template <int NO>
+__device__ __forceinline__ void rescale(RowStateN<NO>& st,
+                                        const float (&alpha)[2]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) st.o[i] *= alpha[Rows::hi(i)];
+  for (int i = 0; i < NO; ++i) st.o[i] *= alpha[Rows::hi(i)];
 }
 
 // A consumer warpgroup's walk over the ``n`` key tiles of its CTA: per
 // tile, S, the softmax step, O = alpha O + P V, then the tile's ring slot
 // is released.  ``logit(raw, key, i, stage)`` maps a raw score of key
 // ``key`` of the i-th tile (in ring slot ``stage``) to its logit.
-template <int NWG, class Logit>
+template <bool RoundedSum = true, int NWG, class Logit>
 __device__ __forceinline__ void consume(const Smem<NWG>& sm, int wg, int n,
                                         RowState& st, const Rows& rw,
                                         Logit logit) {
@@ -435,8 +512,9 @@ __device__ __forceinline__ void consume(const Smem<NWG>& sm, int wg, int n,
     issue_scores(s, q, sm.k(cur));
     wg_wait<0>();
     fence_regs(s);
-    softmax_step(st, rw, s, p, alpha,
-                 [&](float raw, int c) { return logit(raw, c, i, cur); });
+    softmax_step<RoundedSum>(
+        st, rw, s, p, alpha,
+        [&](float raw, int c) { return logit(raw, c, i, cur); });
     rescale(st, alpha);
     issue_pv(st.o, p, sm.v(cur));
     wg_wait<0>();
@@ -500,8 +578,8 @@ struct Regs<2> {  // one CTA per SM: 168 registers a thread at launch
 
 // Stores rows r0/r1 of O / l as bf16 pairs: ``row_ptr(r)`` is the output
 // row of warpgroup row r (null past the last query).
-template <class RowPtr>
-__device__ __forceinline__ void store_normalized(const RowState& st,
+template <int NO, class RowPtr>
+__device__ __forceinline__ void store_normalized(const RowStateN<NO>& st,
                                                  const Rows& rw,
                                                  RowPtr row_ptr) {
 #pragma unroll
@@ -510,7 +588,7 @@ __device__ __forceinline__ void store_normalized(const RowState& st,
     if (out == nullptr) continue;
     const float inv = 1.f / (st.l[h] == 0.f ? 1.f : st.l[h]);
 #pragma unroll
-    for (int i = 0; i < 32; i += 2) {
+    for (int i = 0; i < NO; i += 2) {
       if (Rows::hi(i) != h) continue;
       const int c = Rows::col(i) + rw.cq;
       *reinterpret_cast<__nv_bfloat162*>(out + c) =
@@ -548,23 +626,32 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
+// A tiled map of ``rank`` dims (dims[0] contiguous; ``strides`` in bytes
+// for dims 1..rank-1, multiples of 16), zeros outside.
+inline cudaError_t encode_map(CUtensorMap* map, CUtensorMapDataType type,
+                              int rank, const void* base,
+                              const cuuint64_t* dims, const cuuint64_t* strides,
+                              const cuuint32_t* box,
+                              CUtensorMapSwizzle swizzle) {
+  EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return cudaErrorNotSupported;
+  const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
+  const CUresult r = enc(map, type, rank, const_cast<void*>(base), dims,
+                         strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 // A (B, N, W) bf16 tensor as a 3-D map (W, N, B), boxes of ``rows`` tokens x
 // 64 lanes of one batch, 128-byte swizzle, zeros outside.
 inline cudaError_t make_map(CUtensorMap* map, const void* base, int B, int N,
                             int W, int rows) {
-  EncodeTiled enc = encode_tiled();
-  if (enc == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[3] = {(cuuint64_t)W, (cuuint64_t)N, (cuuint64_t)B};
   const cuuint64_t strides[2] = {(cuuint64_t)W * 2, (cuuint64_t)N * W * 2};
   const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                         const_cast<void*>(base), dims, strides, box, elem,
-                         CU_TENSOR_MAP_INTERLEAVE_NONE,
-                         CU_TENSOR_MAP_SWIZZLE_128B,
-                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, base, dims,
+                    strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 }  // namespace sm90

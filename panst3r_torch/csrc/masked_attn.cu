@@ -1,22 +1,21 @@
-// K3 — block-sparse masked attention of the mask transformer.
+// K3, f32 — block-sparse masked attention of the mask transformer.
 //
 // Replaces panst3r_tpu/ops/pallas/masked_attention.py::_sparse_fwd (body
-// _kernel): q (B, H, Nq, D), k/v (B, H, Nk, D) and a (B, Nq, Nk) blocked
-// mask (1 = may not attend) shared across heads.  The wrapper builds the
-// visit plan on the device (plan_blocks: per (batch, 64-query block) the
-// live 64-key blocks first, ascending, and their count); each thread block
-// reads its own list, loads only the live key tiles, applies the fine mask
-// inside each tile and runs an online softmax.  Rows with no live key write
-// 0.  p is rounded to the value dtype before both sums (the Pallas kernel
-// sums the unrounded p into its denominator; identical in f32).
+// _kernel), f32: q (B, H, Nq, D), k/v (B, H, Nk, D) and a (B, Nq, Nk)
+// blocked mask (1 = may not attend) shared across heads.  The wrapper
+// builds the visit plan on the device (plan_blocks: per (batch, 64-query
+// block) the live 64-key blocks first, ascending, and their count); each
+// thread block reads its own list, loads only the live key tiles, applies
+// the fine mask inside each tile and runs an online softmax.  Rows with no
+// live key write 0.  The bf16 path runs on the Hopper engine
+// (masked_attn_sm90.cu); this file is the f32 path, which the f32 limit of
+// 1e-4 keeps off TF32 products.
 //
 // Bound on the H100: at the main-path shape (B=1, H=8, Nq=200, Nk=3072,
-// D=96) the dense work is 4*H*Nq*Nk*D = 1.9 GFLOP against ~13 MB (bf16 q/k/v
-// plus the 0.6 MB mask), so it sits near the balance point and is bound by
-// bytes once most tiles are dead; skipping dead tiles removes both their
-// loads and their products.  Only 4 q-tiles x 8 heads = 32 blocks run per
-// batch element: the grid cannot fill 132 SMs at this shape, which a later
-// split over key tiles would fix.
+// D=96) the live work is 4*H*tiles*64*64*96 = 2.4 GFLOP against ~26 MB:
+// 0.036 ms by operations at 67 TFLOP/s f32.  Only 4 q-tiles x 8 heads = 32
+// blocks run per batch element: the grid cannot fill 132 SMs at this shape
+// (the bf16 kernel splits over key tiles instead).
 #include "attn_tile.cuh"
 
 using namespace p3;
@@ -96,19 +95,16 @@ static cudaError_t launch(const void* q, const void* k, const void* v,
 
 P3_ERROR_STRING_FN
 
-// q (B, H, Nq, D); k/v (B, H, Nk, D); mask (B, Nq, Nk) uint8, 1 = blocked;
-// kv_idx (B, ceil(Nq/64), ceil(Nk/64)) int32 live key blocks first;
-// count (B, ceil(Nq/64)) int32; out (B, H, Nq, D).  Built for D = 96 only,
-// the head dim of the v1 mask transformer (the one caller).
+// q (B, H, Nq, D); k/v (B, H, Nk, D) f32; mask (B, Nq, Nk) uint8, 1 =
+// blocked; kv_idx (B, ceil(Nq/64), ceil(Nk/64)) int32 live key blocks
+// first; count (B, ceil(Nq/64)) int32; out (B, H, Nq, D).  Built for D = 96
+// only, the head dim of the v1 mask transformer (the one caller).
 extern "C" int p3_masked_attn(const void* q, const void* k, const void* v,
                               const void* mask, const void* kv_idx,
                               const void* count, void* out, int B, int H,
-                              int Nq, int Nk, int D, float scale, int bf16,
+                              int Nq, int Nk, int D, float scale,
                               void* stream) {
   if (D != 96) return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch<__nv_bfloat16, 96>(q, k, v, mask, kv_idx, count, out,
-                                          B, H, Nq, Nk, scale, s)
-              : launch<float, 96>(q, k, v, mask, kv_idx, count, out, B, H,
-                                  Nq, Nk, scale, s);
+  return launch<float, 96>(q, k, v, mask, kv_idx, count, out, B, H, Nq, Nk,
+                           scale, static_cast<cudaStream_t>(stream));
 }

@@ -1,32 +1,29 @@
-// K6 — head-packed flash attention: two d=64 heads per 128-lane row.
+// K6, f32 — head-packed flash attention: two d=64 heads per 128-lane row.
 //
-// Replaces tools/ab_attention_packed.py::packed_mha (body _packed_kernel):
-// q, k, v of shape (B, P, N, 128), P = H/2 head pairs, lanes 0:64 one head
-// and 64:128 the next; per head softmax(q k^T * scale) v with its own
+// Replaces tools/ab_attention_packed.py::packed_mha (body _packed_kernel),
+// f32: q, k, v of shape (B, P, N, 128), P = H/2 head pairs, lanes 0:64 one
+// head and 64:128 the next; per head softmax(q k^T * scale) v with its own
 // online-softmax stream (running max m, row sum l, accumulator), no mask
-// and no bias.  As in the Pallas kernel: f32 scores from the inputs'
-// dtype, the scale on the f32 score, p rounded to v's dtype in the value
-// product while the row sum takes the unrounded f32 p, out = acc / l cast
-// to q's dtype.  (Pallas prescales by log2(e) and uses exp2; exp here is
-// the same function up to rounding.)
+// and no bias.  As in the Pallas kernel: f32 scores, the scale on the f32
+// score, the row sum over the unrounded p, out = acc / l.  (Pallas
+// prescales by log2(e) and uses exp2; exp here is the same function up to
+// rounding.)  The bf16 path runs on the Hopper engine
+// (packed_flash_sm90.cu); this file is the f32 path, which the f32 limit
+// of 1e-4 keeps off TF32 products.
 //
 // Design: one block owns one (batch, head pair, 64-query tile) and holds
 // two engine tiles (attn_tile.cuh), one per head: warps 0-3 run the stream
 // of lanes 0:64, warps 4-7 that of lanes 64:128.  Each 64-key K/V tile is
-// read from device memory once, as 128-lane rows (256 contiguous bytes in
-// bf16), by all eight warps, and split into the two tiles' buffers; then
-// each warp group runs the WMMA score product (bf16; FMA in f32), its
-// softmax and the value product on its own head.  q, k, v and out are
-// addressed through (batch, pair, token) strides with a unit lane stride,
-// so the (B, N, H*64) projection is read in place (no relayout) and the
-// output lands in (B, N, P, 128) order.
+// read from device memory once, as 128-lane rows, by all eight warps, and
+// split into the two tiles' buffers; then each warp group runs the WMMA
+// score product, its softmax and the value product on its own head.  q, k,
+// v and out are addressed through (batch, pair, token) strides with a unit
+// lane stride, so the (B, N, H*64) projection is read in place (no
+// relayout) and the output lands in (B, N, P, 128) order.
 //
-// Bound on the H100: at the A/B tool's shape (B=8, H=16, N=768, bf16) the
-// work is 4*B*H*N^2*64 = 19.3 GFLOP (0.0195 ms at 989 TFLOP/s) against
-// 50 MB of q, k, v and out (0.015 ms at 3.35 TB/s): bound by operations.
-// The TPU reason for packing (64-lane heads padded to 128 lanes in HBM)
-// does not exist here; the packing only halves the K/V loads issued per
-// block.  wgmma and TMA are later work.
+// Bound on the H100: at the A/B tool's shape (B=8, H=16, N=768) the work
+// is 4*B*H*N^2*64 = 19.3 GFLOP (0.2885 ms at 67 TFLOP/s f32) against
+// 101 MB of q, k, v and out: bound by operations.
 #include "attn_tile.cuh"
 
 using namespace p3;
@@ -105,18 +102,16 @@ static cudaError_t launch(const void* q, const void* k, const void* v,
 
 P3_ERROR_STRING_FN
 
-// q, k, v, out (B, P, N, 128) through the element strides in
+// q, k, v, out (B, P, N, 128) f32 through the element strides in
 // strides[0..11] (q, k, v, out: batch, pair, token), unit lane stride;
-// N a multiple of 64; f32 or bf16 (``bf16``).
+// N a multiple of 64.
 extern "C" int p3_packed_flash(const void* q, const void* k, const void* v,
                                void* out, const long long* strides, int B,
-                               int P, int N, float scale, int bf16,
-                               void* stream) {
+                               int P, int N, float scale, void* stream) {
   if (N % BQ != 0 || N % BK != 0) return cudaErrorInvalidValue;
   const long long* s = strides;
   const PackedStrides st{s[0], s[1], s[2], s[3], s[4],  s[5],
                          s[6], s[7], s[8], s[9], s[10], s[11]};
-  cudaStream_t cs = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch<__nv_bfloat16>(q, k, v, out, st, B, P, N, scale, cs)
-              : launch<float>(q, k, v, out, st, B, P, N, scale, cs);
+  return launch<float>(q, k, v, out, st, B, P, N, scale,
+                       static_cast<cudaStream_t>(stream));
 }

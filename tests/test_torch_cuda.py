@@ -1,8 +1,8 @@
 """K1-K6 and K2-int8 CUDA kernels against their plain versions at edge
 shapes (ragged tiles, dead key tiles, rows with no live key, -inf keys,
-strided views), f32 and bf16, with the limits of chip_smoke.py; bf16 K1
-and K2 on the Hopper engine batch- and chunk-invariant bit for bit and
-routed by dtype; the int8 gate's
+strided views), f32 and bf16, with the limits of chip_smoke.py; bf16 K1,
+K2 and K3 on the Hopper engine batch-invariant bit for bit (K1, K2 also
+over query chunks); K1, K2, K3 and K6 routed by dtype; the int8 gate's
 launches; gradients through K1-K4 on the card against the plain versions';
 a small v2 train step and small v1 serve wires on the card against the
 CPU; FLOP counts on the card equal to the CPU's.  Needs a CUDA card; skips without one.  On the card (no JAX there, so
@@ -224,7 +224,8 @@ def test_tower_kernels_route_by_dtype(dev, monkeypatch, op):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,H,Nq,Nk", [
-    (1, 8, 200, 3072), (2, 2, 1, 100), (1, 3, 130, 700)])
+    (1, 8, 200, 3072), (2, 2, 1, 100), (1, 3, 130, 700),
+    (1, 8, 200, 12288)])                  # serve_long: 16 keyframes
 def test_masked_attn_kernel(dev, dtype, B, H, Nq, Nk):
     D = 96
     g = torch.Generator(device=dev).manual_seed(Nq + Nk)
@@ -237,6 +238,66 @@ def test_masked_attn_kernel(dev, dtype, B, H, Nq, Nk):
     out = ma.masked_mha(q, k, v, blocked)
     _close(out, ma.masked_mha_ref, q, k, v, blocked)
     assert (out[:, :, Nq // 2] == 0).all()
+
+
+def test_masked_attn_batch_invariant(dev):
+    """bf16 K3 on the Hopper engine: each batch element's rows equal the
+    slice of the full call bit for bit, though the batches' query blocks
+    take one split, several or none; two runs of one call are
+    bit-equal."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    dt = torch.bfloat16
+    B, H, Nq, Nk, D = 3, 8, 200, 3072, 96
+    q = _rnd(g, dev, dt, B, H, Nq, D, s=QK_STD)
+    k = _rnd(g, dev, dt, B, H, Nk, D, s=QK_STD)
+    v = _rnd(g, dev, dt, B, H, Nk, D)
+    blocked = torch.rand(B, Nq, Nk, generator=g, device=dev) > 0.05
+    blocked[0, :, 500:] = True          # 8 live key blocks: one split
+    blocked[1, :, :1000] = True         # several splits
+    blocked[2, :64] = True              # a query block with no live key
+    full = ma.masked_mha(q, k, v, blocked)
+    assert torch.equal(full, ma.masked_mha(q, k, v, blocked))
+    assert (full[2, :, :64] == 0).all()
+    for b in range(B):
+        sl = slice(b, b + 1)
+        part = ma.masked_mha(q[sl].contiguous(), k[sl].contiguous(),
+                             v[sl].contiguous(), blocked[sl].contiguous())
+        assert torch.equal(part, full[sl]), b
+
+
+@pytest.mark.parametrize("op", ["masked", "packed"])
+def test_k3_k6_route_by_dtype(dev, monkeypatch, op):
+    """bf16 K3 and K6 run their Hopper libraries, f32 the old kernels; the
+    wrapper counts one launch per call either way, and ``launches_f32``
+    the f32 ones."""
+    from panst3r_torch.ops import cuda_build
+
+    names = []
+    real = cuda_build.function
+
+    def recording(name, *a, **kw):
+        names.append(name)
+        return real(name, *a, **kw)
+
+    monkeypatch.setattr(cuda_build, "function", recording)
+    g = torch.Generator(device=dev).manual_seed(5)
+    counter = ma.masked_mha if op == "masked" else pa.packed_mha
+    lib = "masked_attn" if op == "masked" else "packed_flash"
+    for dtype, want in ((torch.bfloat16, lib + "_sm90"),
+                        (torch.float32, lib)):
+        n0, f0 = counter.launches, counter.launches_f32
+        if op == "masked":
+            q = _rnd(g, dev, dtype, 1, 2, 100, 96)
+            k = _rnd(g, dev, dtype, 1, 2, 700, 96)
+            ma.masked_mha(q, k, k, torch.rand(1, 100, 700, generator=g,
+                                              device=dev) > 0.5)
+        else:
+            q = _rnd(g, dev, dtype, 1, 2, 128, 128)
+            pa.packed_mha(q, q, q)
+        torch.cuda.synchronize()
+        assert counter.launches == n0 + 1
+        assert counter.launches_f32 == f0 + (dtype == torch.float32)
+        assert names[-1] == want, names
 
 
 def test_unsupported_shapes_raise(dev):
@@ -520,10 +581,12 @@ def test_small_serve_wires_card_match_cpu(dev):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,P,N,view", [
-    (1, 1, 64, False), (2, 3, 768, True), (1, 8, 1536, False)])
+    (1, 1, 64, False), (2, 3, 768, True), (1, 8, 1536, False),
+    (2, 4, 192, True), (3, 1, 64, True)])
 def test_packed_flash_kernel(dev, dtype, B, P, N, view):
     """K6 on contiguous (B, P, N, 128) tensors and on the head-pair views
-    of a (B, N, P·128) projection, one and several key tiles."""
+    of a (B, N, P·128) projection, one and several key tiles; N = 64 and
+    192 leave half of the last 128-key tile of the bf16 kernel past N."""
     g = torch.Generator(device=dev).manual_seed(N + P)
 
     def make(s):
