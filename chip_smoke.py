@@ -18,10 +18,11 @@ Run from the root of a checkout.  It builds the CUDA kernels of
    (``scaled_dot_product_attention``, a yardstick only — the port never
    calls it; none computes int8-score attention, so K2-int8 records SDPA
    for scale and its distance from K2) and the least time the card could
-   take (``panst3r_torch/ops/flops.py::bound_ms``); the bf16 K1, K2, K3
-   and K6 (the Hopper engine) also with the device ms of each CUDA kernel
-   of one traced call, K2 and K3 with each split size of
-   ``SPLIT_TILES_TRIED``; K5 (flash_bwd) likewise against its plain
+   take (``panst3r_torch/ops/flops.py::bound_ms``; the f32 K2 and K3 also
+   at the 3xTF32 rate of their tensor-core products); the bf16 K1, K2, K3
+   and K6 and the f32 K2 and K3 (the Hopper engines) also with the device
+   ms of each CUDA kernel of one traced call, K2 and K3 with each split
+   size of ``SPLIT_TILES_TRIED``; K5 (flash_bwd) likewise against its plain
    version from K4's own output and LSE, and K4 + K5 through autograd;
    gradients through K1-K3 on the card bit-equal to their plain formulas';
 2. ``small``: v1 and v2 widths at depth 2 (v2 with its full mixer and
@@ -105,27 +106,32 @@ REPLACES = {
 }
 PHASES = ("kernels", "small", "v1", "v2", "train_v2", "serve", "serve_long",
           "ab_packed")
-# the bf16 K1, K2, K3 and K6 run the Hopper engine; their f32 paths
-# (entries ``*_f32`` of the kernels line) stay on the old sources
+# the bf16 K1, K2, K3 and K6 run the Hopper engine (wgmma); of their f32
+# paths (entries ``*_f32`` of the kernels line) K2 and K3 run the 3xTF32
+# engine in the same sources (F32_SOURCE), K1 and K6 the old ones
 SOURCE = {"tower_self": "tower_self_sm90", "tower_cross": "tower_cross_sm90",
           "masked_attn": "masked_attn_sm90",
           "packed_flash": "packed_flash_sm90"}
+F32_SOURCE = {"tower_cross": "tower_cross_sm90",
+              "masked_attn": "masked_attn_sm90"}
 # the case and dtype of each kernel on its main path: K1-K3 under v1's bf16,
 # K4 in LoftUp's f32 (flax promotes that branch to f32 under amp), the f32
-# K1-K3 in train_v2, K6 in the A/B tool (bf16, and its f32 run)
+# K1-K3 in train_v2 (K2 and K3 at its shapes), K6 in the A/B tool (bf16,
+# and its f32 run)
 MAIN_CASE = {"tower_self": ("encoder_rope", "bfloat16"),
              "tower_cross": ("render", "bfloat16"),
              "tower_self_f32": ("encoder_rope", "float32"),
-             "tower_cross_f32": ("render", "float32"),
+             "tower_cross_f32": ("render_train", "float32"),
              "tower_cross_int8": ("render_long", "bfloat16"),
              "masked_attn": ("mask_transformer", "bfloat16"),
-             "masked_attn_f32": ("mask_transformer", "float32"),
+             "masked_attn_f32": ("mask_transformer_train", "float32"),
              "flash_fwd": ("loftup", "float32"),
              "flash_bwd": ("loftup_train", "float32"),
              "packed_flash": ("tool", "bfloat16"),
              "packed_flash_f32": ("tool", "float32")}
 # K2's and K3's fixed splits (key tiles per split) and a larger one, each
-# timed on the kernel's bf16 cases in the same run
+# timed on the kernel's cases on the Hopper engines (bf16, and f32) in the
+# same run
 SPLIT_TILES_TRIED = {"tower_cross": (16, 48), "masked_attn": (8, 16)}
 # K4's LSE against its plain version's: f32 logits on both sides
 LSE_RTOL = 1e-4
@@ -307,16 +313,28 @@ def kernel_cases(dtype, dev):
     # K3: mask-transformer cross-attention, 200 queries x 4 views x 768
     # tokens (and x 16 keyframes x 768 at serve_long), 8 heads of 96,
     # object-like blocked mask with dead tiles and some fully blocked rows.
-    # The long case is drawn last, so the others keep their inputs.
+    # The long case is drawn after the others, so they keep their inputs.
     blocked = _k3_case(cases, "mask_transformer", 3072, rnd, g, es, dev)
     cases += _k4_cases(rnd, g, es, dtype, dev, blocked)
     cases += _k6_cases(rnd, es)
     _k3_case(cases, "mask_transformer_long", 12288, rnd, g, es, dev)
+    # train_v2's shapes (B=2 x V=5 views of 768 tokens), where the f32 K2
+    # and K3 run, drawn last: the render against the full memory, the
+    # first memory update (none of the 3840 slots valid yet, its own 2 x
+    # 768 tokens appended: expected_train_launches' first call), the mask
+    # transformer over 5 x 768 keys
+    k2("render_train", 2, 3840, 3840,
+       torch.ones(2, 3840, dtype=torch.bool, device=dev))
+    valid = torch.ones(2, 5376, dtype=torch.bool, device=dev)
+    valid[:, :3840] = False
+    k2("update_train", 2, 1536, 5376, valid)
+    _k3_case(cases, "mask_transformer_train", 3840, rnd, g, es, dev, B=2)
     return cases
 
 
-def _k3_case(cases, label, Nk, rnd, g, es, dev):
-    """Appends K3's case at (1, 8, 200, Nk), D=96; returns its mask."""
+def _k3_case(cases, label, Nk, rnd, g, es, dev, B=1):
+    """Appends K3's case at (B, 8, 200, Nk), D=96 (each batch with spans of
+    its own); returns its mask."""
     import torch
     import torch.nn.functional as F
 
@@ -325,14 +343,15 @@ def _k3_case(cases, label, Nk, rnd, g, es, dev):
     def f32(t):
         return t.float()
 
-    B, H, Nq, D = 1, 8, 200, 96
+    H, Nq, D = 8, 200, 96
     q, k = rnd(B, H, Nq, D, s=QK_STD), rnd(B, H, Nk, D, s=QK_STD)
     v = rnd(B, H, Nk, D)
     blocked = torch.ones(B, Nq, Nk, dtype=torch.bool, device=dev)
-    starts = torch.randint(0, Nk - 400, (8,), generator=g, device=dev)
-    for qi in range(Nq):
-        s = int(starts[qi % 8])
-        blocked[:, qi, s:s + 100 + 30 * (qi % 8)] = False
+    starts = torch.randint(0, Nk - 400, (B, 8), generator=g, device=dev)
+    for b in range(B):
+        for qi in range(Nq):
+            s = int(starts[b, qi % 8])
+            blocked[b, qi, s:s + 100 + 30 * (qi % 8)] = False
     blocked &= torch.rand(B, Nq, Nk, generator=g, device=dev) > 0.02
     blocked[:, 150:160] = True                         # fully blocked rows
     _, count = ma.plan_blocks(blocked, ma.BLOCK_Q, ma.BLOCK_K, 256, Nk)
@@ -802,10 +821,15 @@ def phase_kernels():
             want = want.float()
             err = float((out.float() - want).abs().max())
             if dtype == torch.float32:
-                check = {"limit": F32_TOL, "ok": err <= F32_TOL}
+                def check_of(o, want=want):
+                    e = float((o - want).abs().max())
+                    return {"limit": F32_TOL, "ok": e <= F32_TOL}
             else:
                 want_f32 = _with_lse(c["f32"]())[0].float()
-                check = bf16_check(out.float(), want, want_f32)
+
+                def check_of(o, want=want, want_f32=want_f32):
+                    return bf16_check(o, want, want_f32)
+            check = check_of(out.float())
             if lse is not None:
                 lerr = float((lse - want_lse).abs().max())
                 llim = LSE_RTOL * (1 + float(want_lse.abs().max()))
@@ -843,7 +867,9 @@ def phase_kernels():
                 row["pallas_sums_max_abs_diff"] = {
                     "kernel": float((out.float() - ps).abs().max()),
                     "plain": float((want - ps).abs().max())}
-            if name in SOURCE and dtype == torch.bfloat16:
+            hopper = name in (SOURCE if dtype == torch.bfloat16
+                              else F32_SOURCE)
+            if hopper:
                 # one traced call of the Hopper engine: device ms of its
                 # pre-passes, main kernel and (K2, K3) split merge, beside
                 # kernel_ms, which holds the wrapper's host time where
@@ -854,15 +880,26 @@ def phase_kernels():
                 row["device_ms_by_kernel"] = {
                     _short(t["name"]): t["ms"] for t in prof["top"]}
                 row["device_ms"] = prof["device_busy_ms"]
-                row["cta_warpgroups"] = c["warpgroups"]
+                if dtype == torch.bfloat16:
+                    row["cta_warpgroups"] = c["warpgroups"]
+                else:
+                    # which CUDA kernels the f32 yardstick runs (and their
+                    # device ms): the kernel it is compared with
+                    lib = profile_by_kernel(c["lib"], top=4)
+                    row["library_device_ms_by_kernel"] = {
+                        t["name"][:160]: t["ms"] for t in lib["top"]}
                 if "splits" in c:
                     row["max_splits"] = c["splits"]
                     row["by_split_tiles"] = _split_tiles_tried(
-                        c, reps, want, want_f32)
+                        c, reps, want, check_of)
             # the check plus warm-up and timed launches, from the counter
             row["launches"] = counter.launches - n0
             row["bound_ms"], row["bound_by"] = bound_ms(
                 c["flops"], c["bytes"], dname, c.get("int8_ops", 0))
+            if hopper and dtype == torch.float32:
+                # the same work at the rate of the kernel's 3xTF32 products
+                row["bound_ms_tf32x3"], row["bound_by_tf32x3"] = bound_ms(
+                    c["flops"], c["bytes"], "tf32x3")
             emit(row)
             if not (finite and check["ok"]):
                 raise AssertionError(f"{name} {label} {dname}: max abs err "
@@ -879,11 +916,11 @@ def _short(name: str) -> str:
     return name.split("(")[0].split("::")[-1]
 
 
-def _split_tiles_tried(c, reps, want, want_f32) -> dict:
-    """A K2 or K3 bf16 case timed (CUDA events over back-to-back calls, and
-    the device time of one traced call), and held to the bf16 rule, with
-    each fixed split of SPLIT_TILES_TRIED in turn (the module's
-    ``SPLIT_TILES`` restored after)."""
+def _split_tiles_tried(c, reps, want, check_of) -> dict:
+    """A K2 or K3 case timed (CUDA events over back-to-back calls, and the
+    device time of one traced call), and held to its dtype's rule
+    (``check_of``), with each fixed split of SPLIT_TILES_TRIED in turn (the
+    module's ``SPLIT_TILES`` restored after)."""
     from panst3r_torch.core.profiling import profile_by_kernel
     from panst3r_torch.ops import masked_attention as ma
     from panst3r_torch.ops import tower_attention as ta
@@ -898,7 +935,7 @@ def _split_tiles_tried(c, reps, want, want_f32) -> dict:
                 or profile_by_kernel(c["fn"], top=8)["device_busy_ms"]
             res[str(st)] = {"ms": time_ms(c["fn"], reps=reps),
                             "device_ms": busy,
-                            "ok": bf16_check(out, want, want_f32)["ok"]}
+                            "ok": check_of(out)["ok"]}
     finally:
         mod.SPLIT_TILES = keep
     return res
@@ -2058,9 +2095,10 @@ def main(argv=None) -> int:
                 "flash_fwd": "train_v2", "flash_bwd": "train_v2",
                 "tower_self_f32": "train_v2", "tower_cross_f32": "train_v2",
                 "masked_attn_f32": "train_v2"}.get(entry, "serve_long")
+        source = (SOURCE if entry == name else F32_SOURCE).get(name, name)
         kernels.append({
             "name": entry, "route": "cuda",
-            "source": f"panst3r_torch/csrc/{SOURCE.get(entry, name)}.cu",
+            "source": f"panst3r_torch/csrc/{source}.cu",
             "replaces": REPLACES[entry],
             "launches": count(entry, path),
             "launches_by_path": {p: count(entry, p) for p in launches},
@@ -2069,6 +2107,8 @@ def main(argv=None) -> int:
             "plain_ms": r.get("plain_ms"), "bound_ms": r.get("bound_ms"),
             "bound_by": r.get("bound_by"), "library_ms": r.get("library_ms"),
         })
+        if "bound_ms_tf32x3" in r:
+            kernels[-1]["bound_ms_tf32x3"] = r["bound_ms_tf32x3"]
     emit({"kernels": kernels})
     idle = [k["name"] for k in kernels if not k["launches"]]
     if phases == set(PHASES) and idle:

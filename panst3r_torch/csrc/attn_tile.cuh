@@ -1,7 +1,8 @@
-// Shared block engine of the attention forward kernels (K1 tower_self, K2
-// tower_cross, K3 masked_attn, K4 flash_fwd, K6 packed_flash, which runs
-// two tiles in one block); K5 (flash_bwd.cu) takes its constants,
-// conversions and rope_at.
+// Shared block engine of the attention forward kernels of the f32 K1
+// (tower_self), K2-int8 (tower_cross_int8), K4 (flash_fwd) and the f32 K6
+// (packed_flash, which runs two tiles in one block); K5 (flash_bwd.cu)
+// takes its constants, conversions and rope_at, the Hopper engines
+// (attn_sm90.cuh, attn_f32_sm90.cuh) its semantics and constants.
 //
 // One thread block owns a 64-row query tile of one (batch, head) and walks
 // the key tiles (64 keys each) with an online softmax in f32.  Four warps;
@@ -95,8 +96,7 @@ struct Tile {
   static constexpr int kP = kBF16 ? round128(BQ * LDP * 2) : 0;
   static constexpr int kO = kBF16 ? round128(BQ * LDO * 4) : 0;
   static constexpr int kMisc = round128((3 * BQ + 2 * D + BK) * 4);
-  static constexpr int kMask = round128(BQ * BK);
-  static constexpr int kBytes = kQ + 2 * kKV + kS + kP + kO + kMisc + kMask;
+  static constexpr int kBytes = kQ + 2 * kKV + kS + kP + kO + kMisc;
   static constexpr int DJ = D / 32;
 
   T* q;
@@ -110,8 +110,7 @@ struct Tile {
   float* sc;      // [BQ] cls logits (K1)
   float* kc;      // [D]  cls key (K1)
   float* vc;      // [D]  cls value (K1)
-  float* kbias;   // [BK] per-key bias of the current tile (K2)
-  uint8_t* mask;  // [BQ*BK] blocked bits of the current tile (K3)
+  float* kbias;   // [BK] per-key bias of the current tile (K2-int8, K4)
 
   int w, lane;
   float m, l;            // running max / sum of row (w*16 + lane/2)
@@ -140,8 +139,6 @@ struct Tile {
     kc = sc + BQ;
     vc = kc + D;
     kbias = vc + D;
-    ptr += kMisc;
-    mask = ptr;
     w = warp;
     lane = threadIdx.x & 31;
     m = NEG;

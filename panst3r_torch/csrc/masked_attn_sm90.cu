@@ -1,47 +1,48 @@
-// K3, bf16 — block-sparse masked attention on the Hopper engine
-// (attn_sm90.cuh's barriers, TMA, wgmma, softmax step and row state, with
-// a d=96 layout of its own).
+// K3, bf16 and f32 — block-sparse masked attention on the Hopper engines
+// (bf16: attn_sm90.cuh's barriers, TMA, wgmma, softmax step and row state,
+// with a d=96 layout of its own; f32: attn_f32_sm90.cuh).
 //
 // Replaces panst3r_tpu/ops/pallas/masked_attention.py::_sparse_fwd (body
-// _kernel), bf16: q (B, H, Nq, 96), k/v (B, H, Nk, 96) and a (B, Nq, Nk)
-// uint8 mask (1 = may not attend) shared across heads; softmax(q k^T *
-// scale) v over the keys a row may attend; rows with no such key write 0;
-// p rounded to bf16 before both sums (the port's K3; the Pallas kernel
-// sums the unrounded p into its denominator).  The f32 path stays on
-// masked_attn.cu.
+// _kernel), bf16 and f32: q (B, H, Nq, 96), k/v (B, H, Nk, 96) and a (B,
+// Nq, Nk) uint8 mask (1 = may not attend) shared across heads; softmax(q
+// k^T * scale) v over the keys a row may attend; rows with no such key
+// write 0; p rounded to the value dtype before both sums (the port's K3;
+// the Pallas kernel sums the unrounded p into its denominator).
 //
 // Bound on the H100: at the main-path shape (B=1, H=8, Nq=200, Nk=3072)
 // the live work (every 64x64 tile the plan visits) is 4*H*tiles*64*64*96
 // = 2.4 GFLOP against 10.7 MB (q, out, the live k and v, the mask): 0.0024
 // ms by operations at 989 TFLOP/s, 0.0032 ms by bytes at 3.35 TB/s; the
-// long shape (Nk=12288) four times that.
+// long shape (Nk=12288) four times that.  In f32 the bytes double and the
+// products bound it: 0.015 ms at 494.7 / 3 TFLOP/s of 3xTF32 work.
 //
 // Design, three launches per call:
 // (a) masked_plan, one block per (batch, 64-query block): each warp tests
 //     whole 64x64 mask tiles (16-byte loads), then warp 0 writes the live
 //     64-key blocks in ascending order and their count (the first
 //     ``count`` entries of plan_blocks' kv_idx).
-// (b) masked_main, 64-row CTAs (one consumer warpgroup and the producer
-//     warpgroup; Nq = 200 fills 3 1/8 tiles of 64), grid (query block,
-//     head, batch x split).  Split-KV: a (batch, query block)'s live list
-//     is cut into runs of ``split_tiles`` (the caller's constant:
+// (b) the main kernel, 64-row CTAs, grid (query block, head, batch x
+//     split).  Split-KV: a (batch, query block)'s live list is cut into
+//     runs of ``split_tiles`` (the caller's constant:
 //     ops/masked_attention.py::SPLIT_TILES), one CTA per run.  The
-//     producer loads per live block, by TMA into a ring of STAGES slots,
-//     K and V (64 keys x 96 lanes as three 32-lane boxes with 64-byte
-//     swizzle: a 96-lane row is 192 bytes) and the 64x64 byte tile of the
-//     mask (a 2-D map over (Nk, B*Nq)).  The consumer computes S = Q K^T
-//     as six wgmma m64n64k16 steps, sets blocked logits (mask, keys >= Nk,
-//     rows >= Nq: TMA fills what lies outside with 0, which would mean
-//     "may attend") to NEG on the S registers, runs the engine's softmax
-//     step and O += P V as four wgmma m64n96k16 with P from registers and
-//     V an MN-major operand.  With one split the CTA writes bf16 rows;
-//     with more it writes O, m and l in f32.
+//     producer loads per live block, by TMA into a ring, K and V (64 keys
+//     x 96 lanes as three 32-lane boxes) and the 64x64 byte tile of the
+//     mask (a 2-D map over (Nk, B*Nq)).  The consumers compute S = Q K^T,
+//     set blocked logits (mask, keys >= Nk, rows >= Nq: TMA fills what
+//     lies outside with 0, which would mean "may attend") to NEG on the S
+//     registers, run the softmax step and O += P V.  bf16 (masked_main):
+//     one consumer warpgroup and the producer warpgroup, 64-byte swizzle,
+//     S as six wgmma m64n64k16 steps, P V as four wgmma m64n96k16 with P
+//     from registers and V an MN-major operand.  f32 (masked_main_f32):
+//     four consumer warps and a producer warp, 128-byte swizzle, 3xTF32
+//     mma.sync products (attn_f32_sm90.cuh).  With one split the CTA
+//     writes rows of ``out``; with more it writes O, m and l in f32.
 // (c) masked_combine merges the splits of a (batch, query block) in split
 //     order (no atomics).  The split count depends on that block's live
 //     count alone, so a row's result never depends on B, Nq or the grid.
 #include <algorithm>
 
-#include "attn_sm90.cuh"
+#include "attn_f32_sm90.cuh"
 
 using namespace p3;
 using namespace p3::sm90;
@@ -293,14 +294,105 @@ masked_main(const __grid_constant__ CUtensorMap mq,
   }
 }
 
+// f32: as masked_main, with four consumer warps and a producer warp on
+// the f32 engine (``mq``, ``mk``, ``mv``: f32 maps, boxes 32 lanes x 64
+// rows, 128-byte swizzle).
+using F32Smem = f32e::Smem<MD, 4, 3, kMaskBytes>;  // ring extra: the mask
+
+__global__ void __launch_bounds__(F32Smem::kThreads, 1)
+masked_main_f32(const __grid_constant__ CUtensorMap mq,
+                const __grid_constant__ CUtensorMap mk,
+                const __grid_constant__ CUtensorMap mv,
+                const __grid_constant__ CUtensorMap mm,
+                const int* __restrict__ list, const int* __restrict__ count,
+                float* __restrict__ out, float* __restrict__ opart,
+                float* __restrict__ ml, int B, int H, int Nq, int Nk,
+                int nkb, int split_tiles, int max_splits, float sl) {
+  extern __shared__ unsigned char smem_raw[];
+  using SM = F32Smem;
+  const int qb = blockIdx.x, h = blockIdx.y;
+  const int b = blockIdx.z / max_splits, split = blockIdx.z % max_splits;
+  const long plan = (long)b * gridDim.x + qb;
+  const int live = count[plan];
+  const int ns = n_splits(live, split_tiles);
+  if (split >= ns) return;
+  const int first = split * split_tiles;
+  const int n = max(0, min(split_tiles, live - first));
+  const int* tiles = list + plan * nkb + first;
+  const int bh = b * H + h, q0 = qb * BR;
+  const SM sm(smem_raw);
+  sm.init();
+  const int w = threadIdx.x >> 5;
+
+  if (w == SM::kNW) {  // producer warp
+    if (threadIdx.x == SM::kNW * 32) {
+      f32e::produce(
+          sm, n, 2 * SM::kKVBytes + kMaskBytes,
+          [&](unsigned char* dst, uint64_t* bar) {
+            for (int j = 0; j < NSUB; ++j)
+              tma_load_3d(dst + j * BR * 128, &mq, bar, j * SUB, q0, bh);
+          },
+          [&](int e, unsigned char* kd, unsigned char* vd, unsigned char* xd,
+              uint64_t* bar) {
+            const int c0 = tiles[e] * BKK;
+            for (int j = 0; j < NSUB; ++j) {
+              tma_load_3d(kd + j * BKK * 128, &mk, bar, j * SUB, c0, bh);
+              tma_load_3d(vd + j * BKK * 128, &mv, bar, j * SUB, c0, bh);
+            }
+            tma_load_2d(xd, &mm, bar, c0, b * Nq + q0);
+          });
+    }
+    return;
+  }
+  // consumer warp w: query rows q0 + 16 w + [0, 16)
+  mbar_wait(sm.q_full(), 0);
+  f32e::split_q(sm, w);
+  const Rows rw = f32e::tile_rows(w);
+  const bool row_in[2] = {q0 + rw.r0 < Nq, q0 + rw.r1 < Nq};
+  RowStateN<48> sts[1];
+  RowStateN<48>& st = sts[0];
+  st.zero();
+  f32e::consume(sm, w, n, sts, [&](float (&s)[32], int, int e, int slot) {
+    const int keys = Nk - __ldg(tiles + e) * BKK;  // live keys: c < keys
+    const unsigned char* mt = sm.x(slot);
+#pragma unroll
+    for (int j = 0; j < 32; j += 2) {
+      const int hh = Rows::hi(j), c = Rows::col(j) + rw.cq;
+      const uint16_t m2 = *reinterpret_cast<const uint16_t*>(
+          mt + (hh ? rw.r1 : rw.r0) * BKK + c);
+      const bool open0 = row_in[hh] && c < keys && (m2 & 0xFF) == 0;
+      const bool open1 = row_in[hh] && c + 1 < keys && (m2 >> 8) == 0;
+      s[j] = open0 ? s[j] * sl : NEG;
+      s[j + 1] = open1 ? s[j + 1] * sl : NEG;
+    }
+  });
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int i = q0 + (hh ? rw.r1 : rw.r0);
+    if (i >= Nq) continue;
+    if (ns == 1) {
+      const float inv = 1.f / (st.l[hh] == 0.f ? 1.f : st.l[hh]);
+      f32e::store_row(st, rw, hh, inv, out + ((long)bh * Nq + i) * MD);
+      continue;
+    }
+    const long row = ((long)split * B * H + bh) * Nq + i;
+    f32e::store_row(st, rw, hh, 1.f, opart + row * MD);
+    if ((threadIdx.x & 3) == 0) {
+      ml[row * 2] = st.m[hh];
+      ml[row * 2 + 1] = st.l[hh];
+    }
+  }
+}
+
 // Merges the splits of rows whose (batch, query block) has more than one,
 // in split order: out = sum_s w_s O_s / sum_s w_s l_s, w_s = exp2(m_s -
 // max_s m_s), with the max replaced by 0 and w_s by 0 for splits that saw
 // no live key.
+template <typename T>
 __global__ void masked_combine(const float* __restrict__ opart,
                                const float* __restrict__ ml,
                                const int* __restrict__ count,
-                               bf16* __restrict__ out, int B, int H, int Nq,
+                               T* __restrict__ out, int B, int H, int Nq,
                                int nqb, int split_tiles) {
   const long rows = (long)B * H * Nq, total = rows * MD;
   for (long e = blockIdx.x * (long)blockDim.x + threadIdx.x; e < total;
@@ -320,7 +412,7 @@ __global__ void masked_combine(const float* __restrict__ opart,
       num += w * opart[s * total + e];
       den += w * mrow[1];
     }
-    out[e] = __float2bfloat16_rn(num / (den == 0.f ? 1.f : den));
+    out[e] = from_f<T>(num / (den == 0.f ? 1.f : den));
   }
 }
 
@@ -338,18 +430,19 @@ cudaError_t make_map96(CUtensorMap* map, const void* base, int BH, int N) {
 
 P3_ERROR_STRING_FN
 
-// q (B, H, Nq, 96), k/v (B, H, Nk, 96) bf16; mask (B, Nq, ld) uint8 (1 =
-// blocked; columns >= Nk are never read as open), ld >= Nk a multiple of
-// 16; out (B, H, Nq, 96).  Scratch from the caller, with nqb = ceil(Nq /
-// 64), nkb = ceil(Nk / 64) and S = ceil(nkb / split_tiles) splits: ``plan``
-// int32 of B * nqb * (nkb + 1) (the lists (B, nqb, nkb), then the counts
-// (B, nqb)); with S > 1 ``part`` f32 of S * B * H * Nq * 98 (O (S, B, H,
-// Nq, 96), then (m, l) (S, B, H, Nq, 2)), else null.
+// q (B, H, Nq, 96), k/v (B, H, Nk, 96) bf16, or f32 with ``f32``; mask (B,
+// Nq, ld) uint8 (1 = blocked; columns >= Nk are never read as open), ld >=
+// Nk a multiple of 16; out (B, H, Nq, 96) in the inputs' dtype.  Scratch
+// from the caller, with nqb = ceil(Nq / 64), nkb = ceil(Nk / 64) and S =
+// ceil(nkb / split_tiles) splits: ``plan`` int32 of B * nqb * (nkb + 1)
+// (the lists (B, nqb, nkb), then the counts (B, nqb)); with S > 1 ``part``
+// f32 of S * B * H * Nq * 98 (O (S, B, H, Nq, 96), then (m, l) (S, B, H,
+// Nq, 2)), else null.
 extern "C" int p3_masked_attn_sm90(const void* q, const void* k,
                                    const void* v, const void* mask,
                                    void* out, void* plan, void* part, int B,
                                    int H, int Nq, int Nk, int ld, float scale,
-                                   int split_tiles, void* stream) {
+                                   int split_tiles, int f32, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int nqb = (Nq + BR - 1) / BR, nkb = (Nk + BKK - 1) / BKK;
   if (split_tiles < 1 || ld < Nk || ld % 16 != 0 || Nq < 1 || Nk < 1 ||
@@ -365,9 +458,17 @@ extern "C" int p3_masked_attn_sm90(const void* q, const void* k,
   if (err != cudaSuccess) return err;
 
   CUtensorMap mq, mk, mv, mm;
-  if ((err = make_map96(&mq, q, B * H, Nq)) != cudaSuccess) return err;
-  if ((err = make_map96(&mk, k, B * H, Nk)) != cudaSuccess) return err;
-  if ((err = make_map96(&mv, v, B * H, Nk)) != cudaSuccess) return err;
+  if (f32) {
+    if ((err = f32e::make_map(&mq, q, B * H, Nq, MD, BR)) != cudaSuccess ||
+        (err = f32e::make_map(&mk, k, B * H, Nk, MD, BKK)) != cudaSuccess ||
+        (err = f32e::make_map(&mv, v, B * H, Nk, MD, BKK)) != cudaSuccess)
+      return err;
+  } else {
+    if ((err = make_map96(&mq, q, B * H, Nq)) != cudaSuccess ||
+        (err = make_map96(&mk, k, B * H, Nk)) != cudaSuccess ||
+        (err = make_map96(&mv, v, B * H, Nk)) != cudaSuccess)
+      return err;
+  }
   {
     const cuuint64_t dims[2] = {(cuuint64_t)Nk, (cuuint64_t)B * Nq};
     const cuuint64_t strides[1] = {(cuuint64_t)ld};
@@ -377,19 +478,33 @@ extern "C" int p3_masked_attn_sm90(const void* q, const void* k,
         cudaSuccess)
       return err;
   }
-  const int bytes = MSmem::kBytes;
-  if ((err = prepare(masked_main, bytes)) != cudaSuccess) return err;
-  bf16* o = static_cast<bf16*>(out);
   float* op = static_cast<float*>(part);
   float* mlp = op ? op + (long)max_splits * B * H * Nq * MD : nullptr;
-  masked_main<<<dim3(nqb, H, B * max_splits), 256, bytes, st>>>(
-      mq, mk, mv, mm, lst, cnt, o, op, mlp, B, H, Nq, Nk, nkb, split_tiles,
-      max_splits, scale * L2E);
+  const dim3 grid(nqb, H, B * max_splits);
+  if (f32) {
+    const int bytes = F32Smem::kBytes;
+    if ((err = prepare(masked_main_f32, bytes)) != cudaSuccess) return err;
+    masked_main_f32<<<grid, F32Smem::kThreads, bytes, st>>>(
+        mq, mk, mv, mm, lst, cnt, static_cast<float*>(out), op, mlp, B, H, Nq,
+        Nk, nkb, split_tiles, max_splits, scale * L2E);
+  } else {
+    const int bytes = MSmem::kBytes;
+    if ((err = prepare(masked_main, bytes)) != cudaSuccess) return err;
+    masked_main<<<grid, 256, bytes, st>>>(
+        mq, mk, mv, mm, lst, cnt, static_cast<bf16*>(out), op, mlp, B, H, Nq,
+        Nk, nkb, split_tiles, max_splits, scale * L2E);
+  }
   if ((err = cudaGetLastError()) != cudaSuccess || max_splits == 1) return err;
   const long total = (long)B * H * Nq * MD;
   const int cblocks =
       static_cast<int>(std::min<long>((total + 255) / 256, 132L * 16));
-  masked_combine<<<cblocks, 256, 0, st>>>(op, mlp, cnt, o, B, H, Nq, nqb,
-                                          split_tiles);
+  if (f32)
+    masked_combine<<<cblocks, 256, 0, st>>>(op, mlp, cnt,
+                                            static_cast<float*>(out), B, H,
+                                            Nq, nqb, split_tiles);
+  else
+    masked_combine<<<cblocks, 256, 0, st>>>(op, mlp, cnt,
+                                            static_cast<bf16*>(out), B, H,
+                                            Nq, nqb, split_tiles);
   return cudaGetLastError();
 }

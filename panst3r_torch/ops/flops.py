@@ -35,9 +35,11 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 # NVIDIA H100 SXM (data sheet, dense, 700 W): FLOP/s by dtype, int8
-# operations/s, HBM bytes/s
+# operations/s, HBM bytes/s; "tf32x3": f32 work done as three TF32
+# tensor-core products each (the TF32 rate of 494.7 TFLOP/s over 3), the
+# rate that bounds the f32 K2 and K3
 H100_SXM = {"bfloat16": 989.4e12, "float32": 67e12, "int8": 1979e12,
-            "hbm_bytes_per_s": 3.35e12}
+            "tf32x3": 494.7e12 / 3, "hbm_bytes_per_s": 3.35e12}
 PEAKS = {"NVIDIA H100 80GB HBM3": H100_SXM}
 
 _OPEN: list = []           # open counters, shared by every thread

@@ -4,21 +4,21 @@ panst3r_tpu/ops/pallas/masked_attention.py).
 ``masked_mha`` replaces ``_sparse_fwd``: the mask transformer's masked
 cross-attention, where a (B, Nq, Nk) bool mask (True = blocked) is shared
 across heads and most (query block, key block) tiles are fully blocked in
-late layers.  bf16 runs ``csrc/masked_attn_sm90.cu`` (the Hopper engine:
-a pre-pass that lists each 64-query block's live 64-key blocks on the
-card, a main kernel over fixed runs of ``SPLIT_TILES`` live blocks, a
-merge of the runs in order: ``split_plan``); f32 runs
-``csrc/masked_attn.cu``, whose visit plan ``plan_blocks`` builds with
-torch ops (live key blocks first, ascending, then the last live index
-repeated, plus the count), as the JAX package builds it in jnp outside
-its kernel.  ``live_blocks`` is the plain version of the bf16 pre-pass
-(the first ``count`` entries of ``plan_blocks``' lists), and
-``masked_mha_split_ref`` that of its split-then-merge arithmetic.
+late layers.  Both dtypes run ``csrc/masked_attn_sm90.cu`` (a pre-pass
+that lists each 64-query block's live 64-key blocks on the card, a main
+kernel over fixed runs of ``SPLIT_TILES`` live blocks, a merge of the runs
+in order: ``split_plan``): bf16 on the wgmma engine, f32 on the 3xTF32
+engine ``csrc/attn_f32_sm90.cuh``.  ``plan_blocks`` builds the JAX
+package's visit plan with torch ops (live key blocks first, ascending,
+then the last live index repeated, plus the count), as the JAX package
+builds it in jnp outside its kernel; ``live_blocks`` is the plain version
+of the pre-pass (the first ``count`` entries of ``plan_blocks``' lists),
+and ``masked_mha_split_ref`` that of the split-then-merge arithmetic.
 
 On a CPU tensor ``masked_mha`` runs ``masked_mha_ref`` (same semantics: p
 rounded to the v dtype before both sums, fully blocked rows → 0); on a
 CUDA tensor it launches the kernel or raises.  ``launches`` counts the
-calls, ``launches_f32`` those of them on the f32 kernel.
+calls, ``launches_f32`` those of them in f32.
 """
 from __future__ import annotations
 
@@ -34,8 +34,8 @@ from panst3r_torch.ops.tower_attention import _LOG2E, _softmax_rounded
 BLOCK_Q = 64
 BLOCK_K = 64
 HEAD_DIM = 96  # the v1 mask transformer's; the kernels are built for it
-# The bf16 kernel's fixed split: a (batch, query block)'s live key blocks
-# are cut into runs of SPLIT_TILES, which the wrapper passes to
+# The kernel's fixed split (both dtypes): a (batch, query block)'s live key
+# blocks are cut into runs of SPLIT_TILES, which the wrapper passes to
 # csrc/masked_attn_sm90.cu.
 SPLIT_TILES = 8
 
@@ -68,7 +68,7 @@ def plan_blocks(blocked: torch.Tensor, block_q: int, block_k: int,
 
 
 def live_blocks(blocked, block_q: int = BLOCK_Q, block_k: int = BLOCK_K):
-    """Plain version of the bf16 pre-pass (``masked_plan``): per batch and
+    """Plain version of the pre-pass (``masked_plan``): per batch and
     query block, the key blocks that hold a key some row may attend, in
     ascending order (rows past Nq and keys past Nk count as blocked)."""
     B, Nq, Nk = blocked.shape
@@ -80,7 +80,7 @@ def live_blocks(blocked, block_q: int = BLOCK_Q, block_k: int = BLOCK_K):
 
 
 def split_plan(live_tiles: int, split_tiles: int = SPLIT_TILES):
-    """The bf16 kernel's split of a (batch, query block)'s live key blocks:
+    """The kernel's split of a (batch, query block)'s live key blocks:
     [start, stop) ranges into its list, runs of ``split_tiles`` in order,
     at least one (an empty one when no block is live).  It depends on the
     live count alone, so no row's result depends on B, Nq or the grid."""
@@ -97,14 +97,15 @@ def max_splits(Nk: int) -> int:
 
 
 def masked_mha_split_ref(q, k, v, blocked, scale=None,
-                         split_tiles: int = SPLIT_TILES):
-    """Plain version of the bf16 kernel's split-then-merge arithmetic: per
+                         split_tiles: int = SPLIT_TILES, matmul=torch.matmul):
+    """Plain version of the kernel's split-then-merge arithmetic: per
     batch, query block and split (``split_plan`` over ``live_blocks``),
     logits x = s·scale·log2(e) (NEG where blocked), m = max(NEG, max x) (0
     where <= NEG/2), p = exp2(x − m) rounded to v's dtype in both O and l;
     one split is O / l, more merge in split order with weights exp2(m_s −
     max m) (0 for a split without a live key).  Rows without a live key
-    are 0."""
+    are 0.  ``matmul`` takes the two products
+    (``ops/tf32x3.py::matmul_tf32x3`` emulates the f32 kernel's)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     B, H, Nq, D = q.shape
@@ -119,8 +120,8 @@ def masked_mha_split_ref(q, k, v, blocked, scale=None,
                         for j in range(t * BLOCK_K, min((t + 1) * BLOCK_K,
                                                         Nk))]
                 idx = torch.tensor(keys, dtype=torch.long, device=q.device)
-                x = torch.matmul(q[b, :, rows].float(),
-                                 k[b][:, idx].float().transpose(-1, -2)) \
+                x = matmul(q[b, :, rows].float(),
+                           k[b][:, idx].float().transpose(-1, -2)) \
                     * (scale * _LOG2E)
                 x = torch.where(blocked[b, rows][:, idx], NEG_INF, x)
                 m = torch.full(x.shape[:-1] + (1,), NEG_INF, device=q.device)
@@ -129,7 +130,7 @@ def masked_mha_split_ref(q, k, v, blocked, scale=None,
                 safe = torch.where(m <= NEG_INF / 2, torch.zeros_like(m), m)
                 p = torch.where(x <= NEG_INF / 2, torch.zeros_like(x),
                                 torch.exp2(x - safe)).to(v.dtype).float()
-                parts.append((torch.matmul(p, v[b][:, idx].float()), m,
+                parts.append((matmul(p, v[b][:, idx].float()), m,
                               p.sum(-1, keepdim=True)))
             if len(parts) == 1:
                 num, _, den = parts[0]
@@ -175,14 +176,13 @@ def masked_mha(q, k, v, blocked, scale=None):
             q, k, v)
 
 
-# launches: every call; launches_f32: those of them on the f32 kernel
+# launches: every call; launches_f32: those of them in f32
 masked_mha.launches = masked_mha.launches_f32 = 0
 
 
 def _masked_mha_kernel(q, k, v, blocked, scale):
     """Launch K3: one launch as counted, whatever CUDA launches the call
-    makes (bf16: the plan pre-pass, the main kernel and the split
-    merge)."""
+    makes (the plan pre-pass, the main kernel and the split merge)."""
     B, H, Nq, D = q.shape
     Nk = k.shape[2]
     if D != HEAD_DIM:
@@ -200,33 +200,23 @@ def _masked_mha_kernel(q, k, v, blocked, scale):
                             q.device)
     out = torch.empty_like(q)
     p, i32, P = ctypes.c_void_p, ctypes.c_int, cuda_build.ptr
+    # the mask's tensor map wants rows of a multiple of 16 bytes
     mask = blocked.view(torch.uint8)
-    if q.dtype == torch.bfloat16:       # the Hopper engine, split-KV
-        # the mask's tensor map wants rows of a multiple of 16 bytes
-        ld = _round_up(Nk, 16)
-        if ld != Nk:
-            mask = torch.nn.functional.pad(mask, (0, ld - Nk), value=1)
-        nqb, nkb, ms = -(-Nq // BLOCK_Q), -(-Nk // BLOCK_K), max_splits(Nk)
-        # the live lists and counts; the splits' O, m and l
-        plan = torch.empty(B * nqb * (nkb + 1), dtype=torch.int32,
-                           device=q.device)
-        part = None if ms == 1 else torch.empty(
-            ms * B * H * Nq * (D + 2), dtype=torch.float32, device=q.device)
-        lib, fn = cuda_build.function(
-            "masked_attn_sm90", "p3_masked_attn_sm90",
-            [p] * 7 + [i32] * 5 + [ctypes.c_float, i32, p])
-        err = fn(P(q), P(k), P(v), P(mask), P(out), P(plan), P(part), B, H,
-                 Nq, Nk, ld, float(scale), SPLIT_TILES,
-                 cuda_build.stream_of(q))
-    else:
-        kv_idx, count = plan_blocks(blocked, BLOCK_Q, BLOCK_K,
-                                    _round_up(Nq, BLOCK_Q),
-                                    _round_up(Nk, BLOCK_K))
-        lib, fn = cuda_build.function("masked_attn", "p3_masked_attn",
-                                      [p] * 7 + [i32] * 5
-                                      + [ctypes.c_float, p])
-        err = fn(P(q), P(k), P(v), P(mask), P(kv_idx), P(count), P(out), B,
-                 H, Nq, Nk, D, float(scale), cuda_build.stream_of(q))
+    ld = _round_up(Nk, 16)
+    if ld != Nk:
+        mask = torch.nn.functional.pad(mask, (0, ld - Nk), value=1)
+    nqb, nkb, ms = -(-Nq // BLOCK_Q), -(-Nk // BLOCK_K), max_splits(Nk)
+    # the live lists and counts; the splits' O, m and l
+    plan = torch.empty(B * nqb * (nkb + 1), dtype=torch.int32,
+                       device=q.device)
+    part = None if ms == 1 else torch.empty(
+        ms * B * H * Nq * (D + 2), dtype=torch.float32, device=q.device)
+    lib, fn = cuda_build.function(
+        "masked_attn_sm90", "p3_masked_attn_sm90",
+        [p] * 7 + [i32] * 5 + [ctypes.c_float, i32, i32, p])
+    err = fn(P(q), P(k), P(v), P(mask), P(out), P(plan), P(part), B, H, Nq,
+             Nk, ld, float(scale), SPLIT_TILES, int(q.dtype == torch.float32),
+             cuda_build.stream_of(q))
     cuda_build.check(lib, err, "masked_mha")
     masked_mha.launches += 1
     masked_mha.launches_f32 += int(q.dtype == torch.float32)

@@ -9,9 +9,10 @@ panst3r_tpu/ops/pallas/tower_attention.py).
 - ``tower_cross_attention`` (K2) replaces ``_cross_fwd`` (bf16/f32 path):
   cross-attention over projected (B, Nq, C) x (B, Nk, C) streams with
   per-side RoPE tables, a per-key additive bias and dead-tile skipping.
-  bf16 runs ``csrc/tower_cross_sm90.cu`` (q and k rotated once per call, a
-  list of live key tiles, split-KV with a fixed merge order:
-  ``split_plan``), f32 ``csrc/tower_cross.cu``.
+  Both dtypes run ``csrc/tower_cross_sm90.cu`` (q and k rotated once per
+  call, a list of live key tiles, split-KV with a fixed merge order:
+  ``split_plan``): bf16 on the wgmma engine, f32 on the 3xTF32 engine
+  ``csrc/attn_f32_sm90.cuh``.
 - ``tower_cross_int8`` (K2-int8, ``csrc/tower_cross_int8.cu``) replaces
   the ``kv_int8`` branch of ``_cross_fwd``: int8 x int8 -> int32 scores,
   k quantized per tensor after its rotation (``int8_prepare``), q per row
@@ -200,13 +201,16 @@ def cross_prepass_ref(q, k, qtab=None, ktab=None, kv_bias=None, scale=None):
 
 
 def tower_cross_split_ref(q, k, v, qtab=None, ktab=None, kv_bias=None,
-                          scale=None, split_tiles: int = SPLIT_TILES):
-    """Plain version of K2's split-then-merge arithmetic (bf16 path) from
+                          scale=None, split_tiles: int = SPLIT_TILES,
+                          matmul=torch.matmul):
+    """Plain version of K2's split-then-merge arithmetic from
     ``cross_prepass_ref``: per batch and split, logits x = s·log2(e) + bias
     over the split's live tiles, m = max(NEG, max x) (0 where <= NEG/2), p =
     exp2(x − m) rounded to v's dtype in both O and l; one split is O / l,
     more merge in split order with weights exp2(m_s − max m) (0 for a split
-    without a live key).  Rows without a live key are 0."""
+    without a live key).  Rows without a live key are 0.  ``matmul`` takes
+    the two products (``ops/tf32x3.py::matmul_tf32x3`` emulates the f32
+    kernel's)."""
     qs, ks, bl, tiles = cross_prepass_ref(q, k, qtab, ktab, kv_bias, scale)
     B, Nq, C = q.shape
     Nk = k.shape[1]
@@ -219,7 +223,7 @@ def tower_cross_split_ref(q, k, v, qtab=None, ktab=None, kv_bias=None,
             keys = [j for t in tiles[b][a:z]
                     for j in range(t * BLOCK_K, min((t + 1) * BLOCK_K, Nk))]
             idx = torch.tensor(keys, dtype=torch.long, device=q.device)
-            x = torch.matmul(qh[b], kh[b][:, idx].transpose(-1, -2)) \
+            x = matmul(qh[b], kh[b][:, idx].transpose(-1, -2)) \
                 * _LOG2E + bl[b, idx]
             m = torch.full(x.shape[:-1] + (1,), NEG_INF, device=q.device)
             if keys:
@@ -227,7 +231,7 @@ def tower_cross_split_ref(q, k, v, qtab=None, ktab=None, kv_bias=None,
             safe = torch.where(m <= NEG_INF / 2, torch.zeros_like(m), m)
             p = torch.where(x <= NEG_INF / 2, torch.zeros_like(x),
                             torch.exp2(x - safe)).to(v.dtype).float()
-            parts.append((torch.matmul(p, vh[b][:, idx].float()), m,
+            parts.append((matmul(p, vh[b][:, idx].float()), m,
                           p.sum(-1, keepdim=True)))
         if len(parts) == 1:
             num, _, den = parts[0]
@@ -327,7 +331,7 @@ tower_self_attention.launches = tower_self_attention.launches_f32 = 0
 
 def _tower_cross_kernel(q, k, v, qtab, ktab, kv_bias, scale):
     """Launch K2: one launch as counted, whatever CUDA launches the call
-    makes (bf16: the pre-passes, the main kernel and the split merge)."""
+    makes (the pre-passes, the main kernel and the split merge)."""
     import ctypes
 
     B, Nq, C = q.shape
@@ -351,36 +355,30 @@ def _tower_cross_kernel(q, k, v, qtab, ktab, kv_bias, scale):
         _check(kv_bias, "kv_bias", (B, Nk), torch.float32, dev)
     out = torch.empty((B, Nq, C), dtype=q.dtype, device=dev)
     p, i32, P = ctypes.c_void_p, ctypes.c_int, cuda_build.ptr
-    if q.dtype == torch.bfloat16:       # the Hopper engine, split-KV
-        nt, ms = key_tiles(Nk), max_splits(Nk)
+    nt, ms = key_tiles(Nk), max_splits(Nk)
 
-        def scratch(*shape, dtype=torch.float32):
-            return torch.empty(shape, dtype=dtype, device=dev)
+    def scratch(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=dev)
 
-        qs = scratch(B, Nq, C, dtype=q.dtype)
-        ks = None if qcos is None else scratch(B, Nk, C, dtype=q.dtype)
-        bl = scratch(B, nt * BLOCK_K)
-        tiles = scratch(B, nt, dtype=torch.int32)
-        count = scratch(B, dtype=torch.int32)
-        opart = ml = None
-        if ms > 1:
-            opart = scratch(ms, B, Nq, C)
-            ml = scratch(ms, B, C // 64, Nq, 2)
-        lib, fn = cuda_build.function(
-            "tower_cross_sm90", "p3_tower_cross_sm90",
-            [p] * 16 + [i32] * 4 + [ctypes.c_float] + [i32] * 2 + [p])
-        err = fn(P(q), P(k), P(v), P(qcos), P(qsin), P(kcos), P(ksin),
-                 P(kv_bias), P(out), P(qs), P(ks), P(bl), P(tiles),
-                 P(count), P(opart), P(ml), B, Nq, Nk, C, float(scale),
-                 cta_warpgroups(B, C // 64, Nq, ms), SPLIT_TILES,
-                 cuda_build.stream_of(q))
-    else:
-        lib, fn = cuda_build.function("tower_cross", "p3_tower_cross",
-                                      [p] * 9 + [i32] * 4
-                                      + [ctypes.c_float, p])
-        err = fn(P(q), P(k), P(v), P(qcos), P(qsin), P(kcos), P(ksin),
-                 P(kv_bias), P(out), B, Nq, Nk, C, float(scale),
-                 cuda_build.stream_of(q))
+    # the Hopper engines, split-KV: q~ and k~ in the inputs' dtype, the
+    # padded log2 bias, the live tiles, the splits' O, m and l
+    qs = scratch(B, Nq, C, dtype=q.dtype)
+    ks = None if qcos is None else scratch(B, Nk, C, dtype=q.dtype)
+    bl = scratch(B, nt * BLOCK_K)
+    tiles = scratch(B, nt, dtype=torch.int32)
+    count = scratch(B, dtype=torch.int32)
+    opart = ml = None
+    if ms > 1:
+        opart = scratch(ms, B, Nq, C)
+        ml = scratch(ms, B, C // 64, Nq, 2)
+    lib, fn = cuda_build.function(
+        "tower_cross_sm90", "p3_tower_cross_sm90",
+        [p] * 16 + [i32] * 4 + [ctypes.c_float] + [i32] * 3 + [p])
+    err = fn(P(q), P(k), P(v), P(qcos), P(qsin), P(kcos), P(ksin),
+             P(kv_bias), P(out), P(qs), P(ks), P(bl), P(tiles), P(count),
+             P(opart), P(ml), B, Nq, Nk, C, float(scale),
+             cta_warpgroups(B, C // 64, Nq, ms), SPLIT_TILES,
+             int(q.dtype == torch.float32), cuda_build.stream_of(q))
     cuda_build.check(lib, err, "tower_cross_attention")
     tower_cross_attention.launches += 1
     tower_cross_attention.launches_f32 += int(q.dtype == torch.float32)

@@ -1,8 +1,9 @@
 """K1-K6 and K2-int8 CUDA kernels against their plain versions at edge
 shapes (ragged tiles, dead key tiles, rows with no live key, -inf keys,
-strided views), f32 and bf16, with the limits of chip_smoke.py; bf16 K1,
-K2 and K3 on the Hopper engine batch-invariant bit for bit (K1, K2 also
-over query chunks); K1, K2, K3 and K6 routed by dtype; the int8 gate's
+strided views, the train step's shapes), f32 and bf16, with the limits
+of chip_smoke.py; K1, K2 and K3 on the Hopper engines (bf16; f32 K2 and
+K3) batch-invariant bit for bit (K1, K2 also over query chunks); K1, K2,
+K3 and K6 routed by dtype; the int8 gate's
 launches; gradients through K1-K4 on the card against the plain versions';
 a small v2 train step and small v1 serve wires on the card against the
 CPU; FLOP counts on the card equal to the CPU's.  Needs a CUDA card; skips without one.  On the card (no JAX there, so
@@ -97,10 +98,14 @@ def _memory_bias(B, Nk, valid_slots, capacity, dev):
     (2, 64, 257, False, "row_dead"), (1, 1, 64, True, "random"),
     (1, 768, 13056, True, "update_long"),   # serve_long's last update
     (2, 300, 2950, True, "dead_tiles"),     # ragged Nk, two splits
-    (2, 200, 2950, False, "neg_inf")])      # -inf keys and a -inf tile
+    (2, 200, 2950, False, "neg_inf"),       # -inf keys and a -inf tile
+    # train_v2's first memory update (no memory slot valid yet) and its
+    # render, with fewer query rows
+    (2, 1536, 5376, True, "update_train"),
+    (2, 1000, 3840, True, "none")])
 def test_tower_cross_kernel(dev, dtype, B, Nq, Nk, rope, bias):
     g = torch.Generator(device=dev).manual_seed(Nq + Nk)
-    C = 768 if bias == "update_long" else 128
+    C = 768 if bias in ("update_long", "update_train") else 128
     q = _rnd(g, dev, dtype, B, Nq, C, s=QK_STD)
     k = _rnd(g, dev, dtype, B, Nk, C, s=QK_STD)
     v = _rnd(g, dev, dtype, B, Nk, C)
@@ -120,6 +125,8 @@ def test_tower_cross_kernel(dev, dtype, B, Nq, Nk, rope, bias):
         kb = torch.where(valid, 0.0, NEG)
         if bias == "update_long":
             kb = _memory_bias(B, Nk, 11520, 12288, dev)
+        if bias == "update_train":
+            kb = _memory_bias(B, Nk, 0, 3840, dev)
         if bias == "neg_inf":
             kb[:, -3:] = -float("inf")
             kb[:, 128:256] = -float("inf")    # a whole tile at -inf
@@ -188,8 +195,9 @@ def test_tower_kernels_batch_and_chunk_invariant(dev):
 
 @pytest.mark.parametrize("op", ["self", "cross"])
 def test_tower_kernels_route_by_dtype(dev, monkeypatch, op):
-    """bf16 runs the Hopper library, f32 the old engine; the wrapper counts
-    one launch per call either way (bf16 makes several CUDA launches), and
+    """bf16 runs the Hopper library; f32 runs K1's old engine and K2's
+    Hopper library (its 3xTF32 engine); the wrapper counts one launch per
+    call either way (the Hopper libraries make several CUDA launches), and
     ``launches_f32`` the f32 ones."""
     from panst3r_torch.ops import cuda_build
 
@@ -204,7 +212,8 @@ def test_tower_kernels_route_by_dtype(dev, monkeypatch, op):
     g = torch.Generator(device=dev).manual_seed(3)
     counter = getattr(ta, f"tower_{op}_attention")
     for dtype, lib in ((torch.bfloat16, f"tower_{op}_sm90"),
-                       (torch.float32, f"tower_{op}")):
+                       (torch.float32, "tower_self" if op == "self"
+                        else "tower_cross_sm90")):
         n0, f0 = counter.launches, counter.launches_f32
         if op == "self":
             qkv = _rnd(g, dev, dtype, 2, 300, 3 * 128)
@@ -225,7 +234,8 @@ def test_tower_kernels_route_by_dtype(dev, monkeypatch, op):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,H,Nq,Nk", [
     (1, 8, 200, 3072), (2, 2, 1, 100), (1, 3, 130, 700),
-    (1, 8, 200, 12288)])                  # serve_long: 16 keyframes
+    (1, 8, 200, 12288),                   # serve_long: 16 keyframes
+    (2, 8, 200, 3840)])                   # train_v2: B=2 x 5 views
 def test_masked_attn_kernel(dev, dtype, B, H, Nq, Nk):
     D = 96
     g = torch.Generator(device=dev).manual_seed(Nq + Nk)
@@ -265,11 +275,71 @@ def test_masked_attn_batch_invariant(dev):
         assert torch.equal(part, full[sl]), b
 
 
+def test_f32_kernels_batch_and_chunk_invariant(dev):
+    """f32 K2 and K3 on the 3xTF32 engine: the rows of batch b, and (K2)
+    query rows [a, a + n), equal the slice of the full call bit for bit,
+    though the slices run other grids and other batches' split counts; two
+    runs of one call are bit-equal; rows with no live key are 0."""
+    g = torch.Generator(device=dev).manual_seed(13)
+    dt = torch.float32
+    B, Nq, Nk, C = 4, 768, 2950, 768    # 24 key tiles: up to two splits
+    q = _rnd(g, dev, dt, B, Nq, C, s=QK_STD)
+    k = _rnd(g, dev, dt, B, Nk, C, s=QK_STD)
+    v = _rnd(g, dev, dt, B, Nk, C)
+    qtab, ktab = (rope2d_tables(torch.randint(0, 40, (B, n, 2), generator=g,
+                                              device=dev), 64)
+                  for n in (Nq, Nk))
+    valid = torch.ones(B, Nk, dtype=torch.bool, device=dev)
+    valid[1, 1000:] = False             # 8 live tiles: one split
+    valid[2] = False                    # no live key: zeros
+    valid[3, 640:1600] = False          # dead tiles inside, two splits
+    kb = torch.where(valid, 0.0, NEG)
+    kb[0, -3:] = -float("inf")
+    full = ta.tower_cross_attention(q, k, v, qtab, ktab, kb)
+    assert torch.equal(full, ta.tower_cross_attention(q, k, v, qtab, ktab,
+                                                      kb))
+    assert (full[2] == 0).all()
+    _close(full, ta.tower_cross_attention_ref, q, k, v, qtab, ktab, kb)
+    for b in range(B):
+        sl = slice(b, b + 1)
+        part = ta.tower_cross_attention(
+            q[sl].contiguous(), k[sl].contiguous(), v[sl].contiguous(),
+            tuple(t[sl].contiguous() for t in qtab),
+            tuple(t[sl].contiguous() for t in ktab), kb[sl].contiguous())
+        assert torch.equal(part, full[sl]), b
+    for a, n in ((0, 100), (100, 668), (37, 1)):
+        rows = slice(a, a + n)
+        part = ta.tower_cross_attention(
+            q[:, rows].contiguous(), k, v,
+            tuple(t[:, rows].contiguous() for t in qtab), ktab, kb)
+        assert torch.equal(part, full[:, rows]), (a, n)
+
+    B, H, Nq, Nk, D = 3, 8, 200, 3072, 96
+    q = _rnd(g, dev, dt, B, H, Nq, D, s=QK_STD)
+    k = _rnd(g, dev, dt, B, H, Nk, D, s=QK_STD)
+    v = _rnd(g, dev, dt, B, H, Nk, D)
+    blocked = torch.rand(B, Nq, Nk, generator=g, device=dev) > 0.05
+    blocked[0, :, 500:] = True          # 8 live key blocks: one split
+    blocked[1, :, :1000] = True         # several splits
+    blocked[2, :64] = True              # a query block with no live key
+    blocked[1, 99] = True               # a fully blocked row
+    full = ma.masked_mha(q, k, v, blocked)
+    assert torch.equal(full, ma.masked_mha(q, k, v, blocked))
+    assert (full[2, :, :64] == 0).all() and (full[1, :, 99] == 0).all()
+    _close(full, ma.masked_mha_ref, q, k, v, blocked)
+    for b in range(B):
+        sl = slice(b, b + 1)
+        part = ma.masked_mha(q[sl].contiguous(), k[sl].contiguous(),
+                             v[sl].contiguous(), blocked[sl].contiguous())
+        assert torch.equal(part, full[sl]), b
+
+
 @pytest.mark.parametrize("op", ["masked", "packed"])
 def test_k3_k6_route_by_dtype(dev, monkeypatch, op):
-    """bf16 K3 and K6 run their Hopper libraries, f32 the old kernels; the
-    wrapper counts one launch per call either way, and ``launches_f32``
-    the f32 ones."""
+    """bf16 K3 and K6 run their Hopper libraries; f32 K3 runs its Hopper
+    library too (the 3xTF32 engine), f32 K6 the old kernel; the wrapper
+    counts one launch per call either way, and ``launches_f32`` the f32
+    ones."""
     from panst3r_torch.ops import cuda_build
 
     names = []
@@ -284,7 +354,8 @@ def test_k3_k6_route_by_dtype(dev, monkeypatch, op):
     counter = ma.masked_mha if op == "masked" else pa.packed_mha
     lib = "masked_attn" if op == "masked" else "packed_flash"
     for dtype, want in ((torch.bfloat16, lib + "_sm90"),
-                        (torch.float32, lib)):
+                        (torch.float32, "masked_attn_sm90" if op == "masked"
+                         else lib)):
         n0, f0 = counter.launches, counter.launches_f32
         if op == "masked":
             q = _rnd(g, dev, dtype, 1, 2, 100, 96)
