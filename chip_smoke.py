@@ -18,12 +18,14 @@ Run from the root of a checkout.  It builds the CUDA kernels of
    (``scaled_dot_product_attention``, a yardstick only — the port never
    calls it; none computes int8-score attention, so K2-int8 records SDPA
    for scale and its distance from K2) and the least time the card could
-   take (``panst3r_torch/ops/flops.py::bound_ms``; the f32 K2 and K3 also
+   take (``panst3r_torch/ops/flops.py::bound_ms``; the f32 K2-K5 also
    at the 3xTF32 rate of their tensor-core products); the bf16 K1, K2, K3
-   and K6 and the f32 K2 and K3 (the Hopper engines) also with the device
-   ms of each CUDA kernel of one traced call, K2 and K3 with each split
-   size of ``SPLIT_TILES_TRIED``; K5 (flash_bwd) likewise against its plain
-   version from K4's own output and LSE, and K4 + K5 through autograd;
+   and K6 and the f32 K2-K5 (the Hopper engines) also with the device
+   ms of each CUDA kernel of one traced call, K2, K3 and the f32 K5 with
+   each split size of ``SPLIT_TILES_TRIED``; K5 (flash_bwd) likewise
+   against its plain version from K4's own output and LSE, and K4 + K5
+   through autograd; K4 and K5 also at train_v2's LoftUp batch
+   (``loftup_train_full``, f32, plain versions per slice of views);
    gradients through K1-K3 on the card bit-equal to their plain formulas';
 2. ``small``: v1 and v2 widths at depth 2 (v2 with its full mixer and
    LoftUp), f32, V=4 / K=3 at 384x512, the same seeded weights on the card
@@ -40,8 +42,9 @@ Run from the root of a checkout.  It builds the CUDA kernels of
 4. ``train_v2``: four micro-steps (two updates) of the v2 train step at
    full width and depth (frozen towers stored in bf16, the train_v2 recipe,
    B=2 x V=5 at 384x512), step and stage times, peak memory, gradients on
-   every trainable leaf, frozen parameters unchanged, launch counts, a
-   profile by kernel, and one micro-step's FLOPs and MFU;
+   every trainable leaf, frozen parameters unchanged, launch counts, the
+   shapes of K4's and K5's launches (K5's held to ``LOFTUP_TRAIN_FULL``),
+   a profile by kernel, and one micro-step's FLOPs and MFU;
 5. ``serve``: the v1 serving wire at full width and depth (V=8 / K=4):
    every ``fusion_res``, cameras, packed YUV420 input, both latency paths
    and ``serve_stream``, held to the checks of tests/test_serve.py, with
@@ -108,14 +111,18 @@ PHASES = ("kernels", "small", "v1", "v2", "train_v2", "serve", "serve_long",
           "ab_packed")
 # the bf16 K1, K2, K3 and K6 run the Hopper engine (wgmma); of their f32
 # paths (entries ``*_f32`` of the kernels line) K2 and K3 run the 3xTF32
-# engine in the same sources (F32_SOURCE), K1 and K6 the old ones
+# engine in the same sources (F32_SOURCE), K1 and K6 the old ones; K4 and
+# K5, whose main paths run f32 only, run the 3xTF32 engine in sources of
+# their own (their bf16 paths stay on the tile engine, flash_{fwd,bwd}.cu)
 SOURCE = {"tower_self": "tower_self_sm90", "tower_cross": "tower_cross_sm90",
           "masked_attn": "masked_attn_sm90",
           "packed_flash": "packed_flash_sm90"}
 F32_SOURCE = {"tower_cross": "tower_cross_sm90",
-              "masked_attn": "masked_attn_sm90"}
+              "masked_attn": "masked_attn_sm90",
+              "flash_fwd": "flash_fwd_sm90", "flash_bwd": "flash_bwd_sm90"}
 # the case and dtype of each kernel on its main path: K1-K3 under v1's bf16,
-# K4 in LoftUp's f32 (flax promotes that branch to f32 under amp), the f32
+# K4 in LoftUp's f32 (flax promotes that branch to f32 under amp; the v2
+# scene's 4 views), K5 at train_v2's LoftUp call (B*V = 10 views), the f32
 # K1-K3 in train_v2 (K2 and K3 at its shapes), K6 in the A/B tool (bf16,
 # and its f32 run)
 MAIN_CASE = {"tower_self": ("encoder_rope", "bfloat16"),
@@ -126,13 +133,22 @@ MAIN_CASE = {"tower_self": ("encoder_rope", "bfloat16"),
              "masked_attn": ("mask_transformer", "bfloat16"),
              "masked_attn_f32": ("mask_transformer_train", "float32"),
              "flash_fwd": ("loftup", "float32"),
-             "flash_bwd": ("loftup_train", "float32"),
+             "flash_bwd": ("loftup_train_full", "float32"),
              "packed_flash": ("tool", "bfloat16"),
              "packed_flash_f32": ("tool", "float32")}
 # K2's and K3's fixed splits (key tiles per split) and a larger one, each
 # timed on the kernel's cases on the Hopper engines (bf16, and f32) in the
-# same run
-SPLIT_TILES_TRIED = {"tower_cross": (16, 48), "masked_attn": (8, 16)}
+# same run; K5's f32 dkdv splits (query tiles of 64 per split) likewise
+SPLIT_TILES_TRIED = {"tower_cross": (16, 48), "masked_attn": (8, 16),
+                     "flash_bwd": (64, 192)}
+# LoftUp's call in the train_v2 micro-step: all B*V = 2*5 views at once,
+# 4 heads of 96, 192x256 pixel queries against 24x32 patch tokens (the
+# train_v2 phase checks that its K4/K5 launches have this shape)
+LOFTUP_TRAIN_FULL = (10, 4, 49152, 768, 96)
+# the plain versions of K4 and K5 at that batch run per slice of views
+# (attention is independent per batch): the whole call's f32 logits (6 GB)
+# and their temporaries would not fit beside the inputs
+PLAIN_SLICE = 2
 # K4's LSE against its plain version's: f32 logits on both sides
 LSE_RTOL = 1e-4
 # The JAX package's matmul/conv FLOPs of one run_device + fusion scene at
@@ -329,6 +345,9 @@ def kernel_cases(dtype, dev):
     valid[:, :3840] = False
     k2("update_train", 2, 1536, 5376, valid)
     _k3_case(cases, "mask_transformer_train", 3840, rnd, g, es, dev, B=2)
+    if dtype == torch.float32:
+        # K4 at train_v2's LoftUp batch, where the path runs it in f32
+        cases += _k4_cases(rnd, g, es, dtype, dev, None, full=True)
     return cases
 
 
@@ -494,10 +513,25 @@ def _int8_cases(rnd, g, es, dtype, dev):
     return cases
 
 
-def _k4_cases(rnd, g, es, dtype, dev, blocked):
+def _sliced(fn, n: int, *ts):
+    """``fn`` over the batch in slices of ``n`` (the tensors ``ts`` cut
+    along dim 0), the results joined: the plain version of attention at a
+    batch whose logits would not fit at once."""
+    import torch
+
+    parts = [fn(*(t[a:a + n] for t in ts)) for a in range(0, ts[0].shape[0],
+                                                           n)]
+    if isinstance(parts[0], tuple):
+        return tuple(torch.cat(x) for x in zip(*parts))
+    return torch.cat(parts)
+
+
+def _k4_cases(rnd, g, es, dtype, dev, blocked, full=False):
     """K4 at the v2 LoftUp shape (split-heads views of the projections, as
     the block passes them), with ragged dead keys, with the dense
-    mask-transformer bias, with RoPE tables and with the LSE."""
+    mask-transformer bias, with RoPE tables and with the LSE; with
+    ``full``, only at train_v2's LoftUp batch (its plain version per slice
+    of PLAIN_SLICE views)."""
     import torch
     import torch.nn.functional as F
 
@@ -509,7 +543,7 @@ def _k4_cases(rnd, g, es, dtype, dev, blocked):
         return None if t is None else t.float()
 
     def case(label, q, k, v, bias=None, kv_valid=None, rope=None,
-             with_lse=False, live_keys=None, lib_mask=None):
+             with_lse=False, live_keys=None, lib_mask=None, slices=None):
         B, H, Nq, D = q.shape
         Nk = k.shape[2]
         live_keys = B * Nk if live_keys is None else live_keys
@@ -523,10 +557,16 @@ def _k4_cases(rnd, g, es, dtype, dev, blocked):
         if rope is not None:        # the library call gets rotated q, k
             ql = apply_rope_tables_f32(q, rope[0], rope[1])
             kl = apply_rope_tables_f32(k, rope[2], rope[3])
+        if slices is not None:
+            def ref():
+                return _sliced(lambda *t: fa.flash_mha_ref(*t, **kw), slices,
+                               q, k, v)
+        else:
+            def ref():
+                return fa.flash_mha_ref(q, k, v, **kw)
         return dict(
             kernel="flash_fwd", case=label,
-            fn=lambda: fa.flash_mha(q, k, v, **kw),
-            ref=lambda: fa.flash_mha_ref(q, k, v, **kw),
+            fn=lambda: fa.flash_mha(q, k, v, **kw), ref=ref,
             f32=lambda: fa.flash_mha_ref(f32(q), f32(k), f32(v), **kw),
             lib=lambda: F.scaled_dot_product_attention(
                 ql, kl, v, attn_mask=lib_mask),
@@ -536,6 +576,11 @@ def _k4_cases(rnd, g, es, dtype, dev, blocked):
         """(B, H, N, D) view of a (B, N, H*D) projection."""
         return rnd(B, N, H * D, s=s).view(B, N, H, D).transpose(1, 2)
 
+    if full:        # f32 only: the f32 plain version is the reference
+        B, H, Nq, Nk, D = LOFTUP_TRAIN_FULL
+        return [case("loftup_train_full", heads(B, Nq, H, D, QK_STD),
+                     heads(B, Nk, H, D, QK_STD), heads(B, Nk, H, D),
+                     slices=PLAIN_SLICE)]
     cases = []
     # v2 LoftUp: 4 views x 192x256 pixels against 4 x 768 patch tokens
     B, H, Nq, Nk, D = 4, 4, 49152, 768, 96
@@ -573,7 +618,9 @@ def _k4_cases(rnd, g, es, dtype, dev, blocked):
 def k5_cases(dtype, dev):
     """K5 cases: q, k, v, do and K4's keyword arguments, with the FLOPs of
     the seven products and the bytes moved (each input read once, each
-    gradient written once), and the library yardstick's mask."""
+    gradient written once), and the library yardstick's mask; in f32 last
+    the train_v2 LoftUp batch (``slices``: its plain version per slice of
+    views)."""
     import torch
 
     from panst3r_torch.ops.attention import NEG_INF
@@ -591,7 +638,8 @@ def k5_cases(dtype, dev):
 
     cases = []
 
-    def case(label, q, k, v, live_keys=None, lib_mask=None, **kw):
+    def case(label, q, k, v, live_keys=None, lib_mask=None, slices=None,
+             **kw):
         B, H, Nq, D = q.shape
         Nk = k.shape[2]
         live = B * Nk if live_keys is None else live_keys
@@ -601,6 +649,7 @@ def k5_cases(dtype, dev):
         nbytes += 0 if "rope" not in kw else 2 * B * (Nq + Nk) * D * 4
         cases.append(dict(case=label, q=q, k=k, v=v,
                           do=heads(B, Nq, H, D), kw=kw, lib_mask=lib_mask,
+                          slices=slices,
                           flops=7 * 2.0 * H * Nq * live * D, bytes=nbytes))
 
     # LoftUp's training shape: 2 views x 192x256 pixels against 768 tokens
@@ -631,6 +680,12 @@ def k5_cases(dtype, dev):
     tabs = rope2d_tables(_grid_pos(B, 24, 32, dev), D)
     case("rope_tables", rnd(B, H, N, D, s=QK_STD), rnd(B, H, N, D, s=QK_STD),
          rnd(B, H, N, D), rope=(*tabs, *tabs))
+    if dtype == torch.float32:
+        # the micro-step's LoftUp backward: all B*V views in one call
+        B, H, Nq, Nk, D = LOFTUP_TRAIN_FULL
+        case("loftup_train_full", heads(B, Nq, H, D, QK_STD),
+             heads(B, Nk, H, D, QK_STD), heads(B, Nk, H, D),
+             slices=PLAIN_SLICE)
     return cases
 
 
@@ -673,67 +728,134 @@ def phase_k5(dtype, dname: str, dev, rows: dict) -> None:
     """K5 against its plain version from K4's own output and LSE, then
     K4 + K5 through autograd against autograd through ``flash_mha_ref``
     (f32; in bf16 against the plain pair's gradients, with the exact f32
-    gradient as the reference)."""
+    gradient as the reference).  A case with ``slices`` holds both against
+    the plain versions run per slice of views.  The f32 rows (the Hopper
+    f32 engine) also carry the device ms of each CUDA kernel of one traced
+    call, the 3xTF32 bound, the library's CUDA kernels and each dkdv split
+    of SPLIT_TILES_TRIED."""
     import torch
 
+    from panst3r_torch.core.profiling import profile_by_kernel
     from panst3r_torch.ops import flash_attention as fa
     from panst3r_torch.ops.flops import bound_ms
 
     def leaves(*ts):
         return [t.detach().clone().requires_grad_() for t in ts]
 
+    def ref_grads(q, k, v, do, kw):
+        """Autograd through the plain forward, in f32."""
+        ins = leaves(q, k, v)
+        fa.flash_mha_ref(*ins, **kw).backward(do)
+        return tuple(t.grad for t in ins)
+
     for c in k5_cases(dtype, dev):
         q, k, v, do, kw = c["q"], c["k"], c["v"], c["do"], c["kw"]
+        n = c["slices"]
         o, lse = fa.flash_mha(q, k, v, with_lse=True, **kw)
         n0 = fa.flash_mha_bwd.launches
 
         def fn():
             return fa.flash_mha_bwd(q, k, v, o, lse, do, **kw)
 
+        def plain():
+            if n is None:
+                return fa.flash_mha_bwd_ref(q, k, v, o, lse, do, **kw)
+            return _sliced(lambda *t: fa.flash_mha_bwd_ref(*t, **kw), n,
+                           q, k, v, o, lse, do)
+
         got = fn()
         torch.cuda.synchronize()
-        plain = fa.flash_mha_bwd_ref(q, k, v, o, lse, do, **kw)
-        f32 = [t.float() for t in (q, k, v, o, do)]
-        plain_f32 = fa.flash_mha_bwd_ref(*f32[:3], f32[3], lse, f32[4], **kw)
-        check = {"kernel": _grad_check(got, plain, plain_f32, dtype)}
+        want = plain()
+        if dtype == torch.float32:
+            want_f32 = want
+        else:
+            f32 = [t.float() for t in (q, k, v, o, do)]
+            want_f32 = fa.flash_mha_bwd_ref(*f32[:3], f32[3], lse, f32[4],
+                                            **kw)
+        check = {"kernel": _grad_check(got, want, want_f32, dtype)}
         err = max(float((a.float() - b.float()).abs().max())
-                  for a, b in zip(got, plain))
-        del plain, plain_f32
+                  for a, b in zip(got, want))
 
         # K4 + K5 through autograd
         ins = leaves(q, k, v)
         fa.flash_mha(*ins, **kw).backward(do)
         auto = [t.grad for t in ins]
-        ref_ins = leaves(*f32[:3])
-        fa.flash_mha_ref(*ref_ins, **kw).backward(f32[4])
-        exact = [t.grad for t in ref_ins]
+        f32 = [t.float() for t in (q, k, v, do)]
+        if n is None:
+            exact = ref_grads(*f32, kw)
+        else:
+            exact = _sliced(lambda *t: ref_grads(*t, kw), n, *f32)
         if dtype == torch.float32:
             pair = exact
         else:
             po, plse = fa.flash_mha_ref(q, k, v, with_lse=True, **kw)
             pair = fa.flash_mha_bwd_ref(q, k, v, po, plse, do, **kw)
         check["autograd"] = _grad_check(auto, pair, exact, dtype)
-        del ins, auto, ref_ins, exact, pair
+        del ins, auto, exact, pair, f32, want_f32
         ok = all(g["ok"] and g["finite"] for part in check.values()
                  for g in part.values())
+        reps = 5 if n is not None else 10
         row = {
             "phase": "kernels", "kernel": "flash_bwd", "case": c["case"],
             "dtype": dname, "shape": list(q.shape) + [k.shape[2]],
             "max_abs_err": err, "check": check,
-            "kernel_ms": time_ms(fn, reps=10),
-            "plain_ms": time_ms(lambda: fa.flash_mha_bwd_ref(
-                q, k, v, o, lse, do, **kw), reps=3, warmup=1),
-            "library_ms": time_ms(_sdpa_bwd(c), reps=10),
+            "kernel_ms": time_ms(fn, reps=reps),
+            "plain_ms": time_ms(plain, reps=1 if n is not None else 3,
+                                warmup=1),
+            "library_ms": time_ms(_sdpa_bwd(c), reps=reps),
         }
+        if n is not None:
+            row["plain_by_slices_of"] = n
+        if dtype == torch.float32:
+            prof = profile_by_kernel(fn, top=8)
+            if not prof["top"]:             # a trace that caught nothing
+                prof = profile_by_kernel(fn, top=8)
+            row["device_ms_by_kernel"] = {
+                _short(t["name"]): t["ms"] for t in prof["top"]}
+            row["device_ms"] = prof["device_busy_ms"]
+            lib = profile_by_kernel(_sdpa_bwd(c), top=6)
+            row["library_device_ms_by_kernel"] = {
+                t["name"][:160]: t["ms"] for t in lib["top"]}
+            row["max_splits"] = fa.dkv_splits(q.shape[2])
+            row["by_split_tiles"] = _k5_splits(fn, reps, want)
         row["launches"] = fa.flash_mha_bwd.launches - n0
         row["bound_ms"], row["bound_by"] = bound_ms(c["flops"], c["bytes"],
                                                     dname)
+        if dtype == torch.float32:
+            row["bound_ms_tf32x3"], row["bound_by_tf32x3"] = bound_ms(
+                c["flops"], c["bytes"], "tf32x3")
         emit(row)
         if not ok:
             raise AssertionError(f"flash_bwd {c['case']} {dname}: {check}")
         rows[("flash_bwd", c["case"], dname)] = row
-        del got, o, lse
+        del got, want, o, lse
         torch.cuda.empty_cache()
+
+
+def _k5_splits(fn, reps, want) -> dict:
+    """The f32 K5 timed (CUDA events, and the device time of one traced
+    call) and held to the f32 rule against the plain gradients ``want``,
+    with each fixed dkdv split of SPLIT_TILES_TRIED in turn (the module's
+    ``SPLIT_TILES`` restored after)."""
+    import torch
+
+    from panst3r_torch.core.profiling import profile_by_kernel
+    from panst3r_torch.ops import flash_attention as fa
+
+    keep, res = fa.SPLIT_TILES, {}
+    try:
+        for st in SPLIT_TILES_TRIED["flash_bwd"]:
+            fa.SPLIT_TILES = st
+            got = fn()
+            check = _grad_check(got, want, want, torch.float32)
+            busy = profile_by_kernel(fn, top=8)["device_busy_ms"] \
+                or profile_by_kernel(fn, top=8)["device_busy_ms"]
+            res[str(st)] = {"ms": time_ms(fn, reps=reps), "device_ms": busy,
+                            "ok": all(g["ok"] for g in check.values())}
+            del got
+    finally:
+        fa.SPLIT_TILES = keep
+    return res
 
 
 def phase_autograd(dtype, dname: str, dev) -> None:
@@ -1461,6 +1583,32 @@ def phase_small_train(shape=SMALL_TRAIN_SHAPE, depth: int = 2):
     torch.cuda.empty_cache()
 
 
+@contextlib.contextmanager
+def _flash_shapes():
+    """[B, H, Nq, Nk, D] of every K4 and K5 kernel launch made inside."""
+    from panst3r_torch.ops import flash_attention as fa
+
+    seen = {"flash_fwd": [], "flash_bwd": []}
+    real_fwd, real_bwd = fa._flash_fwd_kernel, fa._flash_bwd_kernel
+
+    def shape(q, k):
+        return list(q.shape[:3]) + [k.shape[2], q.shape[3]]
+
+    def fwd(q, k, *a, **kw):
+        seen["flash_fwd"].append(shape(q, k))
+        return real_fwd(q, k, *a, **kw)
+
+    def bwd(q, k, *a, **kw):
+        seen["flash_bwd"].append(shape(q, k))
+        return real_bwd(q, k, *a, **kw)
+
+    fa._flash_fwd_kernel, fa._flash_bwd_kernel = fwd, bwd
+    try:
+        yield seen
+    finally:
+        fa._flash_fwd_kernel, fa._flash_bwd_kernel = real_fwd, real_bwd
+
+
 def phase_train_v2():
     """The slice's path at full width and depth: ``panst3r_v2_config()``
     with seeded random weights and the frozen towers stored in bf16, the
@@ -1498,10 +1646,14 @@ def phase_train_v2():
     for i in range(4):
         gen = prng.generator(tcfg.seed, 0, i, device="cuda")
         _reset_counts()
-        t0 = time.perf_counter()
-        loss, det = step(batches[i % 2], cls_emb, gen)
-        torch.cuda.synchronize()
-        steps.append({"seconds": time.perf_counter() - t0,
+        with _flash_shapes() as shapes:
+            t0 = time.perf_counter()
+            loss, det = step(batches[i % 2], cls_emb, gen)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        if i == 0:
+            flash_shapes = shapes
+        steps.append({"seconds": seconds,
                       "loss": float(loss), "updated": opt.mini_step == 0,
                       "valid_targets": int(batches[i % 2]["targets"].valid
                                            .sum())})
@@ -1538,7 +1690,9 @@ def phase_train_v2():
                                if not mask[n]),
           "zero_grad_leaves": zero_grad, "trainable_leaves_changed": changed,
           "frozen_bit_identical": frozen_same,
-          "launches": counts_all, "expected_launches": want})
+          "launches": counts_all, "expected_launches": want,
+          # the kernels phase's loftup_train_full cases take this shape
+          "flash_shapes_step_1": flash_shapes})
     emit({"phase": "train_v2_profile", **profile})
     if not all(math.isfinite(s["loss"]) for s in steps):
         raise AssertionError(f"train_v2: non-finite loss {steps}")
@@ -1549,6 +1703,9 @@ def phase_train_v2():
             f"unchanged: {frozen_same}")
     if any(c != want for c in counts_all):
         raise AssertionError(f"train_v2: launches {counts_all} != {want}")
+    if any(sh != list(LOFTUP_TRAIN_FULL) for sh in flash_shapes["flash_bwd"]):
+        raise AssertionError(f"train_v2: K5 ran at {flash_shapes}, the "
+                             f"kernels phase at {LOFTUP_TRAIN_FULL}")
     del model, opt, step, batches, frozen0, train0
     torch.cuda.empty_cache()
     return counts_all[0]
@@ -2095,7 +2252,8 @@ def main(argv=None) -> int:
                 "flash_fwd": "train_v2", "flash_bwd": "train_v2",
                 "tower_self_f32": "train_v2", "tower_cross_f32": "train_v2",
                 "masked_attn_f32": "train_v2"}.get(entry, "serve_long")
-        source = (SOURCE if entry == name else F32_SOURCE).get(name, name)
+        source = (F32_SOURCE if dname == "float32" else SOURCE).get(name,
+                                                                      name)
         kernels.append({
             "name": entry, "route": "cuda",
             "source": f"panst3r_torch/csrc/{source}.cu",

@@ -295,15 +295,16 @@ __device__ __forceinline__ void pv(const unsigned char* vt,
 }
 
 // The online-softmax step on finished logits (log2 units, NEG where
-// masked): the new row max, p = exp2(x - max) in place of the logits, the
-// row sum; returns in ``alpha`` the factor O must be scaled by.
-template <int NO>
+// masked) of NS / 2 keys (32 registers: a 64-key entry): the new row max,
+// p = exp2(x - max) in place of the logits, the row sum; returns in
+// ``alpha`` the factor O must be scaled by.
+template <int NO, int NS>
 __device__ __forceinline__ void softmax_step(RowStateN<NO>& st,
-                                             float (&s)[32],
+                                             float (&s)[NS],
                                              float (&alpha)[2]) {
   float mx[2] = {NEG, NEG}, safe[2], sum[2] = {0.f, 0.f};
 #pragma unroll
-  for (int i = 0; i < 32; ++i) mx[Rows::hi(i)] = fmaxf(mx[Rows::hi(i)], s[i]);
+  for (int i = 0; i < NS; ++i) mx[Rows::hi(i)] = fmaxf(mx[Rows::hi(i)], s[i]);
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const float m_new = fmaxf(st.m[h], sm90::quad_max(mx[h]));
@@ -313,7 +314,7 @@ __device__ __forceinline__ void softmax_step(RowStateN<NO>& st,
     st.m[h] = m_new;
   }
 #pragma unroll
-  for (int i = 0; i < 32; ++i) {
+  for (int i = 0; i < NS; ++i) {
     const int h = Rows::hi(i);
     s[i] = (s[i] <= 0.5f * NEG) ? 0.f : sm90::exp2_approx(s[i] - safe[h]);
     sum[h] += s[i];

@@ -1,10 +1,13 @@
-// K5 — flash-attention backward (FlashAttention-2) over (B, H, N, D) streams.
+// K5, bf16 — flash-attention backward (FlashAttention-2) over (B, H, N, D)
+// streams.  The f32 K5, the dtype of every launch on the main paths, is
+// flash_bwd_sm90.cu (the Hopper f32 engine).
 //
-// Replaces panst3r_tpu/ops/pallas/flash_attention_bwd.py::flash_bwd and its
-// two kernels: _dq_kernel (one block per query tile, accumulating over the
-// key tiles) and _dkv_kernel (one block per key tile, accumulating over the
-// query tiles).  Both recompute p = exp(s - lse) tile by tile from q, k and
-// the LSE that K4 saved, so the (Nq, Nk) scores never reach global memory:
+// Replaces panst3r_tpu/ops/pallas/flash_attention_bwd.py::flash_bwd in bf16
+// and its two kernels: _dq_kernel (one block per query tile, accumulating
+// over the key tiles) and _dkv_kernel (one block per key tile, accumulating
+// over the query tiles).  Both recompute p = exp(s - lse) tile by tile from
+// q, k and the LSE that K4 saved, so the (Nq, Nk) scores never reach global
+// memory:
 //   s  = q.k^T * scale + per-key bias row + dense bias (as K4 takes them)
 //   p  = exp(s - lse), 0 where s <= finfo.min/2 or the row's LSE is
 //        <= finfo.min/2 (no live key) or >= -finfo.min/2 (padding)
@@ -19,13 +22,14 @@
 // Bound on the H100: seven products of 2*B*H*Nq*Nk*D FLOPs (s and dp in
 // both kernels, dq, dk, dv) against q, k, v, do and the three gradients
 // moved once.  At the LoftUp training shape (B*V = 10, H = 4, Nq = 49152,
-// Nk = 768, D = 96, f32) that is 2.0 TFLOP per call, 30 ms at the 67 TFLOP/s
-// f32 FMA rate: bound by operations.  Design, simple first: one 128-thread
-// block per 64-row tile, four warps owning 16 rows each; bf16 products on
-// WMMA (f32 accumulate), f32 products on plain FMA (no TF32); the
-// accumulators live in registers, s and dp pass through shared memory for
-// the element-wise step.  A key tile whose bias row is all dead adds
+// Nk = 768, D = 96) that is 2.0 TFLOP per call, 2.1 ms at the 989 TFLOP/s
+// bf16 rate: bound by operations.  Design, simple first: one 128-thread
+// block per 64-row tile, four warps owning 16 rows each; products on WMMA
+// (f32 accumulate) into fragments; s and dp pass through shared memory
+// for the element-wise step.  A key tile whose bias row is all dead adds
 // nothing: the dq kernel skips it and the dkdv kernel writes zeros for it.
+// No path launches it: it runs in the kernels phase of chip_smoke.py and
+// the CUDA tests.
 #include <type_traits>
 
 #include "attn_tile.cuh"
@@ -40,20 +44,20 @@ struct Strides {
 };
 
 // Shared-memory layout of both kernels: four 64-row tiles (a, b: the rows
-// the block owns; c, d: the rows it streams), s and dp in f32, p and ds in T
-// (f32: written in place over s and dp), an f32 staging tile for the WMMA
-// accumulators, and per-row LSE, Dvec and per-key bias.
+// the block owns; c, d: the rows it streams), s and dp in f32, p and ds in
+// T, an f32 staging tile for the WMMA accumulators, and per-row LSE, Dvec
+// and per-key bias.
 template <typename T, int D>
 struct Smem {
-  static constexpr bool kBF16 = sizeof(T) == 2;
-  static constexpr int LD = kBF16 ? D + 8 : D + 1;    // T rows
+  static_assert(sizeof(T) == 2, "bf16 only: the f32 K5 is flash_bwd_sm90.cu");
+  static constexpr int LD = D + 8;                     // T rows
   static constexpr int LDS = BK + 4;                   // s, dp (f32)
-  static constexpr int LDP = kBF16 ? BK + 8 : LDS;     // p, ds
+  static constexpr int LDP = BK + 8;                   // p, ds
   static constexpr int LDO = D + 4;                    // staging (f32)
   static constexpr int kRow = round128(64 * LD * (int)sizeof(T));
   static constexpr int kS = round128(64 * LDS * 4);
-  static constexpr int kP = kBF16 ? round128(64 * LDP * 2) : 0;
-  static constexpr int kO = kBF16 ? round128(64 * LDO * 4) : 0;
+  static constexpr int kP = round128(64 * LDP * 2);
+  static constexpr int kO = round128(64 * LDO * 4);
   static constexpr int kBytes = 4 * kRow + 2 * kS + 2 * kP + kO
                                 + round128(3 * 64 * 4);
 
@@ -69,43 +73,22 @@ struct Smem {
     d = reinterpret_cast<T*>(ptr); ptr += kRow;
     s = reinterpret_cast<float*>(ptr); ptr += kS;
     dp = reinterpret_cast<float*>(ptr); ptr += kS;
-    if constexpr (kBF16) {
-      p = reinterpret_cast<T*>(ptr); ptr += kP;
-      ds = reinterpret_cast<T*>(ptr); ptr += kP;
-      stage = reinterpret_cast<float*>(ptr); ptr += kO;
-    } else {
-      p = reinterpret_cast<T*>(s);
-      ds = reinterpret_cast<T*>(dp);
-      stage = nullptr;
-    }
+    p = reinterpret_cast<T*>(ptr); ptr += kP;
+    ds = reinterpret_cast<T*>(ptr); ptr += kP;
+    stage = reinterpret_cast<float*>(ptr); ptr += kO;
     lse = reinterpret_cast<float*>(ptr);
     dvec = lse + 64;
     kbias = dvec + 64;
   }
 };
 
-// f32 accumulator of a warp's 16 rows x D: WMMA fragments (bf16) or
-// registers, lane owning columns lane + 32j (f32).
+// f32 accumulator of a warp's 16 rows x D in WMMA fragments.
 template <typename T, int D>
-struct Acc;
-
-template <int D>
-struct Acc<__nv_bfloat16, D> {
+struct Acc {
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> f[D / 16];
   __device__ void zero() {
 #pragma unroll
     for (int i = 0; i < D / 16; ++i) wmma::fill_fragment(f[i], 0.f);
-  }
-};
-
-template <int D>
-struct Acc<float, D> {
-  float r[16][D / 32];
-  __device__ void zero() {
-#pragma unroll
-    for (int rr = 0; rr < 16; ++rr)
-#pragma unroll
-      for (int j = 0; j < D / 32; ++j) r[rr][j] = 0.f;
   }
 };
 
@@ -114,44 +97,22 @@ struct Acc<float, D> {
 template <typename T, int D>
 __device__ void abt(const T* A, const T* B, float* S, int w, int lane) {
   using L = Smem<T, D>;
-  if constexpr (L::kBF16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major>
-        fa;
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major>
-        fb;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> fc;
+  wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major>
+      fa;
+  wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major>
+      fb;
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> fc;
 #pragma unroll
-    for (int n = 0; n < BK / 16; ++n) {
-      wmma::fill_fragment(fc, 0.f);
+  for (int n = 0; n < BK / 16; ++n) {
+    wmma::fill_fragment(fc, 0.f);
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        wmma::load_matrix_sync(fa, A + (w * 16) * L::LD + kk * 16, L::LD);
-        wmma::load_matrix_sync(fb, B + (n * 16) * L::LD + kk * 16, L::LD);
-        wmma::mma_sync(fc, fa, fb, fc);
-      }
-      wmma::store_matrix_sync(S + (w * 16) * L::LDS + n * 16, fc, L::LDS,
-                              wmma::mem_row_major);
+    for (int kk = 0; kk < D / 16; ++kk) {
+      wmma::load_matrix_sync(fa, A + (w * 16) * L::LD + kk * 16, L::LD);
+      wmma::load_matrix_sync(fb, B + (n * 16) * L::LD + kk * 16, L::LD);
+      wmma::mma_sync(fc, fa, fb, fc);
     }
-  } else {
-    float acc[16][2];
-#pragma unroll
-    for (int rr = 0; rr < 16; ++rr) acc[rr][0] = acc[rr][1] = 0.f;
-    const int c0 = lane, c1 = lane + 32;
-    for (int d = 0; d < D; ++d) {
-      const float b0 = to_f(B[c0 * L::LD + d]);
-      const float b1 = to_f(B[c1 * L::LD + d]);
-#pragma unroll
-      for (int rr = 0; rr < 16; ++rr) {
-        const float x = to_f(A[(w * 16 + rr) * L::LD + d]);
-        acc[rr][0] = fmaf(x, b0, acc[rr][0]);
-        acc[rr][1] = fmaf(x, b1, acc[rr][1]);
-      }
-    }
-#pragma unroll
-    for (int rr = 0; rr < 16; ++rr) {
-      S[(w * 16 + rr) * L::LDS + c0] = acc[rr][0];
-      S[(w * 16 + rr) * L::LDS + c1] = acc[rr][1];
-    }
+    wmma::store_matrix_sync(S + (w * 16) * L::LDS + n * 16, fc, L::LDS,
+                            wmma::mem_row_major);
   }
   __syncwarp();
 }
@@ -163,36 +124,20 @@ template <bool kTrans, typename T, int D>
 __device__ void acc_pb(Acc<T, D>& acc, const T* P, int ldp, const T* B, int w,
                        int lane) {
   using L = Smem<T, D>;
-  if constexpr (L::kBF16) {
-    using Layout = typename std::conditional<kTrans, wmma::col_major,
-                                             wmma::row_major>::type;
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, Layout> fa;
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major>
-        fb;
+  using Layout = typename std::conditional<kTrans, wmma::col_major,
+                                           wmma::row_major>::type;
+  wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, Layout> fa;
+  wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major>
+      fb;
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      const T* pa = kTrans ? P + (kk * 16) * ldp + w * 16
-                           : P + (w * 16) * ldp + kk * 16;
-      wmma::load_matrix_sync(fa, pa, ldp);
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    const T* pa = kTrans ? P + (kk * 16) * ldp + w * 16
+                         : P + (w * 16) * ldp + kk * 16;
+    wmma::load_matrix_sync(fa, pa, ldp);
 #pragma unroll
-      for (int dn = 0; dn < D / 16; ++dn) {
-        wmma::load_matrix_sync(fb, B + (kk * 16) * L::LD + dn * 16, L::LD);
-        wmma::mma_sync(acc.f[dn], fa, fb, acc.f[dn]);
-      }
-    }
-  } else {
-    constexpr int DJ = D / 32;
-    for (int c = 0; c < BK; ++c) {
-      float bv[DJ];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) bv[j] = to_f(B[c * L::LD + lane + 32 * j]);
-#pragma unroll
-      for (int rr = 0; rr < 16; ++rr) {
-        const float pp = to_f(kTrans ? P[c * ldp + w * 16 + rr]
-                                     : P[(w * 16 + rr) * ldp + c]);
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) acc.r[rr][j] = fmaf(pp, bv[j], acc.r[rr][j]);
-      }
+    for (int dn = 0; dn < D / 16; ++dn) {
+      wmma::load_matrix_sync(fb, B + (kk * 16) * L::LD + dn * 16, L::LD);
+      wmma::mma_sync(acc.f[dn], fa, fb, acc.f[dn]);
     }
   }
 }
@@ -203,28 +148,16 @@ template <typename T, int D>
 __device__ void store_acc(Acc<T, D>& acc, float* stage, float* out, int n0,
                           int N, int w, int lane) {
   using L = Smem<T, D>;
-  if constexpr (L::kBF16) {
 #pragma unroll
-    for (int dn = 0; dn < D / 16; ++dn)
-      wmma::store_matrix_sync(stage + (w * 16) * L::LDO + dn * 16, acc.f[dn],
-                              L::LDO, wmma::mem_row_major);
-    __syncwarp();
-    for (int e = lane; e < 16 * D; e += 32) {
-      const int r = e / D, d = e % D, n = n0 + w * 16 + r;
-      if (n < N) out[(long long)n * D + d] = stage[(w * 16 + r) * L::LDO + d];
-    }
-    __syncwarp();
-  } else {
-#pragma unroll
-    for (int rr = 0; rr < 16; ++rr) {
-      const int n = n0 + w * 16 + rr;
-      if (n < N) {
-#pragma unroll
-        for (int j = 0; j < D / 32; ++j)
-          out[(long long)n * D + lane + 32 * j] = acc.r[rr][j];
-      }
-    }
+  for (int dn = 0; dn < D / 16; ++dn)
+    wmma::store_matrix_sync(stage + (w * 16) * L::LDO + dn * 16, acc.f[dn],
+                            L::LDO, wmma::mem_row_major);
+  __syncwarp();
+  for (int e = lane; e < 16 * D; e += 32) {
+    const int r = e / D, d = e % D, n = n0 + w * 16 + r;
+    if (n < N) out[(long long)n * D + d] = stage[(w * 16 + r) * L::LDO + d];
   }
+  __syncwarp();
 }
 
 // Rows [n0, n0 + 64) of x (rotated by the tables when given, f32, rounded to
@@ -461,39 +394,31 @@ P3_ERROR_STRING_FN
   make_args(q, k, v, g, lse, dvec, bias, kbias, qcos, qsin, kcos, ksin,      \
             strides, B, H, Nq, Nk, scale, stream)
 
-// q (B, H, Nq, D), k/v (B, H, Nk, D) and do (B, H, Nq, D) in one dtype
-// through the element strides in strides[0..11] (q, k, v, do: batch, head,
+// bf16 q (B, H, Nq, D), k/v (B, H, Nk, D) and do (B, H, Nq, D) through
+// the element strides in strides[0..11] (q, k, v, do: batch, head,
 // token); lse and dvec (B, H, Nq) f32; bias: dense f32 bias through
 // strides[12..15] (batch, head, query, key) or null; kbias (B, Nk) f32 or
 // null; tables (B, N, D) f32, all four or none.  dq (B, H, Nq, D) f32.
 // Built for D = 64 and 96.
 extern "C" int p3_flash_bwd_dq(P3_BWD_ARGS, void* dq, const long long* strides,
                                int B, int H, int Nq, int Nk, int D,
-                               float scale, int bf16, void* stream) {
+                               float scale, void* stream) {
   const Args a = P3_BWD_MAKE;
   float* out = static_cast<float*>(dq);
-  if (D == 64)
-    return bf16 ? launch_dq<__nv_bfloat16, 64>(a, out)
-                : launch_dq<float, 64>(a, out);
-  if (D == 96)
-    return bf16 ? launch_dq<__nv_bfloat16, 96>(a, out)
-                : launch_dq<float, 96>(a, out);
+  if (D == 64) return launch_dq<__nv_bfloat16, 64>(a, out);
+  if (D == 96) return launch_dq<__nv_bfloat16, 96>(a, out);
   return cudaErrorInvalidValue;
 }
 
 // As p3_flash_bwd_dq; dk and dv (B, H, Nk, D) f32.
 extern "C" int p3_flash_bwd_dkdv(P3_BWD_ARGS, void* dk, void* dv,
                                  const long long* strides, int B, int H,
-                                 int Nq, int Nk, int D, float scale, int bf16,
+                                 int Nq, int Nk, int D, float scale,
                                  void* stream) {
   const Args a = P3_BWD_MAKE;
   float* ok = static_cast<float*>(dk);
   float* ov = static_cast<float*>(dv);
-  if (D == 64)
-    return bf16 ? launch_dkdv<__nv_bfloat16, 64>(a, ok, ov)
-                : launch_dkdv<float, 64>(a, ok, ov);
-  if (D == 96)
-    return bf16 ? launch_dkdv<__nv_bfloat16, 96>(a, ok, ov)
-                : launch_dkdv<float, 96>(a, ok, ov);
+  if (D == 64) return launch_dkdv<__nv_bfloat16, 64>(a, ok, ov);
+  if (D == 96) return launch_dkdv<__nv_bfloat16, 96>(a, ok, ov);
   return cudaErrorInvalidValue;
 }

@@ -1,7 +1,9 @@
-// K4 — generic flash attention forward over (B, H, N, D) streams.
+// K4, bf16 — generic flash attention forward over (B, H, N, D) streams.
+// The f32 K4, the dtype of every launch on the main paths, is
+// flash_fwd_sm90.cu (the Hopper f32 engine).
 //
 // Replaces panst3r_tpu/ops/pallas/flash_attention.py::_flash_fwd (body
-// _kernel): online-softmax attention with, each optional,
+// _kernel) in bf16: online-softmax attention with, each optional,
 // - a dense additive bias, read through its own strides (a head- or
 //   batch-broadcast bias is never materialized);
 // - a per-key additive bias row (B, Nk) in f32: the (B|1, 1, 1, Nk) bias and
@@ -22,11 +24,12 @@
 // the caller's merge of the heads a free reshape.
 //
 // Bound on the H100: at the v2 LoftUp shape (B=4, H=4, Nq=49152, Nk=768,
-// D=96, f32) the work is 4*B*H*Nq*Nk*D = 232 GFLOP against ~0.3 GB of q and
-// out traffic, so it is bound by operations: 3.5 ms at the 67 TFLOP/s f32
-// FMA rate.  The f32 path runs on plain FMA (full f32, no TF32) and the
-// bf16 path on WMMA, both through the shared 64x64-tile engine
-// (attn_tile.cuh); 768 query tiles per (batch, head) fill the card.
+// D=96) the work is 4*B*H*Nq*Nk*D = 232 GFLOP against ~0.15 GB of bf16 q
+// and out traffic, so it is bound by operations: 0.23 ms at the 989
+// TFLOP/s bf16 rate.  The products run on WMMA through the shared
+// 64x64-tile engine (attn_tile.cuh); 768 query tiles per (batch, head)
+// fill the card.  No path launches it: it runs in the kernels phase of
+// chip_smoke.py and the CUDA tests.
 #include "attn_tile.cuh"
 
 using namespace p3;
@@ -146,8 +149,8 @@ static cudaError_t launch(const void* q, const void* k, const void* v,
 
 P3_ERROR_STRING_FN
 
-// q (B, H, Nq, D), k/v (B, H, Nk, D) and out (B, H, Nq, D) through the
-// element strides in strides[0..11] (q, k, v, out: batch, head, token);
+// bf16 q (B, H, Nq, D), k/v (B, H, Nk, D) and out (B, H, Nq, D) through
+// the element strides in strides[0..11] (q, k, v, out: batch, head, token);
 // bias: dense f32 bias through strides[12..15] (batch, head, query, key) or
 // null; kbias (B, Nk) f32 or null; tables (B, N, D) f32, all four or none;
 // lse (B, H, Nq) f32 or null.  Built for D = 64 and 96.
@@ -156,7 +159,7 @@ extern "C" int p3_flash_fwd(const void* q, const void* k, const void* v,
                             const void* qcos, const void* qsin,
                             const void* kcos, const void* ksin, void* out,
                             void* lse, const long long* strides, int B, int H,
-                            int Nq, int Nk, int D, float scale, int bf16,
+                            int Nq, int Nk, int D, float scale,
                             void* stream) {
   const long long* s = strides;
   const Strides st{s[0], s[1], s[2],  s[3],  s[4],  s[5],  s[6],  s[7],
@@ -165,12 +168,8 @@ extern "C" int p3_flash_fwd(const void* q, const void* k, const void* v,
 #define P3_FLASH_ARGS \
   q, k, v, bias, kbias, qcos, qsin, kcos, ksin, out, lse, st, B, H, Nq, Nk, \
       scale, cs
-  if (D == 64)
-    return bf16 ? launch<__nv_bfloat16, 64>(P3_FLASH_ARGS)
-                : launch<float, 64>(P3_FLASH_ARGS);
-  if (D == 96)
-    return bf16 ? launch<__nv_bfloat16, 96>(P3_FLASH_ARGS)
-                : launch<float, 96>(P3_FLASH_ARGS);
+  if (D == 64) return launch<__nv_bfloat16, 64>(P3_FLASH_ARGS);
+  if (D == 96) return launch<__nv_bfloat16, 96>(P3_FLASH_ARGS);
 #undef P3_FLASH_ARGS
   return cudaErrorInvalidValue;
 }

@@ -28,6 +28,16 @@ recompute measured faster on a TPU; on the card the alternative is plain
 torch over the materialized logits, 6 GB per LoftUp call at 10 views in
 f32.  So on the card the K4 backward is always K5: no switch selects it.
 
+On a CUDA tensor both route by dtype: f32, the dtype of every launch on
+the main paths (LoftUp runs in f32 under amp), to the Hopper f32 engine
+(``csrc/flash_fwd_sm90.cu``, ``csrc/flash_bwd_sm90.cu``: a pre-pass that
+writes the streamed operands as TF32 hi/lo planes, 3xTF32 tensor-core
+products, K5's dkdv over ``SPLIT_TILES`` query tiles per CTA merged in
+order); bf16 to the tile engine (``csrc/flash_fwd.cu``,
+``csrc/flash_bwd.cu``).  ``flash_mha_split_ref`` and
+``flash_mha_bwd_split_ref`` emulate the f32 kernels' arithmetic (the
+tests only).
+
 On a CPU tensor ``flash_mha`` and ``flash_mha_bwd`` run their plain
 versions (``flash_mha_ref``, ``flash_mha_bwd_ref``); on a CUDA tensor they
 launch the kernels or raise.  ``launches`` counts the launches (K5: one
@@ -36,6 +46,7 @@ per kernel, two per backward).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -44,6 +55,15 @@ from panst3r_torch.ops.attention import NEG_INF
 from panst3r_torch.ops.rope import _rotate_half_2d, apply_rope_tables_f32
 
 HEAD_DIMS = (64, 96)   # the kernels' instantiations
+# The f32 kernels' tiles: keys per ring entry (the unit of the live-tile
+# list), queries per tile of K5's dkdv split, and the fixed number of
+# query tiles a dkdv CTA walks (the split is part of the result: dk and dv
+# add the splits' partial sums in order).
+KEY_TILE = 32
+QUERY_TILE = 64
+SPLIT_TILES = 64
+_LOG2E = 1.4426950408889634
+_LN2 = 0.6931471805599453
 
 
 def _split_bias(bias, kv_valid, B, Nk):
@@ -157,16 +177,34 @@ def _flash_fwd_kernel(q, k, v, bias, kv_valid, rope, scale, with_lse):
     out = torch.empty((B, Nq, H, D), dtype=q.dtype, device=dev).transpose(1, 2)
     lse = (torch.empty((B, H, Nq), dtype=torch.float32, device=dev)
            if with_lse else None)
+    f32 = q.dtype == torch.float32
+    # the Hopper f32 engine reads q through a tensor map: strides in
+    # 16-byte units, a 16-byte aligned base
+    if f32 and (any(st % 4 for st in q.stride()[:3]) or q.data_ptr() % 16):
+        q = q.contiguous()
     strides = (ctypes.c_longlong * 16)(
         *(_strides(q) + _strides(k) + _strides(v) + _strides(out) + bstr))
-    p = ctypes.c_void_p
-    lib, fn = cuda_build.function("flash_fwd", "p3_flash_fwd",
-                                  [p] * 12 + [ctypes.c_int] * 5
-                                  + [ctypes.c_float, ctypes.c_int, p])
-    P = cuda_build.ptr
-    err = fn(P(q), P(k), P(v), P(bias), P(row), *map(P, tabs), P(out),
-             P(lse), strides, B, H, Nq, Nk, D, float(scale),
-             int(q.dtype == torch.bfloat16), cuda_build.stream_of(q))
+    p, P = ctypes.c_void_p, cuda_build.ptr
+    head = (P(q), P(k), P(v), P(bias), P(row), *map(P, tabs), P(out),
+            P(lse), strides, B, H, Nq, Nk, D, float(scale))
+    sig = [p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_float]
+    stream = cuda_build.stream_of(q)
+    if f32:
+        nt = -(-Nk // KEY_TILE)
+        empty = functools.partial(torch.empty, dtype=torch.float32,
+                                  device=dev)
+        qr = empty(B, H, Nq, D) if rope is not None else None
+        planes = [empty(B, H, Nk, D) for _ in range(4)]
+        bl = empty(B, nt * KEY_TILE)
+        tiles = torch.empty(B * nt + B, dtype=torch.int32, device=dev)
+        lib, fn = cuda_build.function("flash_fwd_sm90", "p3_flash_fwd_sm90",
+                                      sig + [p] * 9)
+        err = fn(*head, P(qr), *map(P, planes), P(bl), P(tiles),
+                 P(tiles[B * nt:]), stream)
+    else:
+        lib, fn = cuda_build.function("flash_fwd", "p3_flash_fwd",
+                                      sig + [p])
+        err = fn(*head, stream)
     cuda_build.check(lib, err, "flash_mha")
     flash_mha.launches += 1
     return out, lse
@@ -292,31 +330,63 @@ def _flash_bwd_kernel(q, k, v, o, lse, do, bias, kv_valid, rope, scale):
     cuda_build.check_tensor(lse, "lse", (B, H, Nq), torch.float32, dev)
     bias, row, tabs, bstr = _kernel_extras("flash_mha_bwd", q, k, bias,
                                            kv_valid, rope)
-    dvec = (do.float() * o.float()).sum(-1).contiguous()
     g = do.to(q.dtype)
     if g.stride(-1) != 1:
         g = g.contiguous()
-    dq = torch.empty((B, H, Nq, D), dtype=torch.float32, device=dev)
-    dk = torch.empty((B, H, Nk, D), dtype=torch.float32, device=dev)
-    dv = torch.empty_like(dk)
-    strides = (ctypes.c_longlong * 16)(
-        *(_strides(q) + _strides(k) + _strides(v) + _strides(g) + bstr))
-    P = cuda_build.ptr
-    ins = (P(q), P(k), P(v), P(g), P(lse), P(dvec), P(bias), P(row),
-           *map(P, tabs))
-    tail = (strides, B, H, Nq, Nk, D, float(scale),
-            int(q.dtype == torch.bfloat16), cuda_build.stream_of(q))
-    p = ctypes.c_void_p
-    sig = [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, p]
-    lib, fn = cuda_build.function("flash_bwd", "p3_flash_bwd_dq",
-                                  [p] * 14 + sig)
-    cuda_build.check(lib, fn(*ins, P(dq), *tail), "flash_mha_bwd (dq)")
-    flash_mha_bwd.launches += 1
-    lib, fn = cuda_build.function("flash_bwd", "p3_flash_bwd_dkdv",
-                                  [p] * 15 + sig)
-    cuda_build.check(lib, fn(*ins, P(dk), P(dv), *tail),
-                     "flash_mha_bwd (dkdv)")
-    flash_mha_bwd.launches += 1
+    f32 = functools.partial(torch.empty, dtype=torch.float32, device=dev)
+    dq, dk, dv = f32(B, H, Nq, D), f32(B, H, Nk, D), f32(B, H, Nk, D)
+    p, i32, P = ctypes.c_void_p, ctypes.c_int, cuda_build.ptr
+    stream = cuda_build.stream_of(q)
+    if q.dtype == torch.float32:        # the Hopper f32 engine
+        # Dvec = rowsum(do * o) is summed by the kernels' pre-pass in an
+        # order fixed per row (torch's reduction order follows the row
+        # count, so a query range's Dvec could differ in its last bit)
+        if o.stride(-1) != 1:
+            o = o.contiguous()
+        strides = (ctypes.c_longlong * 19)(
+            *(_strides(q) + _strides(k) + _strides(v) + _strides(g) + bstr
+              + _strides(o)))
+        ins = (P(q), P(k), P(v), P(g), P(lse), P(o), P(bias), P(row),
+               *map(P, tabs), strides)   # strides: o's at [16:19]
+        nt, Nqp = -(-Nk // KEY_TILE), -(-Nq // QUERY_TILE) * QUERY_TILE
+        ns = dkv_splits(Nq)
+        work = [f32(B, H, Nq, D) for _ in range(4)] \
+            + [f32(B, H, Nk, D) for _ in range(4)] \
+            + [f32(B, nt * KEY_TILE), f32(B, H, Nqp), f32(B, H, Nqp),
+               torch.empty(B, nt, dtype=torch.int32, device=dev),
+               torch.empty(B, dtype=torch.int32, device=dev)]
+        ptrs = (p * len(work))(*(t.data_ptr() for t in work))
+        part = f32(2 * ns * B * H * Nk * D) if ns > 1 else None
+        shape = (ptrs, B, H, Nq, Nk, D, float(scale))
+        sig = [p] * 14 + [i32] * 5 + [ctypes.c_float]
+        lib, fn = cuda_build.function("flash_bwd_sm90", "p3_flash_bwd_dq_sm90",
+                                      sig + [p, p])
+        cuda_build.check(lib, fn(*ins, *shape, P(dq), stream),
+                         "flash_mha_bwd (dq)")
+        flash_mha_bwd.launches += 1
+        lib, fn = cuda_build.function(
+            "flash_bwd_sm90", "p3_flash_bwd_dkdv_sm90",
+            sig + [p, p, p, i32, p])
+        cuda_build.check(lib, fn(*ins, *shape, P(dk), P(dv), P(part),
+                                 SPLIT_TILES, stream), "flash_mha_bwd (dkdv)")
+        flash_mha_bwd.launches += 1
+    else:
+        dvec = (do.float() * o.float()).sum(-1).contiguous()
+        strides = (ctypes.c_longlong * 16)(
+            *(_strides(q) + _strides(k) + _strides(v) + _strides(g) + bstr))
+        ins = (P(q), P(k), P(v), P(g), P(lse), P(dvec), P(bias), P(row),
+               *map(P, tabs))
+        tail = (strides, B, H, Nq, Nk, D, float(scale), stream)
+        sig = [i32] * 5 + [ctypes.c_float, p]
+        lib, fn = cuda_build.function("flash_bwd", "p3_flash_bwd_dq",
+                                      [p] * 14 + sig)
+        cuda_build.check(lib, fn(*ins, P(dq), *tail), "flash_mha_bwd (dq)")
+        flash_mha_bwd.launches += 1
+        lib, fn = cuda_build.function("flash_bwd", "p3_flash_bwd_dkdv",
+                                      [p] * 15 + sig)
+        cuda_build.check(lib, fn(*ins, P(dk), P(dv), *tail),
+                         "flash_mha_bwd (dkdv)")
+        flash_mha_bwd.launches += 1
     if rope is not None:
         qcos, qsin, kcos, ksin = rope
         dq = _rope_adjoint(dq, qcos, qsin)
@@ -325,3 +395,147 @@ def _flash_bwd_kernel(q, k, v, o, lse, do, bias, kv_valid, rope, scale):
 
 
 flash_mha_bwd.launches = 0
+
+
+def dkv_splits(Nq: int, split_tiles: int = None) -> int:
+    """How many fixed query splits K5's f32 dkdv kernel walks: ceil(query
+    tiles / ``split_tiles``) (default ``SPLIT_TILES``)."""
+    split_tiles = SPLIT_TILES if split_tiles is None else split_tiles
+    return -(-(-(-Nq // QUERY_TILE)) // split_tiles)
+
+
+def key_tiles_ref(row, B: int, Nk: int, device=None):
+    """Plain version of the f32 kernels' key pre-pass: the per-key bias row
+    (B, Nk) (None: every key live) in log2 units padded to whole
+    ``KEY_TILE`` tiles, finfo.min where dead or past Nk, and each batch's
+    live tiles in order."""
+    nt = -(-Nk // KEY_TILE)
+    x = torch.full((B, nt * KEY_TILE), NEG_INF, device=device)
+    x[:, :Nk] = 0.0 if row is None else row.float()
+    live = x > NEG_INF / 2
+    bl = torch.where(live, x * _LOG2E, torch.full_like(x, NEG_INF))
+    tiles = [torch.nonzero(r).flatten().tolist()
+             for r in live.view(B, nt, KEY_TILE).any(-1)]
+    return bl, tiles
+
+
+def _steps(n: int, step: int = 8):
+    """[a, b) ranges of ``step`` rows over n (the products' 8-row steps)."""
+    return [(a, min(a + step, n)) for a in range(0, n, step)]
+
+
+def _split_logits(q, k, bias, kv_valid, rope, scale, matmul):
+    """(rotated q, rotated k, logits in log2 units (NEG where masked), the
+    live keys of each batch) as the f32 kernels form them: s·scale·log2(e)
+    plus the key row and the dense bias in log2 units."""
+    B, H, Nq, D = q.shape
+    Nk = k.shape[2]
+    q, k = q.float(), k.float()
+    if rope is not None:
+        qcos, qsin, kcos, ksin = rope
+        q = apply_rope_tables_f32(q, qcos, qsin)
+        k = apply_rope_tables_f32(k, kcos, ksin)
+    dense, row = _split_bias(bias, kv_valid, B, Nk)
+    bl, tiles = key_tiles_ref(row, B, Nk, q.device)
+    x = matmul(q, k.transpose(-1, -2)) * (scale * _LOG2E) \
+        + bl[:, None, None, :Nk]
+    if dense is not None:
+        d = dense.float().expand(B, H, Nq, Nk)
+        x = torch.where(d <= NEG_INF / 2, NEG_INF, x + d * _LOG2E)
+    x = torch.where(x <= NEG_INF / 2, NEG_INF, x)
+    keys = [[j for t in tl for j in range(t * KEY_TILE,
+                                          min((t + 1) * KEY_TILE, Nk))]
+            for tl in tiles]
+    return q, k, x, keys
+
+
+def _walk(p, b, idx, matmul):
+    """sum over the 8-row steps of ``idx`` of p[..., step] @ b[step, :],
+    each step's product added to the running sum in f32 (the kernels'
+    round-to-nearest add of a fresh accumulator)."""
+    acc = torch.zeros(p.shape[:-1] + (b.shape[-1],), device=p.device)
+    for a, z in _steps(len(idx)):
+        sel = idx[a:z]
+        acc = acc + matmul(p[..., sel], b[..., sel, :])
+    return acc
+
+
+def flash_mha_split_ref(q, k, v, bias=None, kv_valid=None, rope=None,
+                        scale=None, with_lse=False, matmul=torch.matmul):
+    """Plain version of the f32 K4's arithmetic (``csrc/flash_fwd_sm90.cu``,
+    f32 only): logits in log2 units from the pre-pass's key biases, p =
+    exp2(x − m) with m the row max over the batch's live tiles (0 where
+    <= NEG/2), O summed per 8-key step in f32, out = O / l, LSE = (m +
+    log2 l)·ln 2 (finfo.min for a row with no live key).  ``matmul`` takes
+    the products (``ops/tf32x3.py::matmul_tf32x3`` emulates the kernel's).
+    The kernel's online softmax rescales O per 32-key entry; this takes
+    the row's max at once, which moves only the rounding."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    B, H, Nq, D = q.shape
+    _, _, x, keys = _split_logits(q, k, bias, kv_valid, rope, scale, matmul)
+    out = torch.zeros(B, H, Nq, D, device=q.device)
+    lse = torch.full((B, H, Nq), NEG_INF, device=q.device)
+    for b in range(B):
+        if not keys[b]:
+            continue
+        idx = torch.tensor(keys[b], dtype=torch.long, device=q.device)
+        xb = x[b][..., idx]
+        m = xb.amax(-1, keepdim=True)
+        safe = torch.where(m <= NEG_INF / 2, torch.zeros_like(m), m)
+        p = torch.where(xb <= NEG_INF / 2, torch.zeros_like(xb),
+                        torch.exp2(xb - safe))
+        den = p.sum(-1, keepdim=True)
+        o = _walk(p, v[b].float()[:, idx],
+                  torch.arange(len(keys[b]), device=q.device), matmul)
+        out[b] = o / torch.where(den == 0, torch.ones_like(den), den)
+        lse[b] = torch.where(m <= NEG_INF / 2, torch.full_like(m, NEG_INF),
+                             (m + torch.log2(den)) * _LN2)[..., 0]
+    out = out.to(q.dtype)
+    return (out, lse) if with_lse else out
+
+
+def flash_mha_bwd_split_ref(q, k, v, o, lse, do, bias=None, kv_valid=None,
+                            rope=None, scale=None,
+                            split_tiles: int = SPLIT_TILES,
+                            matmul=torch.matmul):
+    """Plain version of the f32 K5's arithmetic (``csrc/flash_bwd_sm90.cu``):
+    p = exp2(x − LSE·log2 e) from K4's LSE (0 where x or the LSE is dead),
+    ds = p·(dp − Dvec)·scale; dq summed over the batch's live keys per
+    8-key step in f32; dk and dv summed per 8-query step in f32 within
+    each fixed split of ``split_tiles`` query tiles, the splits' sums added
+    in split order; the rotation's adjoint on dq and dk.  ``matmul`` takes
+    the products."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    B, H, Nq, D = q.shape
+    Nk = k.shape[2]
+    qr, kr, x, keys = _split_logits(q, k, bias, kv_valid, rope, scale,
+                                    matmul)
+    g = do.float()
+    lse = lse.float()
+    dead = (lse <= NEG_INF / 2) | (lse >= -NEG_INF / 2)
+    l2 = torch.where(dead, -NEG_INF, lse * _LOG2E)[..., None]
+    p = torch.where((x <= NEG_INF / 2) | (l2 >= -NEG_INF / 2),
+                    torch.zeros_like(x), torch.exp2(x - l2))
+    dp = matmul(g, v.float().transpose(-1, -2))
+    dvec = (g * o.float()).sum(-1, keepdim=True)
+    ds = p * (dp - dvec) * scale
+    dq = torch.zeros(B, H, Nq, D, device=q.device)
+    for b in range(B):
+        idx = torch.tensor(keys[b], dtype=torch.long, device=q.device)
+        dq[b] = _walk(ds[b], kr[b], idx, matmul)
+    bounds = [(a * split_tiles * QUERY_TILE,
+               min((a + 1) * split_tiles * QUERY_TILE, Nq))
+              for a in range(dkv_splits(Nq, split_tiles))]
+    dk = dv = None
+    for a, z in bounds:
+        rows = torch.arange(a, z, device=q.device)
+        pk = _walk(ds.transpose(-1, -2), qr, rows, matmul)
+        pv = _walk(p.transpose(-1, -2), g, rows, matmul)
+        dk, dv = (pk, pv) if dk is None else (dk + pk, dv + pv)
+    if rope is not None:
+        qcos, qsin, kcos, ksin = rope
+        dq = _rope_adjoint(dq, qcos, qsin)
+        dk = _rope_adjoint(dk, kcos, ksin)
+    return dq, dk, dv

@@ -2,8 +2,9 @@
 shapes (ragged tiles, dead key tiles, rows with no live key, -inf keys,
 strided views, the train step's shapes), f32 and bf16, with the limits
 of chip_smoke.py; K1, K2 and K3 on the Hopper engines (bf16; f32 K2 and
-K3) batch-invariant bit for bit (K1, K2 also over query chunks); K1, K2,
-K3 and K6 routed by dtype; the int8 gate's
+K3) batch-invariant bit for bit (K1, K2 also over query chunks), and so
+the f32 K4 and K5 (K4 and K5's dq also over query ranges); K1, K2, K3,
+K4, K5 and K6 routed by dtype; the int8 gate's
 launches; gradients through K1-K4 on the card against the plain versions';
 a small v2 train step and small v1 serve wires on the card against the
 CPU; FLOP counts on the card equal to the CPU's.  Needs a CUDA card; skips without one.  On the card (no JAX there, so
@@ -463,11 +464,14 @@ def test_image_cast_matches_cpu_bit_for_bit(dev):
 @pytest.mark.parametrize("D", [64, 96])
 @pytest.mark.parametrize("case", [
     "plain", "dense_bias", "head_shared_bias", "kv_valid", "key_bias",
-    "bias_and_kv_valid", "rope", "masked_rows", "strided"])
-def test_flash_bwd_kernel(dev, dtype, D, case):
+    "bias_and_kv_valid", "rope", "masked_rows", "strided", "split_merge"])
+def test_flash_bwd_kernel(dev, monkeypatch, dtype, D, case):
     """K5's dq, dk, dv against its plain version from K4's own output and
     LSE: f32 within 1e-4 of the plain gradient's max |value|; bf16 by the
-    bf16 rule, per gradient."""
+    bf16 rule, per gradient.  ``split_merge``: the f32 dkdv walks one query
+    tile per split, so that 130 queries take three merged in order."""
+    if case == "split_merge":
+        monkeypatch.setattr(fa, "SPLIT_TILES", 1)
     g = torch.Generator(device=dev).manual_seed(D + 1)
     q, k, v, bias, kv_valid, rope = _flash_inputs(g, dev, dtype, case, D)
     do = _rnd(g, dev, dtype, *q.shape)
@@ -483,6 +487,95 @@ def test_flash_bwd_kernel(dev, dtype, D, case):
     assert all(c["ok"] and c["finite"] for c in check.values()), check
     if case == "masked_rows":               # rows without a live key
         assert (got[0][1] == 0).all()
+
+
+@pytest.mark.parametrize("D", [64, 96])
+def test_flash_f32_batch_and_query_invariant(dev, monkeypatch, D):
+    """The f32 K4 and K5 on the 3xTF32 engine, with RoPE tables, dead key
+    tiles, a batch without a live key and three dkdv splits: two calls
+    give the same bits; the rows of batch b equal the slice of the full
+    call bit for bit (K4's out and LSE, K5's dq, dk, dv); so do K4's out
+    and LSE and K5's dq for query rows [a, a + n), though every slice runs
+    another grid."""
+    monkeypatch.setattr(fa, "SPLIT_TILES", 4)
+    g = torch.Generator(device=dev).manual_seed(17 + D)
+    dt = torch.float32
+    B, H, Nq, Nk = 3, 2, 700, 333
+    q = _rnd(g, dev, dt, B, H, Nq, D, s=QK_STD)
+    k = _rnd(g, dev, dt, B, H, Nk, D, s=QK_STD)
+    v = _rnd(g, dev, dt, B, H, Nk, D)
+    do = _rnd(g, dev, dt, B, H, Nq, D)
+    valid = torch.rand(B, Nk, generator=g, device=dev) > 0.2
+    valid[0, 64:200] = False            # dead key tiles
+    valid[2] = False                    # no live key: zeros, LSE finfo.min
+    tabs = [rope2d_tables(torch.randint(0, 40, (B, n, 2), generator=g,
+                                        device=dev), D) for n in (Nq, Nk)]
+
+    def fwd(q, k, v, valid, qt, kt):
+        return fa.flash_mha(q, k, v, kv_valid=valid, rope=(*qt, *kt),
+                            with_lse=True)
+
+    def bwd(q, k, v, o, lse, do, valid, qt, kt):
+        return fa.flash_mha_bwd(q, k, v, o, lse, do, kv_valid=valid,
+                                rope=(*qt, *kt))
+
+    assert fa.dkv_splits(Nq) == 3
+    out, lse = fwd(q, k, v, valid, *tabs)
+    grads = bwd(q, k, v, out, lse, do, valid, *tabs)
+    again = fwd(q, k, v, valid, *tabs) + bwd(q, k, v, out, lse, do, valid,
+                                             *tabs)
+    assert all(torch.equal(a, b) for a, b in zip(again, (out, lse) + grads))
+    assert (out[2] == 0).all() and (lse[2] == NEG).all()
+    assert (grads[0][2] == 0).all()
+    _close(out, lambda *a: fa.flash_mha_ref(*a[:3], kv_valid=a[3],
+                                            rope=a[4]), q, k, v, valid,
+           (*tabs[0], *tabs[1]))
+    for b in range(B):
+        sl = slice(b, b + 1)
+        qt, kt = (tuple(t[sl] for t in tab) for tab in tabs)
+        o_b, l_b = fwd(q[sl], k[sl], v[sl], valid[sl], qt, kt)
+        assert torch.equal(o_b, out[sl]) and torch.equal(l_b, lse[sl]), b
+        part = bwd(q[sl], k[sl], v[sl], out[sl], lse[sl], do[sl], valid[sl],
+                   qt, kt)
+        assert all(torch.equal(a, full[sl])
+                   for a, full in zip(part, grads)), b
+    for a, n in ((0, 100), (100, 600), (37, 1), (129, 300)):
+        rows = slice(a, a + n)
+        qt = tuple(t[:, rows].contiguous() for t in tabs[0])
+        o_r, l_r = fwd(q[:, :, rows], k, v, valid, qt, tabs[1])
+        assert torch.equal(o_r, out[:, :, rows]), (a, n)
+        assert torch.equal(l_r, lse[:, :, rows]), (a, n)
+        dq_r = bwd(q[:, :, rows], k, v, out[:, :, rows],
+                   lse[:, :, rows].contiguous(), do[:, :, rows], valid, qt,
+                   tabs[1])[0]
+        assert torch.equal(dq_r, grads[0][:, :, rows]), (a, n)
+
+
+def test_k4_k5_route_by_dtype(dev, monkeypatch):
+    """f32 K4 and K5 run the Hopper f32 engine's libraries, bf16 the tile
+    engine's; one launch per K4 call and two per K5 call either way."""
+    from panst3r_torch.ops import cuda_build
+
+    names = []
+    real = cuda_build.function
+
+    def recording(name, *a, **kw):
+        names.append(name)
+        return real(name, *a, **kw)
+
+    monkeypatch.setattr(cuda_build, "function", recording)
+    g = torch.Generator(device=dev).manual_seed(6)
+    for dtype, suffix in ((torch.float32, "_sm90"), (torch.bfloat16, "")):
+        q, k, v, *_ = _flash_inputs(g, dev, dtype, "plain", 96)
+        n0, b0 = fa.flash_mha.launches, fa.flash_mha_bwd.launches
+        del names[:]
+        o, lse = fa.flash_mha(q, k, v, with_lse=True)
+        assert names == ["flash_fwd" + suffix], names
+        fa.flash_mha_bwd(q, k, v, o, lse, q)
+        torch.cuda.synchronize()
+        assert names[1:] == ["flash_bwd" + suffix] * 2, names
+        assert fa.flash_mha.launches == n0 + 1
+        assert fa.flash_mha_bwd.launches == b0 + 2
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
