@@ -18,14 +18,15 @@ Run from the root of a checkout.  It builds the CUDA kernels of
    (``scaled_dot_product_attention``, a yardstick only — the port never
    calls it; none computes int8-score attention, so K2-int8 records SDPA
    for scale and its distance from K2) and the least time the card could
-   take (``panst3r_torch/ops/flops.py::bound_ms``; the f32 K2-K5 also
+   take (``panst3r_torch/ops/flops.py::bound_ms``; the f32 K1-K6 also
    at the 3xTF32 rate of their tensor-core products); the bf16 K1, K2, K3
-   and K6 and the f32 K2-K5 (the Hopper engines) also with the device
+   and K6 and the f32 K1-K6 (the Hopper engines) also with the device
    ms of each CUDA kernel of one traced call, K2, K3 and the f32 K5 with
    each split size of ``SPLIT_TILES_TRIED``; K5 (flash_bwd) likewise
    against its plain version from K4's own output and LSE, and K4 + K5
    through autograd; K4 and K5 also at train_v2's LoftUp batch
-   (``loftup_train_full``, f32, plain versions per slice of views);
+   (``loftup_train_full``, f32, plain versions per slice of views), the
+   f32 K1 at its B*V = 10 views (``encoder_train``, ``decoder_train``);
    gradients through K1-K3 on the card bit-equal to their plain formulas';
 2. ``small``: v1 and v2 widths at depth 2 (v2 with its full mixer and
    LoftUp), f32, V=4 / K=3 at 384x512, the same seeded weights on the card
@@ -111,23 +112,26 @@ PHASES = ("kernels", "small", "v1", "v2", "train_v2", "serve", "serve_long",
           "ab_packed")
 # the bf16 K1, K2, K3 and K6 run the Hopper engine (wgmma); of their f32
 # paths (entries ``*_f32`` of the kernels line) K2 and K3 run the 3xTF32
-# engine in the same sources (F32_SOURCE), K1 and K6 the old ones; K4 and
-# K5, whose main paths run f32 only, run the 3xTF32 engine in sources of
-# their own (their bf16 paths stay on the tile engine, flash_{fwd,bwd}.cu)
+# engine in the same sources (F32_SOURCE), K1 and K6 the f32 K4's source
+# (its main kernel over strided views); K4 and K5, whose main paths run
+# f32 only, run the 3xTF32 engine in sources of their own (their bf16
+# paths stay on the tile engine, flash_{fwd,bwd}.cu)
 SOURCE = {"tower_self": "tower_self_sm90", "tower_cross": "tower_cross_sm90",
           "masked_attn": "masked_attn_sm90",
           "packed_flash": "packed_flash_sm90"}
-F32_SOURCE = {"tower_cross": "tower_cross_sm90",
+F32_SOURCE = {"tower_self": "flash_fwd_sm90",
+              "tower_cross": "tower_cross_sm90",
               "masked_attn": "masked_attn_sm90",
-              "flash_fwd": "flash_fwd_sm90", "flash_bwd": "flash_bwd_sm90"}
+              "flash_fwd": "flash_fwd_sm90", "flash_bwd": "flash_bwd_sm90",
+              "packed_flash": "flash_fwd_sm90"}
 # the case and dtype of each kernel on its main path: K1-K3 under v1's bf16,
 # K4 in LoftUp's f32 (flax promotes that branch to f32 under amp; the v2
 # scene's 4 views), K5 at train_v2's LoftUp call (B*V = 10 views), the f32
-# K1-K3 in train_v2 (K2 and K3 at its shapes), K6 in the A/B tool (bf16,
-# and its f32 run)
+# K1-K3 in train_v2 (at its shapes), K6 in the A/B tool (bf16, and its f32
+# run)
 MAIN_CASE = {"tower_self": ("encoder_rope", "bfloat16"),
              "tower_cross": ("render", "bfloat16"),
-             "tower_self_f32": ("encoder_rope", "float32"),
+             "tower_self_f32": ("encoder_train", "float32"),
              "tower_cross_f32": ("render_train", "float32"),
              "tower_cross_int8": ("render_long", "bfloat16"),
              "masked_attn": ("mask_transformer", "bfloat16"),
@@ -258,26 +262,7 @@ def kernel_cases(dtype, dev):
             ("decoder_rope", 4, 768, 12, True, False),
             ("plain", 4, 1024, 16, False, False),
             ("decoder_update", 1, 768, 12, True, False)):
-        N = 768
-        qkv = torch.cat([rnd(B, N, 2 * C, s=QK_STD), rnd(B, N, C)], -1)
-        tabs = rope2d_tables(_grid_pos(B, 24, 32, dev), 64) if rope else None
-        ckv = (rnd(B, 1, C, s=QK_STD), rnd(B, 1, C)) if cls else None
-        q, k, v = (heads(t, 64) for t in qkv.split(C, -1))
-        nbytes = qkv.numel() * es + B * N * C * es \
-            + (2 * B * N * 64 * 4 if rope else 0) + (2 * B * C * es if cls else 0)
-        cases.append(dict(
-            kernel="tower_self", case=label,
-            fn=lambda qkv=qkv, H=H, tabs=tabs, ckv=ckv:
-                ta.tower_self_attention(qkv, H, tabs=tabs, cls_kv=ckv),
-            ref=lambda qkv=qkv, H=H, tabs=tabs, ckv=ckv:
-                ta.tower_self_attention_ref(qkv, H, tabs=tabs, cls_kv=ckv),
-            f32=lambda qkv=qkv, H=H, tabs=tabs, ckv=ckv:
-                ta.tower_self_attention_ref(
-                    qkv.float(), H, tabs=tabs,
-                    cls_kv=None if ckv is None else tuple(map(f32, ckv))),
-            lib=lambda q=q, k=k, v=v: F.scaled_dot_product_attention(q, k, v),
-            flops=4.0 * B * H * N * (N + (1 if cls else 0)) * 64,
-            bytes=nbytes, warpgroups=ta.cta_warpgroups(B, H, N)))
+        _k1_case(cases, label, B, C, H, rope, cls, rnd, g, es, dev)
 
     # K2: decoder update (second +1 step: 1536 of 3072 memory slots valid,
     # own 768 tokens appended), render (4 views x 768 against a full
@@ -348,7 +333,50 @@ def kernel_cases(dtype, dev):
     if dtype == torch.float32:
         # K4 at train_v2's LoftUp batch, where the path runs it in f32
         cases += _k4_cases(rnd, g, es, dtype, dev, None, full=True)
+        # the f32 K1 at the micro-step's B*V = 10 views: the encoder, and
+        # the decoder's self-attention over the render's views
+        _k1_case(cases, "encoder_train", 10, 1024, 16, True, False, rnd, g,
+                 es, dev)
+        _k1_case(cases, "decoder_train", 10, 768, 12, True, False, rnd, g,
+                 es, dev)
     return cases
+
+
+def _k1_case(cases, label, B, C, H, rope, cls, rnd, g, es, dev):
+    """Appends K1's case at (B, 768 tokens, C) with H heads of 64, RoPE
+    tables and a cls key/value as asked; the library call is SDPA on the
+    heads split out (without the cls column)."""
+    import torch
+    import torch.nn.functional as F
+
+    from panst3r_torch.ops import tower_attention as ta
+    from panst3r_torch.ops.rope import rope2d_tables
+
+    def f32(t):
+        return None if t is None else t.float()
+
+    def heads(t, D):
+        B, N, C = t.shape
+        return t.reshape(B, N, C // D, D).transpose(1, 2).contiguous()
+
+    N = 768
+    qkv = torch.cat([rnd(B, N, 2 * C, s=QK_STD), rnd(B, N, C)], -1)
+    tabs = rope2d_tables(_grid_pos(B, 24, 32, dev), 64) if rope else None
+    ckv = (rnd(B, 1, C, s=QK_STD), rnd(B, 1, C)) if cls else None
+    q, k, v = (heads(t, 64) for t in qkv.split(C, -1))
+    nbytes = qkv.numel() * es + B * N * C * es \
+        + (2 * B * N * 64 * 4 if rope else 0) + (2 * B * C * es if cls else 0)
+    cases.append(dict(
+        kernel="tower_self", case=label,
+        fn=lambda: ta.tower_self_attention(qkv, H, tabs=tabs, cls_kv=ckv),
+        ref=lambda: ta.tower_self_attention_ref(qkv, H, tabs=tabs,
+                                                cls_kv=ckv),
+        f32=lambda: ta.tower_self_attention_ref(
+            qkv.float(), H, tabs=tabs,
+            cls_kv=None if ckv is None else tuple(map(f32, ckv))),
+        lib=lambda: F.scaled_dot_product_attention(q, k, v),
+        flops=4.0 * B * H * N * (N + (1 if cls else 0)) * 64,
+        bytes=nbytes, warpgroups=ta.cta_warpgroups(B, H, N)))
 
 
 def _k3_case(cases, label, Nk, rnd, g, es, dev, B=1):
@@ -1668,8 +1696,9 @@ def phase_train_v2():
     split = {}
     step(batches[0], cls_emb, prng.generator(tcfg.seed, 0, 4, device="cuda"),
          stage_times=split)
+    # 40 names: the f32 K1-K5's pre-passes beside their main kernels
     profile = profile_by_kernel(lambda: step(batches[1], cls_emb, prng.generator(
-        tcfg.seed, 0, 5, device="cuda")))
+        tcfg.seed, 0, 5, device="cuda")), top=40)
     # one more micro-step under the counter (the counterpart of
     # tools/train_step_bench.py:196-205): forward, criterion and backward
     flops = count_flops(step, batches[0], cls_emb,
@@ -2205,7 +2234,7 @@ def main(argv=None) -> int:
           "ptxas": [ln.strip() for text in logs.values()
                     for ln in text.splitlines()
                     if "registers" in ln or "spill" in ln]})
-    for name in SOURCE.values():
+    for name in sorted({*SOURCE.values(), *F32_SOURCE.values()}):
         # the Hopper libraries: each kernel's registers, shared memory and
         # spills, and any warning (setmaxnreg ignored, wgmma serialized)
         emit({"phase": "build", "library": name, "ptxas": [

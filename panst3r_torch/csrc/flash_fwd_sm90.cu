@@ -1,6 +1,8 @@
 // K4, f32 — generic flash attention forward on the Hopper f32 engine
 // (attn_f32_sm90.cuh, 3xTF32; the shared pieces in flash_sm90.cuh).  The
-// bf16 K4 stays on the tile engine (flash_fwd.cu).
+// bf16 K4 stays on the tile engine (flash_fwd.cu).  The same main kernel
+// also serves the f32 K1 (p3_tower_self_f32_sm90, below) and, through
+// p3_flash_fwd_sm90, the f32 K6 (ops/packed_attention.py).
 //
 // Replaces panst3r_tpu/ops/pallas/flash_attention.py::_flash_fwd (body
 // _kernel) in f32: online-softmax attention over (B, H, N, D) streams, D =
@@ -16,14 +18,17 @@
 // Bound on the H100: at the v2 LoftUp shape (B=4, H=4, Nq=49152, Nk=768,
 // D=96) the work is 4 B H Nq Nk D = 232 GFLOP against ~0.6 GB of q and out:
 // bound by operations, 1.41 ms at the 494.7 / 3 TFLOP/s of 3xTF32 products
-// (3.46 ms at the 67 TFLOP/s of f32 FMA).
+// (3.46 ms at the 67 TFLOP/s of f32 FMA).  The f32 K1 at the encoder's
+// shape (B=4, 16 heads, N=768, D=64) is 9.7 GFLOP against ~25 MB: 0.059
+// ms by operations at the 3xTF32 rate.
 //
 // Design.  (1) Pre-pass: k rotated by its tables (when given) and k and v
 // written as TF32 hi/lo planes (B*H, Nk, D), so that the main loop splits
 // no K or V value; q rotated into a contiguous copy only when there are
 // tables; the key bias in log2 units padded to 32-key tiles, and per
-// batch the list of live tiles.  (2) The main kernel: 128-row CTAs of
-// eight warps in two groups (below); one thread loads the Q tile once
+// batch the list of live tiles.  (2) The main kernel: 128-row CTAs (64-row
+// at D = 64, two per SM) of eight warps in two groups (below); one thread
+// loads the Q tile once
 // through a 4-D tensor map over q's strides, each group's first thread
 // the live 32-key entries (four planes and their key biases) into the
 // group's ring slot by TMA.  Q is split once per CTA into shared memory
@@ -42,18 +47,21 @@ using namespace p3::flash32;
 namespace {
 
 // Eight warps and no producer warp, in two groups of four over the same
-// 128 rows (each warp two m16 row tiles, so that each K and V fragment
-// serves two products), so that each SM sub-partition has two warps to
-// hide the latency of the other's products (the shared memory holds one
-// CTA).  Group g owns ring slot g (K hi, K lo, V hi, V lo and the entry's
-// key biases) and takes the batch's live entries g, g + 2, ..., its first
-// thread issuing each entry's loads once the group has released the slot;
-// the groups' softmax states are merged in group order at the end.
-template <int D>
-using FwdSmem = flash32::Smem<D, 8, 2, 2, 4, 2, KE * 4, 2>;
+// 64 MT rows (each warp MT m16 row tiles; with MT = 2 each K and V
+// fragment serves two products), so that each SM sub-partition has two
+// warps to hide the latency of the other's products.  Group g owns ring
+// slot g (K hi, K lo, V hi, V lo and the entry's key biases) and takes the
+// batch's live entries g, g + 2, ..., its first thread issuing each
+// entry's loads once the group has released the slot; the groups' softmax
+// states are merged in group order at the end.  MT = 2 (128 rows) holds
+// one CTA per SM; MT = 1 (64 rows, at D = 64) two, each thread within 128
+// registers, so four warps per sub-partition.  A row's arithmetic is the
+// same for either.
+template <int D, int MT>
+using FwdSmem = flash32::Smem<D, 8, MT, 2, 4, 2, KE * 4, 2>;
 
-template <int D>
-__global__ void __launch_bounds__(FwdSmem<D>::kThreads, 1)
+template <int D, int MT>
+__global__ void __launch_bounds__(FwdSmem<D, MT>::kThreads, 3 - MT)
 fwd_main(const __grid_constant__ CUtensorMap mq,
          const __grid_constant__ CUtensorMap mkh,
          const __grid_constant__ CUtensorMap mkl,
@@ -64,8 +72,8 @@ fwd_main(const __grid_constant__ CUtensorMap mq,
          BiasStrides bs, float* __restrict__ out, Strides3 os,
          float* __restrict__ lse, int H, int Nq, int Nk, int nt, float sl) {
   extern __shared__ unsigned char smem_raw[];
-  using SM = FwdSmem<D>;
-  constexpr int MT = SM::kMT, R = SM::R, NO = D / 2;
+  using SM = FwdSmem<D, MT>;
+  constexpr int R = SM::R, NO = D / 2;
   const int h = blockIdx.y, b = blockIdx.z, q0 = blockIdx.x * R;
   const int bh = b * H + h;
   const int n = count[b];
@@ -196,18 +204,28 @@ struct Args {
   int B, H, Nq, Nk;
   float scale;
   cudaStream_t st;
+  // the f32 K1's cls key and value (B, H, 1, D) through the (batch, head)
+  // strides ``cs``: the planes' last key row, Nk = N + 1
+  const float* kc = nullptr;
+  const float* vc = nullptr;
+  const long long* cs = nullptr;
 };
+
+template <int D, int MT>
+cudaError_t run_main(const Args& a, const float* q, const long long* qs,
+                     int nt);
 
 template <int D>
 cudaError_t run(const Args& a) {
   const int nt = (a.Nk + KE - 1) / KE;
   const long long* s = a.s;
-  // (1) pre-pass: k (rotated) and v as hi/lo planes, q rotated with
-  // tables, the key biases and live tiles
-  launch_split<D>(a.k, s + 3, a.kcos, a.ksin, a.kh, a.kl, a.B, a.H, a.Nk,
-                  a.st);
-  launch_split<D>(a.v, s + 6, nullptr, nullptr, a.vh, a.vl, a.B, a.H, a.Nk,
-                  a.st);
+  // (1) pre-pass: k (rotated) and v as hi/lo planes (the cls row last),
+  // q rotated with tables, the key biases and live tiles
+  const int Nx = a.Nk - (a.kc != nullptr);   // keys read from k and v
+  launch_split<D>(a.k, s + 3, a.kcos, a.ksin, a.kh, a.kl, a.B, a.H, Nx,
+                  a.st, a.kc, a.cs);
+  launch_split<D>(a.v, s + 6, nullptr, nullptr, a.vh, a.vl, a.B, a.H, Nx,
+                  a.st, a.vc, a.cs);
   const float* q = a.q;
   long long qs[3] = {s[0], s[1], s[2]};
   if (a.qcos != nullptr) {
@@ -220,10 +238,21 @@ cudaError_t run(const Args& a) {
   }
   key_tiles<<<a.B, 1024, nt * sizeof(int), a.st>>>(a.kbias, a.bl, a.list,
                                                    a.count, a.Nk, nt);
-  cudaError_t err = cudaGetLastError();
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  // (2) the main kernel
-  using SM = FwdSmem<D>;
+  // (2) the main kernel: 64-row CTAs at D = 64 (two per SM), else 128
+  if constexpr (D == 64)
+    return run_main<D, 1>(a, q, qs, nt);
+  else
+    return run_main<D, 2>(a, q, qs, nt);
+}
+
+template <int D, int MT>
+cudaError_t run_main(const Args& a, const float* q, const long long* qs,
+                     int nt) {
+  using SM = FwdSmem<D, MT>;
+  const long long* s = a.s;
+  cudaError_t err;
   CUtensorMap mq, mkh, mkl, mvh, mvl;
   Perm pq;
   const int BH = a.B * a.H;
@@ -234,8 +263,12 @@ cudaError_t run(const Args& a) {
       (err = f32e::make_map(&mvh, a.vh, BH, a.Nk, D, KE)) != cudaSuccess ||
       (err = f32e::make_map(&mvl, a.vl, BH, a.Nk, D, KE)) != cudaSuccess)
     return err;
-  auto kern = fwd_main<D>;
-  if ((err = prepare(kern, SM::kBytes)) != cudaSuccess) return err;
+  auto kern = fwd_main<D, MT>;
+  if ((err = prepare(kern, SM::kBytes)) != cudaSuccess ||
+      (err = cudaFuncSetAttribute(
+           kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+           cudaSharedmemCarveoutMaxShared)) != cudaSuccess)
+    return err;
   const dim3 grid((a.Nq + SM::R - 1) / SM::R, a.H, a.B);
   kern<<<grid, SM::kThreads, SM::kBytes, a.st>>>(
       mq, mkh, mkl, mvh, mvl, pq, a.bl, a.list, a.count, a.bias,
@@ -279,4 +312,44 @@ extern "C" int p3_flash_fwd_sm90(
   if (D == 64) return run<64>(a);
   if (D == 96) return run<96>(a);
   return cudaErrorInvalidValue;
+}
+
+// The f32 K1: tower self-attention, replacing
+// panst3r_tpu/ops/pallas/tower_attention.py::_tower_fwd (body _kernel) in
+// f32, on the main kernel above at D = 64.  q, k, v (B, H, N, 64) and out
+// (B, H, N, 64) through the element strides in strides[0..11] (q, k, v,
+// out: batch, head, token; ops/tower_attention.py::self_views: the fused
+// (B, N, 3C) projection and out (B, N, C), so no relayout on either side);
+// optional f32 RoPE tables cos, sin (B, N, 64) for q and k; an optional
+// cls key and value kc, vc (B, H, 1, 64) through the (batch, head) strides
+// strides[12..13] (DINO split-cls), which join every row's softmax as one
+// more key after the N tokens, unrotated: the pre-pass writes them as the
+// planes' last row, and the main loop walks Nk = N + 1 keys.  No bias and
+// no LSE.  Scratch as p3_flash_fwd_sm90's, with Nk = N + (kc != null).
+extern "C" int p3_tower_self_f32_sm90(
+    const void* q, const void* k, const void* v, const void* kc,
+    const void* vc, const void* cos, const void* sin, void* out,
+    const long long* strides, int B, int H, int N, float scale, void* qr,
+    void* kh, void* kl, void* vh, void* vl, void* bl, void* list,
+    void* count, void* stream) {
+  const int Nk = N + (kc != nullptr);
+  const int nt = (Nk + KE - 1) / KE;
+  if (B < 1 || H < 1 || N < 1 || nt * 4L > 48 * 1024 ||
+      (kc != nullptr) != (vc != nullptr) ||
+      (cos != nullptr) != (sin != nullptr) ||
+      (cos != nullptr) != (qr != nullptr))
+    return cudaErrorInvalidValue;
+  long long s[16] = {0};
+  for (int i = 0; i < 12; ++i) s[i] = strides[i];
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  auto m = [](void* p) { return static_cast<float*>(p); };
+  Args a{f(q),    f(k),    f(v),   nullptr, nullptr, f(cos), f(sin),
+         f(cos),  f(sin),  m(out), nullptr, m(qr),   m(kh),  m(kl),
+         m(vh),   m(vl),   m(bl),  static_cast<int*>(list),
+         static_cast<int*>(count), s, B, H, N, Nk, scale,
+         static_cast<cudaStream_t>(stream)};
+  a.kc = f(kc);
+  a.vc = f(vc);
+  a.cs = strides + 12;
+  return run<64>(a);
 }

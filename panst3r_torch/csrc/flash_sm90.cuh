@@ -1,5 +1,5 @@
-// The pieces the f32 K4 (flash_fwd_sm90.cu) and K5 (flash_bwd_sm90.cu)
-// share on the 3xTF32 engine of attn_f32_sm90.cuh: the pre-pass kernels,
+// The pieces the f32 K4 (flash_fwd_sm90.cu, which also serves the f32 K1
+// and K6) and K5 (flash_bwd_sm90.cu) share on the 3xTF32 engine of attn_f32_sm90.cuh: the pre-pass kernels,
 // the shared-memory layout of a CTA and the products on pre-split planes.
 //
 // Pre-split planes.  The engine splits every K and V value into TF32 hi
@@ -61,41 +61,84 @@ struct BiasStrides {
 
 // ---------------------------------------------------------- pre-pass ----
 
+// W (1 or 4) consecutive f32 values at p: one 16-byte access for W = 4.
+template <int W>
+__device__ __forceinline__ void ldw(const float* p, float (&v)[W]) {
+  if constexpr (W == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
+  } else {
+    v[0] = *p;
+  }
+}
+template <int W>
+__device__ __forceinline__ void stw(float* p, const float (&v)[W]) {
+  if constexpr (W == 4)
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  else
+    *p = v[0];
+}
+
 // x (B, H, N, D) through its strides, rotated by (B, N, D) tables when
 // ``cs`` is given (rope_at's rotate-half within each D/2 half, in f32,
-// each product and the sum rounded as the plain version's), into (B*H, N,
+// each product and the sum rounded as the plain version's), into (B*H, NP,
 // D) planes: hi = tf32(x), lo = tf32(x - hi); without ``lo``, hi = x.
-template <int D>
+// With ``tail`` (a (B, H, 1, D) row through the batch and head strides of
+// ``ts``), NP = N + 1 and the planes' last row of each (b, h) is that row,
+// never rotated (the f32 K1's cls key and value); else NP = N.  Each
+// thread takes W consecutive lanes (W = 4: 16-byte accesses, where every
+// base and stride allows them; the rotation's partner lanes, D/4 away,
+// are as aligned); the arithmetic of a value does not depend on W.
+template <int D, int W>
 __global__ void split_planes(const float* __restrict__ x, Strides3 st,
                              const float* __restrict__ cs,
                              const float* __restrict__ sn,
                              float* __restrict__ hi, float* __restrict__ lo,
-                             int H, int N, long long total) {
-  for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       e < total; e += (long long)gridDim.x * blockDim.x) {
+                             int H, int N, long long total,
+                             const float* __restrict__ tail, Strides3 ts) {
+  static_assert(D % (4 * W) == 0, "a rotation half holds whole groups");
+  const int NP = N + (tail != nullptr);
+  for (long long e = (blockIdx.x * (long long)blockDim.x + threadIdx.x) * W;
+       e < total; e += (long long)gridDim.x * blockDim.x * W) {
     const int d = static_cast<int>(e % D);
     const long long row = e / D;
-    const int n = static_cast<int>(row % N);
-    const long long bh = row / N;
+    const int n = static_cast<int>(row % NP);
+    const long long bh = row / NP;
     const int h = static_cast<int>(bh % H);
     const long long b = bh / H;
-    const float* r = x + b * st.b + h * st.h + n * st.n;
-    float val = r[d];
-    if (cs != nullptr) {
-      constexpr int Q = D / 4;
-      const bool first = (d % (D / 2)) < Q;
-      const float xp = r[first ? d + Q : d - Q];
-      const long long t = (b * N + n) * D + d;
-      val = __fadd_rn(__fmul_rn(val, cs[t]),
-                      __fmul_rn(first ? -xp : xp, sn[t]));
+    float val[W];
+    if (n == N) {
+      ldw<W>(tail + b * ts.b + h * ts.h + d, val);
+    } else {
+      const float* r = x + b * st.b + h * st.h + n * st.n;
+      ldw<W>(r + d, val);
+      if (cs != nullptr) {
+        constexpr int Q = D / 4;
+        const bool first = (d % (D / 2)) < Q;
+        const long long t = (b * N + n) * D + d;
+        float xp[W], c[W], s_[W];
+        ldw<W>(r + (first ? d + Q : d - Q), xp);
+        ldw<W>(cs + t, c);
+        ldw<W>(sn + t, s_);
+#pragma unroll
+        for (int i = 0; i < W; ++i)
+          val[i] = __fadd_rn(__fmul_rn(val[i], c[i]),
+                             __fmul_rn(first ? -xp[i] : xp[i], s_[i]));
+      }
     }
     if (lo == nullptr) {
-      hi[e] = val;
+      stw<W>(hi + e, val);
     } else {
-      uint32_t h_, l_;
-      f32e::split(val, h_, l_);
-      hi[e] = __uint_as_float(h_);
-      lo[e] = __uint_as_float(l_);
+      float vh[W], vl[W];
+#pragma unroll
+      for (int i = 0; i < W; ++i) {
+        uint32_t h_, l_;
+        f32e::split(val[i], h_, l_);
+        vh[i] = __uint_as_float(h_);
+        vl[i] = __uint_as_float(l_);
+      }
+      stw<W>(hi + e, vh);
+      stw<W>(lo + e, vl);
     }
   }
 }
@@ -412,15 +455,31 @@ inline int blocks_for(long long total) {
   return static_cast<int>(b < 132LL * 32 ? b : 132LL * 32);
 }
 
-// The planes of x (B, H, N, D), rotated when ``cs`` is given.
+// The planes of x (B, H, N, D), rotated when ``cs`` is given, and with
+// ``tail`` one more unrotated row per (b, h) (split_planes): four lanes a
+// thread where every pointer is 16-byte aligned and every stride a
+// multiple of 4, else one.
 template <int D>
 inline void launch_split(const float* x, const long long* s, const float* cs,
                          const float* sn, float* hi, float* lo, int B, int H,
-                         int N, cudaStream_t st) {
-  const long long total = (long long)B * H * N * D;
+                         int N, cudaStream_t st,
+                         const float* tail = nullptr,
+                         const long long* ts = nullptr) {
+  const long long total = (long long)B * H * (N + (tail != nullptr)) * D;
   if (total == 0) return;
-  split_planes<D><<<blocks_for(total), 256, 0, st>>>(
-      x, Strides3{s[0], s[1], s[2]}, cs, sn, hi, lo, H, N, total);
+  auto a16 = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  const Strides3 xs{s[0], s[1], s[2]};
+  const Strides3 tss = tail ? Strides3{ts[0], ts[1], 0} : Strides3{0, 0, 0};
+  const bool v4 = a16(x) && a16(cs) && a16(sn) && a16(hi) && a16(lo) &&
+                  a16(tail) && (xs.b | xs.h | xs.n | tss.b | tss.h) % 4 == 0;
+  if (v4)
+    split_planes<D, 4><<<blocks_for(total / 4), 256, 0, st>>>(
+        x, xs, cs, sn, hi, lo, H, N, total, tail, tss);
+  else
+    split_planes<D, 1><<<blocks_for(total), 256, 0, st>>>(
+        x, xs, cs, sn, hi, lo, H, N, total, tail, tss);
 }
 
 }  // namespace flash32

@@ -8,7 +8,7 @@
 // f32 scores, the scale on the f32 score, p rounded to bf16 in the value
 // product while the row sum takes the unrounded f32 p (the engine's
 // softmax step without ``RoundedSum``), out = acc / l in bf16.  The f32
-// path stays on packed_flash.cu.
+// path runs the f32 K4's engine (flash_fwd_sm90.cu).
 //
 // Bound on the H100: at the A/B tool's shape (B=8, H=16, N=768) 19.3 GFLOP
 // (0.0195 ms at 989 TFLOP/s) against 50 MB of q, k, v and out (0.015 ms at

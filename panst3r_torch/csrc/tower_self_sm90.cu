@@ -7,7 +7,7 @@
 // written to (B, N, C) at column h*64.  Optional 2D-RoPE (cos, sin) tables
 // (B, N, 64) f32 for q and k; an optional cls key/value (B, 1, C) that
 // joins every query's softmax as one extra column (DINO split-cls).  The
-// f32 path stays on tower_self.cu.
+// f32 path runs the f32 K4's engine (flash_fwd_sm90.cu).
 //
 // Bound on the H100: at the encoder shape (B=4, N=768, H=16) 9.7 GFLOP
 // against ~25 MB of bf16 and table traffic: 0.0098 ms by operations at

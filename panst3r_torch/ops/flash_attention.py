@@ -190,17 +190,12 @@ def _flash_fwd_kernel(q, k, v, bias, kv_valid, rope, scale, with_lse):
     sig = [p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_float]
     stream = cuda_build.stream_of(q)
     if f32:
-        nt = -(-Nk // KEY_TILE)
-        empty = functools.partial(torch.empty, dtype=torch.float32,
-                                  device=dev)
-        qr = empty(B, H, Nq, D) if rope is not None else None
-        planes = [empty(B, H, Nk, D) for _ in range(4)]
-        bl = empty(B, nt * KEY_TILE)
-        tiles = torch.empty(B * nt + B, dtype=torch.int32, device=dev)
+        qr = (torch.empty((B, H, Nq, D), dtype=torch.float32, device=dev)
+              if rope is not None else None)
         lib, fn = cuda_build.function("flash_fwd_sm90", "p3_flash_fwd_sm90",
                                       sig + [p] * 9)
-        err = fn(*head, P(qr), *map(P, planes), P(bl), P(tiles),
-                 P(tiles[B * nt:]), stream)
+        err = fn(*head, P(qr), *map(P, fwd_scratch(B, H, Nk, D, dev)),
+                 stream)
     else:
         lib, fn = cuda_build.function("flash_fwd", "p3_flash_fwd",
                                       sig + [p])
@@ -208,6 +203,19 @@ def _flash_fwd_kernel(q, k, v, bias, kv_valid, rope, scale, with_lse):
     cuda_build.check(lib, err, "flash_mha")
     flash_mha.launches += 1
     return out, lse
+
+
+def fwd_scratch(B: int, H: int, Nk: int, D: int, device) -> list:
+    """The f32 K4 pre-pass's outputs, which its main kernel reads (and the
+    f32 K1's and K6's): the K and V hi/lo planes (B, H, Nk, D) f32, the key
+    biases padded to whole ``KEY_TILE`` tiles (B, nt·KEY_TILE) f32, each
+    batch's live tiles (B, nt) and their count (B) int32."""
+    nt = -(-Nk // KEY_TILE)
+    empty = functools.partial(torch.empty, dtype=torch.float32,
+                              device=device)
+    tiles = torch.empty(B * nt + B, dtype=torch.int32, device=device)
+    return [*(empty(B, H, Nk, D) for _ in range(4)),
+            empty(B, nt * KEY_TILE), tiles, tiles[B * nt:]]
 
 
 class _FlashMHA(torch.autograd.Function):

@@ -5,7 +5,10 @@ panst3r_tpu/ops/pallas/tower_attention.py).
   straight from the fused qkv projection (B, N, 3C) with optional 2D-RoPE
   tables and an optional cls key/value.  bf16 runs ``csrc/tower_self_sm90.cu``
   (the Hopper engine ``csrc/attn_sm90.cuh``: TMA ring, wgmma, softmax in
-  registers), f32 ``csrc/tower_self.cu``.
+  registers), f32 the f32 K4's engine (``csrc/flash_fwd_sm90.cu``'s
+  ``p3_tower_self_f32_sm90``: 3xTF32, K/V hi/lo pre-pass) over strided
+  views of qkv (``self_views``), the cls key/value one more key row;
+  ``tower_self_split_ref`` emulates its arithmetic (the tests only).
 - ``tower_cross_attention`` (K2) replaces ``_cross_fwd`` (bf16/f32 path):
   cross-attention over projected (B, Nq, C) x (B, Nk, C) streams with
   per-side RoPE tables, a per-key additive bias and dead-tile skipping.
@@ -42,6 +45,7 @@ import os
 import torch
 
 from panst3r_torch.ops import cuda_build, flops
+from panst3r_torch.ops import flash_attention as fa
 from panst3r_torch.ops.attention import NEG_INF, recompute_vjp
 from panst3r_torch.ops.rope import _rotate_half_2d, apply_rope_tables_f32
 
@@ -123,6 +127,46 @@ def tower_self_attention_ref(qkv, heads: int, tabs=None, cls_kv=None,
         sc = (q.float() * kc.float()).sum(-1, keepdim=True) * scale
         extra = (sc, vc)
     return _merge_heads(_softmax_rounded(s, v, extra).to(qkv.dtype))
+
+
+def self_views(qkv, heads: int):
+    """q, k and v of the fused projection ``qkv`` (B, N, 3C) as strided
+    (B, H, N, 64) views (batch stride N·3C, head stride 64, token stride
+    3C, at element offsets 0, C and 2C): what the f32 K1 reads, without a
+    relayout."""
+    B, N, C3 = qkv.shape
+    C = C3 // 3
+    return [qkv.as_strided((B, heads, N, C // heads),
+                           (N * C3, C // heads, C3, 1),
+                           qkv.storage_offset() + i * C) for i in range(3)]
+
+
+def tower_self_split_ref(qkv, heads: int, tabs=None, cls_kv=None,
+                         scale=None, matmul=torch.matmul):
+    """Plain version of the f32 K1's arithmetic (``p3_tower_self_f32_sm90``
+    in ``csrc/flash_fwd_sm90.cu``, f32 only): the f32 K4's
+    (``flash_attention.flash_mha_split_ref``) over ``self_views``'s views,
+    q and k rotated by the same tables, the cls key/value (B, 1, C) one
+    more key after the N tokens, unrotated (its table row the identity).
+    ``matmul`` takes the products (``ops/tf32x3.py::matmul_tf32x3``
+    emulates the kernel's).  Returns (B, N, C)."""
+    if scale is None:
+        scale = 64 ** -0.5
+    q, k, v = self_views(qkv, heads)
+    rope = None
+    if tabs is not None:
+        rope = (tabs[0], tabs[1], tabs[0], tabs[1])
+    if cls_kv is not None:
+        kc, vc = (_split_heads(t, 64) for t in cls_kv)
+        k, v = torch.cat([k, kc], 2), torch.cat([v, vc], 2)
+        if rope is not None:
+            B = qkv.shape[0]
+            one = torch.ones(B, 1, 64, device=qkv.device)
+            rope = rope[:2] + (torch.cat([tabs[0], one], 1),
+                               torch.cat([tabs[1], torch.zeros_like(one)],
+                                         1))
+    return _merge_heads(fa.flash_mha_split_ref(q, k, v, rope=rope,
+                                               scale=scale, matmul=matmul))
 
 
 def tower_cross_attention_ref(q, k, v, qtab=None, ktab=None, kv_bias=None,
@@ -261,7 +305,7 @@ def _tables(tabs, B, N, device, name):
 
 def _tower_self_kernel(qkv, heads: int, tabs, cls_kv, scale):
     """Launch K1: one launch as counted, whatever CUDA launches the call
-    makes (bf16: the rotation pre-pass and the main kernel)."""
+    makes (the pre-passes and the main kernel)."""
     import ctypes
 
     B, N, C3 = qkv.shape
@@ -292,12 +336,25 @@ def _tower_self_kernel(qkv, heads: int, tabs, cls_kv, scale):
         err = fn(P(qkv), P(cos), P(sin), P(kc), P(vc), P(out), P(qk), B, N,
                  C, float(scale), cta_warpgroups(B, heads, N),
                  cuda_build.stream_of(qkv))
-    else:
-        lib, fn = cuda_build.function("tower_self", "p3_tower_self",
-                                      [p] * 6 + [i32] * 3
-                                      + [ctypes.c_float, p])
-        err = fn(P(qkv), P(cos), P(sin), P(kc), P(vc), P(out), B, N, C,
-                 float(scale), cuda_build.stream_of(qkv))
+    else:       # the f32 flash engine over strided views of qkv and out
+        if qkv.data_ptr() % 16:         # q is read through a tensor map
+            qkv = qkv.clone()
+        views = self_views(qkv, heads) + [
+            out.view(B, N, heads, 64).transpose(1, 2)]
+        cls = [] if kc is None else [t.view(B, heads, 1, 64)
+                                     for t in (kc, vc)]
+        strides = (ctypes.c_longlong * 14)(
+            *[s for t in views for s in t.stride()[:3]],
+            *(cls[0].stride()[:2] if cls else (0, 0)))
+        qr = (torch.empty((B, heads, N, 64), dtype=qkv.dtype, device=dev)
+              if cos is not None else None)
+        scratch = fa.fwd_scratch(B, heads, N + (kc is not None), 64, dev)
+        lib, fn = cuda_build.function(
+            "flash_fwd_sm90", "p3_tower_self_f32_sm90",
+            [p] * 9 + [i32] * 3 + [ctypes.c_float] + [p] * 9)
+        err = fn(*map(P, views[:3]), P(kc), P(vc), P(cos), P(sin), P(out),
+                 strides, B, heads, N, float(scale), P(qr),
+                 *map(P, scratch), cuda_build.stream_of(qkv))
     cuda_build.check(lib, err, "tower_self_attention")
     tower_self_attention.launches += 1
     tower_self_attention.launches_f32 += int(qkv.dtype == torch.float32)

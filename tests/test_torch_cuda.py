@@ -1,9 +1,10 @@
 """K1-K6 and K2-int8 CUDA kernels against their plain versions at edge
 shapes (ragged tiles, dead key tiles, rows with no live key, -inf keys,
 strided views, the train step's shapes), f32 and bf16, with the limits
-of chip_smoke.py; K1, K2 and K3 on the Hopper engines (bf16; f32 K2 and
-K3) batch-invariant bit for bit (K1, K2 also over query chunks), and so
-the f32 K4 and K5 (K4 and K5's dq also over query ranges); K1, K2, K3,
+of chip_smoke.py; K1, K2 and K3 on the Hopper engines (bf16; f32 K1, K2
+and K3) batch-invariant bit for bit (bf16 K1, K2 also over query
+chunks), and so the f32 K4 and K5 (K4 and K5's dq also over query
+ranges), whose bits are also held to a recorded digest; K1, K2, K3,
 K4, K5 and K6 routed by dtype; the int8 gate's
 launches; gradients through K1-K4 on the card against the plain versions';
 a small v2 train step and small v1 serve wires on the card against the
@@ -194,12 +195,44 @@ def test_tower_kernels_batch_and_chunk_invariant(dev):
     assert ta.cta_warpgroups(1, C // 64, 100, ta.max_splits(Nk)) == 1
 
 
+@pytest.mark.parametrize("rope,cls", [(True, True), (False, False)])
+def test_tower_self_f32_batch_invariant(dev, rope, cls):
+    """The f32 K1 on the 3xTF32 engine (q through a tensor map over qkv
+    itself without tables, over the rotated copy with them; the cls key
+    one more row of the planes): two calls give the same bits, and the
+    rows of batch b equal the slice of the full call bit for bit, though
+    the slice runs another grid."""
+    g = torch.Generator(device=dev).manual_seed(19)
+    dt = torch.float32
+    B, N, C = 3, 300, 256
+    qkv = torch.cat([_rnd(g, dev, dt, B, N, 2 * C, s=QK_STD),
+                     _rnd(g, dev, dt, B, N, C)], -1)
+    tabs = rope2d_tables(torch.randint(0, 40, (B, N, 2), generator=g,
+                                       device=dev), 64) if rope else None
+    ckv = (_rnd(g, dev, dt, B, 1, C, s=QK_STD),
+           _rnd(g, dev, dt, B, 1, C)) if cls else None
+    full = ta.tower_self_attention(qkv, C // 64, tabs=tabs, cls_kv=ckv)
+    assert torch.equal(full, ta.tower_self_attention(qkv, C // 64,
+                                                     tabs=tabs, cls_kv=ckv))
+    _close(full, ta.tower_self_attention_ref, qkv, C // 64, tabs, ckv)
+    for b in range(B):
+        sl = slice(b, b + 1)
+        part = ta.tower_self_attention(
+            qkv[sl].contiguous(), C // 64,
+            tabs=None if tabs is None else tuple(t[sl].contiguous()
+                                                 for t in tabs),
+            cls_kv=None if ckv is None else tuple(t[sl].contiguous()
+                                                  for t in ckv))
+        assert torch.equal(part, full[sl]), b
+
+
 @pytest.mark.parametrize("op", ["self", "cross"])
 def test_tower_kernels_route_by_dtype(dev, monkeypatch, op):
-    """bf16 runs the Hopper library; f32 runs K1's old engine and K2's
-    Hopper library (its 3xTF32 engine); the wrapper counts one launch per
-    call either way (the Hopper libraries make several CUDA launches), and
-    ``launches_f32`` the f32 ones."""
+    """bf16 runs the Hopper library; f32 runs the 3xTF32 engine: K1 the
+    f32 K4's library (its main kernel over views of qkv), K2 its own
+    Hopper library; the wrapper counts one launch per call either way (the
+    Hopper libraries make several CUDA launches), and ``launches_f32`` the
+    f32 ones."""
     from panst3r_torch.ops import cuda_build
 
     names = []
@@ -213,7 +246,7 @@ def test_tower_kernels_route_by_dtype(dev, monkeypatch, op):
     g = torch.Generator(device=dev).manual_seed(3)
     counter = getattr(ta, f"tower_{op}_attention")
     for dtype, lib in ((torch.bfloat16, f"tower_{op}_sm90"),
-                       (torch.float32, "tower_self" if op == "self"
+                       (torch.float32, "flash_fwd_sm90" if op == "self"
                         else "tower_cross_sm90")):
         n0, f0 = counter.launches, counter.launches_f32
         if op == "self":
@@ -338,9 +371,9 @@ def test_f32_kernels_batch_and_chunk_invariant(dev):
 @pytest.mark.parametrize("op", ["masked", "packed"])
 def test_k3_k6_route_by_dtype(dev, monkeypatch, op):
     """bf16 K3 and K6 run their Hopper libraries; f32 K3 runs its Hopper
-    library too (the 3xTF32 engine), f32 K6 the old kernel; the wrapper
-    counts one launch per call either way, and ``launches_f32`` the f32
-    ones."""
+    library too (the 3xTF32 engine), f32 K6 the f32 K4's library (its main
+    kernel over the heads as views); the wrapper counts one launch per call
+    either way, and ``launches_f32`` the f32 ones."""
     from panst3r_torch.ops import cuda_build
 
     names = []
@@ -356,7 +389,7 @@ def test_k3_k6_route_by_dtype(dev, monkeypatch, op):
     lib = "masked_attn" if op == "masked" else "packed_flash"
     for dtype, want in ((torch.bfloat16, lib + "_sm90"),
                         (torch.float32, "masked_attn_sm90" if op == "masked"
-                         else lib)):
+                         else "flash_fwd_sm90")):
         n0, f0 = counter.launches, counter.launches_f32
         if op == "masked":
             q = _rnd(g, dev, dtype, 1, 2, 100, 96)
@@ -549,6 +582,50 @@ def test_flash_f32_batch_and_query_invariant(dev, monkeypatch, D):
                    lse[:, :, rows].contiguous(), do[:, :, rows], valid, qt,
                    tabs[1])[0]
         assert torch.equal(dq_r, grads[0][:, :, rows]), (a, n)
+
+
+# sha256 of ``_flash_bits``'s outputs as the f32 K4 and K5 of
+# ``csrc/flash_{fwd,bwd}_sm90.cu`` computed them before the f32 K1 joined
+# their pre-pass (split_planes' cls row), on an NVIDIA H100 80GB HBM3
+# (sm_90a, nvcc 12.9, torch 2.11.0+cu128); the same bits after it
+FLASH_F32_BITS = \
+    "683ab720489332cc9daf70e52c1265c7aa43cebe13920f065547932e8bbed52b"
+
+
+def _flash_bits(dev) -> str:
+    """sha256 over the f32 K4's out and LSE and K5's dq, dk, dv (RoPE,
+    key validity with dead tiles) and K4's out with a dense bias, D = 64
+    and 96, on inputs drawn by numpy from fixed seeds."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for D in (64, 96):
+        rng = np.random.default_rng(D)
+        B, H, Nq, Nk = 2, 3, 130, 333
+
+        def t(*shape, s=1.0):
+            return torch.from_numpy((rng.standard_normal(shape) * s)
+                                    .astype(np.float32)).to(dev)
+
+        q, k = t(B, H, Nq, D, s=QK_STD), t(B, H, Nk, D, s=QK_STD)
+        v, do = t(B, H, Nk, D), t(B, H, Nq, D)
+        valid = torch.from_numpy(rng.random((B, Nk)) > 0.2).to(dev)
+        valid[0, 64:200] = False
+        rope = (t(B, Nq, D), t(B, Nq, D), t(B, Nk, D), t(B, Nk, D))
+        bias = t(B, H, Nq, Nk)
+        out, lse = fa.flash_mha(q, k, v, kv_valid=valid, rope=rope,
+                                with_lse=True)
+        grads = fa.flash_mha_bwd(q, k, v, out, lse, do, kv_valid=valid,
+                                 rope=rope)
+        for x in (out, lse, *grads, fa.flash_mha(q, k, v, bias=bias)):
+            h.update(x.cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def test_flash_f32_bits_unchanged(dev):
+    """The f32 K4 and K5 give the bits they gave before the f32 K1 and K6
+    came onto their engine (the pre-pass they share gained the cls row)."""
+    assert _flash_bits(dev) == FLASH_F32_BITS
 
 
 def test_k4_k5_route_by_dtype(dev, monkeypatch):
