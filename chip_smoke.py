@@ -14,14 +14,14 @@ Run from the root of a checkout.  It builds the CUDA kernels of
    (packed_flash) against their
    plain PyTorch versions at the main paths' shapes, in f32 and bf16, with
    the max abs error and its limit, the kernel's time, the plain version's
-   time, one PyTorch library call on the same work
+   time (and its TFLOP/s), one PyTorch library call on the same work
    (``scaled_dot_product_attention``, a yardstick only — the port never
    calls it; none computes int8-score attention, so K2-int8 records SDPA
    for scale and its distance from K2) and the least time the card could
    take (``panst3r_torch/ops/flops.py::bound_ms``; the f32 K1-K6 also
-   at the 3xTF32 rate of their tensor-core products); the bf16 K1, K2, K3
-   and K6 and the f32 K1-K6 (the Hopper engines) also with the device
-   ms of each CUDA kernel of one traced call, K2, K3 and the f32 K5 with
+   at the 3xTF32 rate of their tensor-core products); the bf16 K1, K2,
+   K2-int8, K3, K4 and K6 and the f32 K1-K6 (the Hopper engines) also with
+   the device ms of each CUDA kernel of one traced call, K2, K3 and the f32 K5 with
    each split size of ``SPLIT_TILES_TRIED``; K5 (flash_bwd) likewise
    against its plain version from K4's own output and LSE, and K4 + K5
    through autograd; K4 and K5 also at train_v2's LoftUp batch
@@ -110,14 +110,17 @@ REPLACES = {
 }
 PHASES = ("kernels", "small", "v1", "v2", "train_v2", "serve", "serve_long",
           "ab_packed")
-# the bf16 K1, K2, K3 and K6 run the Hopper engine (wgmma); of their f32
-# paths (entries ``*_f32`` of the kernels line) K2 and K3 run the 3xTF32
-# engine in the same sources (F32_SOURCE), K1 and K6 the f32 K4's source
-# (its main kernel over strided views); K4 and K5, whose main paths run
-# f32 only, run the 3xTF32 engine in sources of their own (their bf16
-# paths stay on the tile engine, flash_{fwd,bwd}.cu)
+# the bf16 K1, K2, K2-int8, K3, K4 and K6 run the Hopper engine (wgmma; K2-int8
+# its s8 scores); of their f32 paths (entries ``*_f32`` of the kernels
+# line) K2 and K3 run the 3xTF32 engine in the same sources (F32_SOURCE),
+# K1 and K6 the f32 K4's source (its main kernel over strided views); K4
+# and K5, whose main paths run f32 only, run the 3xTF32 engine in sources
+# of their own; the f32 K2-int8 and the bf16 K5 stay on the tile engine
+# (tower_cross_int8.cu, flash_bwd.cu)
 SOURCE = {"tower_self": "tower_self_sm90", "tower_cross": "tower_cross_sm90",
+          "tower_cross_int8": "tower_cross_int8_sm90",
           "masked_attn": "masked_attn_sm90",
+          "flash_fwd": "flash_fwd_bf16_sm90",
           "packed_flash": "packed_flash_sm90"}
 F32_SOURCE = {"tower_self": "flash_fwd_sm90",
               "tower_cross": "tower_cross_sm90",
@@ -509,7 +512,11 @@ def _int8_cases(rnd, g, es, dtype, dev):
         def sdpa(qh=qh, kh=kh, vh=vh, mask=mask):
             return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
 
-        plain = functools.partial(_by_rows, ta.tower_cross_int8_ref)
+        # the plain version at the kernel's key tile (bf16: the Hopper
+        # kernel's 128, f32: the tile engine's 64)
+        plain = functools.partial(_by_rows, functools.partial(
+            ta.tower_cross_int8_ref,
+            tile=ta.BLOCK_K if dtype == torch.bfloat16 else ta.INT8_F32_TILE))
         plain_k2 = functools.partial(_by_rows, ta.tower_cross_attention_ref)
         f32 = (lambda t: t.float())
         if label == "render_long":
@@ -537,7 +544,7 @@ def _int8_cases(rnd, g, es, dtype, dev):
                                       kv_int8=False),
             flops=2.0 * Nq * live * C, int8_ops=2.0 * Nq * live * C,
             bytes=nbytes, reps=5 if label == "render_long" else 20,
-            plain_reps=2))
+            plain_reps=2, warpgroups=ta.INT8_WARPGROUPS))
     return cases
 
 
@@ -598,7 +605,8 @@ def _k4_cases(rnd, g, es, dtype, dev, blocked, full=False):
             f32=lambda: fa.flash_mha_ref(f32(q), f32(k), f32(v), **kw),
             lib=lambda: F.scaled_dot_product_attention(
                 ql, kl, v, attn_mask=lib_mask),
-            flops=4.0 * H * Nq * live_keys * D, bytes=nbytes)
+            flops=4.0 * H * Nq * live_keys * D, bytes=nbytes,
+            warpgroups=fa.bf16_warpgroups(B, H, Nq, D))
 
     def heads(B, N, H, D, s=1.0):
         """(B, H, N, D) view of a (B, N, H*D) projection."""
@@ -999,6 +1007,7 @@ def phase_kernels():
                 "library_ms": (time_ms(c["lib"], reps=reps)
                                if c["lib"] is not None else None),
             }
+            row["tflop_s"] = c["flops"] / row["kernel_ms"] / 1e9
             if "sdpa" in c:
                 # no library call computes int8-score attention: SDPA on
                 # the same shape in this dtype, for scale only
@@ -1030,6 +1039,9 @@ def phase_kernels():
                 row["device_ms_by_kernel"] = {
                     _short(t["name"]): t["ms"] for t in prof["top"]}
                 row["device_ms"] = prof["device_busy_ms"]
+                if prof["device_busy_ms"]:
+                    row["tflop_s_device"] = \
+                        c["flops"] / prof["device_busy_ms"] / 1e9
                 if dtype == torch.bfloat16:
                     row["cta_warpgroups"] = c["warpgroups"]
                 else:

@@ -2,7 +2,9 @@
 // (tower_cross_sm90.cu) and K6 (packed_flash_sm90.cu): d=64 heads, keys in
 // tiles of 128.  K3 (masked_attn_sm90.cu, d=96, 64-key tiles) reuses its
 // barriers, TMA and wgmma wrappers, its softmax step and its row state
-// with a layout of its own.
+// with a layout of its own; so do K2-int8 (tower_cross_int8_sm90.cu: int8
+// scores from wgmma s8) and K4 (flash_fwd_bf16_sm90.cu: d=64 in this
+// layout, d=96 in K3's), which also take the key pre-pass cross_tiles.
 //
 // A CTA holds NWG (1 or 2) consumer warpgroups and one producer
 // warpgroup, in that order.  Consumer warpgroup g owns query rows
@@ -27,7 +29,7 @@
 // against V (an MN-major B operand), into O (64 x 64 f32 per warpgroup),
 // which stays in registers for the whole key walk.
 //
-// Semantics (attn_tile.cuh, and the plain versions in
+// Semantics (the tile engine's, attn_tile.cuh, and the plain versions in
 // panst3r_torch/ops/tower_attention.py): logits live in log2 units
 // (log2 e folded into the scale, so exp2 replaces exp); a masked logit is
 // NEG and a logit <= NEG/2 gives p = 0 exactly; the running max is
@@ -42,7 +44,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "attn_tile.cuh"  // NEG, load_rope, P3_ERROR_STRING_FN
+#include "attn_common.cuh"
 
 namespace p3 {
 namespace sm90 {
@@ -86,6 +88,26 @@ struct Smem {
     return q_full() + 1 + STAGES + s;
   }
 };
+
+// Element strides of a (B, H, N, D) operand with a unit stride over D.
+struct Strides3 {
+  long long b, h, n;
+};
+// Element strides of a dense bias (batch, head, query, key), 0 where it is
+// broadcast.
+struct BiasStrides {
+  long long b, h, q, k;
+};
+// Where the token, head and batch coordinates of a box go among a 4-D
+// map's dims 1..3 (make_map4).
+struct Perm {
+  int tok, head, batch;
+};
+
+__device__ __forceinline__ int pick(int slot, const Perm& p, int tok, int h,
+                                    int b) {
+  return p.tok == slot ? tok : (p.head == slot ? h : b);
+}
 
 // ---------------------------------------------------------------- PTX ----
 
@@ -308,8 +330,8 @@ __device__ __forceinline__ void wgmma_rs_n96(float (&d)[48],
 
 
 // Lanes [d0, d0 + 8) of one d=64 head row (``head`` points at lane 0)
-// rotated in f32 exactly as load_rope does lane by lane (lane d's partner
-// is d ^ 16, so the chunk's partner is the chunk at d0 ^ 16), times
+// rotated in f32 lane by lane, x*cos + rot(x)*sin with rot(x)[d] = d&16 ?
+// x[d-16] : -x[d+16] (so the chunk's partner is the chunk at d0 ^ 16), times
 // ``mul`` (1 leaves them exact), rounded to bf16 and stored as one 16-byte
 // vector.  Without tables the lanes are only multiplied.
 __device__ __forceinline__ void rope8(const __nv_bfloat16* __restrict__ head,
@@ -411,6 +433,12 @@ __device__ __forceinline__ float quad_sum(float x) {
 
 template <int N>
 __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+// s32 accumulators (K2-int8's scores)
+template <int N>
+__device__ __forceinline__ void fence_regs(int (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
@@ -597,6 +625,45 @@ __device__ __forceinline__ void store_normalized(const RowStateN<NO>& st,
   }
 }
 
+// The key pre-pass of K2, K2-int8 and K4: one block of 1024 threads per
+// batch.  Warp w takes tiles w, w + 32, ... of BT keys: the bias in log2
+// units padded to ``nt`` whole tiles (NEG where dead or past Nk) and the
+// tile's liveness (a key with a bias above finfo.min/2; no bias: every key
+// below Nk is live); then warp 0 writes the live tiles in order and their
+// count.
+template <int BT>
+__global__ void cross_tiles(const float* __restrict__ bias,
+                            float* __restrict__ bl, int* __restrict__ list,
+                            int* __restrict__ count, int Nk, int nt) {
+  extern __shared__ int live_tile[];
+  const int b = blockIdx.x, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int t = warp; t < nt; t += 32) {
+    bool any = false;
+#pragma unroll
+    for (int c = lane; c < BT; c += 32) {
+      const int j = t * BT + c;
+      const float x = (j < Nk) ? (bias ? bias[(long)b * Nk + j] : 0.f) : NEG;
+      const bool live = x > 0.5f * NEG;
+      bl[((long)b * nt + t) * BT + c] = live ? x * L2E : NEG;
+      any |= live;
+    }
+    any = __any_sync(0xffffffffu, any);
+    if (lane == 0) live_tile[t] = any;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    int n = 0;
+    for (int t0 = 0; t0 < nt; t0 += 32) {
+      const int t = t0 + lane;
+      const bool f = t < nt && live_tile[t];
+      const unsigned m = __ballot_sync(0xffffffffu, f);
+      if (f) list[b * nt + n + __popc(m & ((1u << lane) - 1))] = t;
+      n += __popc(m);
+    }
+    if (lane == 0) count[b] = n;
+  }
+}
+
 // ------------------------------------------------------------- host ----
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -652,6 +719,50 @@ inline cudaError_t make_map(CUtensorMap* map, const void* base, int B, int N,
   const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
   return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, base, dims,
                     strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// A (B, H, N, D) tensor of ``elem``-byte values with element strides (sb,
+// sh, sn), each a positive multiple of 16 bytes, and a unit lane stride as
+// a 4-D map: lanes, then token, head and batch in ascending order of
+// stride (a dim of size 1 last), boxes of ``box`` lanes x ``rows`` tokens,
+// zeros outside.  ``perm`` receives where each coordinate goes.
+inline cudaError_t make_map4(CUtensorMap* map, CUtensorMapDataType type,
+                             int elem, const void* base, int B, int H, int N,
+                             int D, long long sb, long long sh, long long sn,
+                             int box, int rows, CUtensorMapSwizzle swizzle,
+                             Perm* perm) {
+  struct Dim {
+    long long size, stride;
+    int id;  // 0 token, 1 head, 2 batch
+  };
+  Dim d[3] = {{N, sn, 0}, {H, sh, 1}, {B, sb, 2}};
+  long long widest = D;
+  for (const Dim& x : d) {
+    if (x.size > 1 && (x.stride <= 0 || (x.stride * elem) % 16 != 0))
+      return cudaErrorInvalidValue;
+    if (x.size > 1 && x.stride > widest) widest = x.stride;
+  }
+  auto key = [](const Dim& x) {
+    return x.size > 1 ? x.stride : (1LL << 62);
+  };
+  for (int i = 0; i < 3; ++i)  // three entries: insertion sort
+    for (int j = i; j > 0 && key(d[j]) < key(d[j - 1]); --j) {
+      const Dim t = d[j];
+      d[j] = d[j - 1];
+      d[j - 1] = t;
+    }
+  cuuint64_t dims[4] = {(cuuint64_t)D, 0, 0, 0};
+  cuuint64_t strides[3];
+  cuuint32_t boxes[4] = {(cuuint32_t)box, 1, 1, 1};
+  for (int i = 0; i < 3; ++i) {
+    dims[i + 1] = static_cast<cuuint64_t>(d[i].size);
+    // a dim of size 1 is never stepped: any valid stride does
+    strides[i] =
+        static_cast<cuuint64_t>(d[i].size > 1 ? d[i].stride : widest) * elem;
+    if (d[i].id == 0) boxes[i + 1] = static_cast<cuuint32_t>(rows);
+    (d[i].id == 0 ? perm->tok : d[i].id == 1 ? perm->head : perm->batch) = i;
+  }
+  return encode_map(map, type, 4, base, dims, strides, boxes, swizzle);
 }
 
 }  // namespace sm90

@@ -30,6 +30,8 @@
 // nothing: the dq kernel skips it and the dkdv kernel writes zeros for it.
 // No path launches it: it runs in the kernels phase of chip_smoke.py and
 // the CUDA tests.
+#include <mma.h>
+
 #include <type_traits>
 
 #include "attn_tile.cuh"

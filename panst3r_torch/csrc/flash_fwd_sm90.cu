@@ -1,8 +1,8 @@
 // K4, f32 — generic flash attention forward on the Hopper f32 engine
 // (attn_f32_sm90.cuh, 3xTF32; the shared pieces in flash_sm90.cuh).  The
-// bf16 K4 stays on the tile engine (flash_fwd.cu).  The same main kernel
-// also serves the f32 K1 (p3_tower_self_f32_sm90, below) and, through
-// p3_flash_fwd_sm90, the f32 K6 (ops/packed_attention.py).
+// bf16 K4 is flash_fwd_bf16_sm90.cu (the bf16 Hopper engine).  The same
+// main kernel also serves the f32 K1 (p3_tower_self_f32_sm90, below) and,
+// through p3_flash_fwd_sm90, the f32 K6 (ops/packed_attention.py).
 //
 // Replaces panst3r_tpu/ops/pallas/flash_attention.py::_flash_fwd (body
 // _kernel) in f32: online-softmax attention over (B, H, N, D) streams, D =
@@ -256,8 +256,10 @@ cudaError_t run_main(const Args& a, const float* q, const long long* qs,
   CUtensorMap mq, mkh, mkl, mvh, mvl;
   Perm pq;
   const int BH = a.B * a.H;
-  if ((err = make_map4(&mq, q, a.B, a.H, a.Nq, D, qs[0], qs[1], qs[2], SM::R,
-                       &pq)) != cudaSuccess ||
+  if ((err = sm90::make_map4(&mq, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, q, a.B,
+                             a.H, a.Nq, D, qs[0], qs[1], qs[2], 32, SM::R,
+                             CU_TENSOR_MAP_SWIZZLE_128B, &pq)) !=
+          cudaSuccess ||
       (err = f32e::make_map(&mkh, a.kh, BH, a.Nk, D, KE)) != cudaSuccess ||
       (err = f32e::make_map(&mkl, a.kl, BH, a.Nk, D, KE)) != cudaSuccess ||
       (err = f32e::make_map(&mvh, a.vh, BH, a.Nk, D, KE)) != cudaSuccess ||

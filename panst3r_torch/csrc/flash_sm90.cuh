@@ -49,15 +49,10 @@ constexpr float LN2 = 0.6931471805599453f;
 // a padding or dead row's LSE in log2 units: p = 0 against it
 constexpr float DEAD = -NEG;
 
-// Element strides of a (B, H, N, D) operand with a unit stride over D.
-struct Strides3 {
-  long long b, h, n;
-};
-// Element strides of the dense bias (batch, head, query, key), 0 where it
-// is broadcast.
-struct BiasStrides {
-  long long b, h, q, k;
-};
+using sm90::BiasStrides;
+using sm90::Perm;
+using sm90::pick;
+using sm90::Strides3;
 
 // ---------------------------------------------------------- pre-pass ----
 
@@ -394,60 +389,6 @@ __device__ __forceinline__ float logit(float raw, float sl, float kb,
 }
 
 // ------------------------------------------------------------- host ----
-
-// Where the token, head and batch coordinates of a box go among a 4-D
-// map's dims 1..3.
-struct Perm {
-  int tok, head, batch;
-};
-
-__device__ __forceinline__ int pick(int slot, const Perm& p, int tok, int h,
-                                    int b) {
-  return p.tok == slot ? tok : (p.head == slot ? h : b);
-}
-
-// A (B, H, N, D) f32 tensor with element strides (sb, sh, sn), multiples
-// of 4, and a unit lane stride as a 4-D map: lanes, then token, head and
-// batch in ascending order of stride (a dim of size 1 last), boxes of 32
-// lanes x ``rows`` tokens, 128-byte swizzle, zeros outside.  ``perm``
-// receives where each coordinate goes.
-inline cudaError_t make_map4(CUtensorMap* map, const void* base, int B,
-                             int H, int N, int D, long long sb, long long sh,
-                             long long sn, int rows, Perm* perm) {
-  struct Dim {
-    long long size, stride;
-    int id;  // 0 token, 1 head, 2 batch
-  };
-  Dim d[3] = {{N, sn, 0}, {H, sh, 1}, {B, sb, 2}};
-  long long widest = D;
-  for (const Dim& x : d) {
-    if (x.size > 1 && (x.stride <= 0 || x.stride % 4 != 0))
-      return cudaErrorInvalidValue;
-    if (x.size > 1 && x.stride > widest) widest = x.stride;
-  }
-  auto key = [](const Dim& x) {
-    return x.size > 1 ? x.stride : (1LL << 62);
-  };
-  for (int i = 0; i < 3; ++i)  // three entries: insertion sort
-    for (int j = i; j > 0 && key(d[j]) < key(d[j - 1]); --j) {
-      const Dim t = d[j];
-      d[j] = d[j - 1];
-      d[j - 1] = t;
-    }
-  cuuint64_t dims[4] = {(cuuint64_t)D, 0, 0, 0};
-  cuuint64_t strides[3];
-  cuuint32_t box[4] = {32, 1, 1, 1};
-  for (int i = 0; i < 3; ++i) {
-    dims[i + 1] = static_cast<cuuint64_t>(d[i].size);
-    // a dim of size 1 is never stepped: any valid stride does
-    strides[i] =
-        static_cast<cuuint64_t>(d[i].size > 1 ? d[i].stride : widest) * 4;
-    if (d[i].id == 0) box[i + 1] = static_cast<cuuint32_t>(rows);
-    (d[i].id == 0 ? perm->tok : d[i].id == 1 ? perm->head : perm->batch) = i;
-  }
-  return sm90::encode_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, base,
-                          dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
-}
 
 // Grid of a grid-stride pre-pass over ``total`` elements.
 inline int blocks_for(long long total) {

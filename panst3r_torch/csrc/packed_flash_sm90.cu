@@ -38,17 +38,6 @@ namespace {
 
 constexpr int NWG = 2;
 
-// Where the token, pair and batch coordinates of a box go among a map's
-// dims 1..3.
-struct Perm {
-  int tok, pair, batch;
-};
-
-__device__ __forceinline__ int pick(int slot, const Perm& p, int tok,
-                                    int pair, int b) {
-  return p.tok == slot ? tok : (p.pair == slot ? pair : b);
-}
-
 // The ``rows`` tokens from ``tok`` of one head (lanes 64h .. 64h + 63).
 __device__ __forceinline__ void load_rows(void* dst, const CUtensorMap* map,
                                           const Perm& pm, uint64_t* bar,
@@ -105,45 +94,15 @@ packed_main(const __grid_constant__ CUtensorMap mq,
   }
 }
 
-// A (B, P, N, 128) bf16 tensor with element strides (sb, sp, sn) and a
-// unit lane stride as a 4-D map: lanes, then token, pair and batch in
-// ascending order of stride (a dim of size 1 last), boxes of 64 lanes x
-// ``rows`` tokens.  ``perm`` receives where each coordinate goes.
+// A (B, P, N, 128) bf16 tensor with element strides (sb, sp, sn) as a 4-D
+// map (the pairs in make_map4's head dim), boxes of 64 lanes x ``rows``
+// tokens, 128-byte swizzle.
 cudaError_t make_packed_map(CUtensorMap* map, const void* base, int B, int P,
                             int N, long long sb, long long sp, long long sn,
                             int rows, Perm* perm) {
-  struct Dim {
-    long long size, stride;
-    int id;  // 0 token, 1 pair, 2 batch
-  };
-  Dim d[3] = {{N, sn, 0}, {P, sp, 1}, {B, sb, 2}};
-  long long widest = 128;
-  for (const Dim& x : d) {
-    if (x.size > 1 && (x.stride <= 0 || x.stride % 8 != 0))
-      return cudaErrorInvalidValue;
-    if (x.size > 1 && x.stride > widest) widest = x.stride;
-  }
-  auto key = [](const Dim& x) {
-    return x.size > 1 ? x.stride : (1LL << 62);
-  };
-  for (int i = 0; i < 3; ++i)  // three entries: insertion sort
-    for (int j = i; j > 0 && key(d[j]) < key(d[j - 1]); --j) {
-      const Dim t = d[j];
-      d[j] = d[j - 1];
-      d[j - 1] = t;
-    }
-  cuuint64_t dims[4] = {128, 0, 0, 0};
-  cuuint64_t strides[3];
-  cuuint32_t box[4] = {64, 1, 1, 1};
-  for (int i = 0; i < 3; ++i) {
-    dims[i + 1] = static_cast<cuuint64_t>(d[i].size);
-    // a dim of size 1 is never stepped: any valid stride does
-    strides[i] = static_cast<cuuint64_t>(d[i].size > 1 ? d[i].stride : widest) * 2;
-    if (d[i].id == 0) box[i + 1] = static_cast<cuuint32_t>(rows);
-    (d[i].id == 0 ? perm->tok : d[i].id == 1 ? perm->pair : perm->batch) = i;
-  }
-  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, base, dims,
-                    strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+  return make_map4(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, B, P, N,
+                   128, sb, sp, sn, 64, rows, CU_TENSOR_MAP_SWIZZLE_128B,
+                   perm);
 }
 
 }  // namespace

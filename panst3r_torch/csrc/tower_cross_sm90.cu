@@ -24,8 +24,9 @@
 // same values the old engine built per query block; cross_rotate_f32 the
 // same in f32); cross_tiles writes the key bias in log2 units padded to
 // whole tiles (NEG past Nk) and, per batch, the list of live key tiles and
-// their count.  (2) The main kernel walks a row's live tiles through the
-// TMA ring, with the softmax in registers: bf16 with wgmma products
+// their count (attn_sm90.cuh, shared with K2-int8 and K4).  (2) The main
+// kernel walks a row's live tiles through the TMA ring, with the softmax
+// in registers: bf16 with wgmma products
 // (cross_main), f32 with 3xTF32 mma.sync products (cross_main_f32: 128-row
 // CTAs of four consumer warps of 32 rows, each live 128-key tile as two
 // 64-key ring entries, the last tile's second half skipped where it lies
@@ -113,43 +114,6 @@ __global__ void cross_rotate_f32(const float* __restrict__ q,
                       mul * (x.w * c4.w + sg * p.w * s4.w));
     }
     *reinterpret_cast<float4*>((isq ? qs : ks) + row * C + c) = o;
-  }
-}
-
-// One block of 1024 threads per batch.  Warp w takes tiles w, w + 32, ...:
-// the bias in log2 units padded to ``nt`` whole tiles (NEG where dead or
-// past Nk) and the tile's liveness (a key with a bias above finfo.min/2;
-// no bias: every key below Nk is live); then warp 0 writes the live tiles
-// in order and their count.
-__global__ void cross_tiles(const float* __restrict__ bias,
-                            float* __restrict__ bl, int* __restrict__ list,
-                            int* __restrict__ count, int Nk, int nt) {
-  extern __shared__ int live_tile[];
-  const int b = blockIdx.x, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int t = warp; t < nt; t += 32) {
-    bool any = false;
-#pragma unroll
-    for (int c = lane; c < BKT; c += 32) {
-      const int j = t * BKT + c;
-      const float x = (j < Nk) ? (bias ? bias[(long)b * Nk + j] : 0.f) : NEG;
-      const bool live = x > 0.5f * NEG;
-      bl[((long)b * nt + t) * BKT + c] = live ? x * L2E : NEG;
-      any |= live;
-    }
-    any = __any_sync(0xffffffffu, any);
-    if (lane == 0) live_tile[t] = any;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    int n = 0;
-    for (int t0 = 0; t0 < nt; t0 += 32) {
-      const int t = t0 + lane;
-      const bool f = t < nt && live_tile[t];
-      const unsigned m = __ballot_sync(0xffffffffu, f);
-      if (f) list[b * nt + n + __popc(m & ((1u << lane) - 1))] = t;
-      n += __popc(m);
-    }
-    if (lane == 0) count[b] = n;
   }
 }
 
@@ -451,7 +415,7 @@ extern "C" int p3_tower_cross_sm90(
         kn, static_cast<bf16*>(qs), static_cast<bf16*>(ks), B * Nq, B * Nk,
         C, scale);
   }
-  cross_tiles<<<B, 1024, nt * sizeof(int), st>>>(
+  cross_tiles<BKT><<<B, 1024, nt * sizeof(int), st>>>(
       static_cast<const float*>(bias), static_cast<float*>(bl),
       static_cast<int*>(list), static_cast<int*>(count), Nk, nt);
   cudaError_t err = cudaGetLastError();

@@ -1,7 +1,7 @@
 """K4 and K5: generic flash attention, forward and backward (counterpart of
 panst3r_tpu/ops/pallas/flash_attention.py and flash_attention_bwd.py).
 
-``flash_mha`` (``csrc/flash_fwd.cu``) replaces ``_flash_fwd``: attention
+``flash_mha`` (K4) replaces ``_flash_fwd``: attention
 over (B, H, N, D) streams with an optional dense additive bias, key
 validity, a per-key bias row, 2D-RoPE tables and the natural-log LSE per
 row.  It serves every shape the tower and masked kernels (K1-K3) do not
@@ -33,8 +33,11 @@ the main paths (LoftUp runs in f32 under amp), to the Hopper f32 engine
 (``csrc/flash_fwd_sm90.cu``, ``csrc/flash_bwd_sm90.cu``: a pre-pass that
 writes the streamed operands as TF32 hi/lo planes, 3xTF32 tensor-core
 products, K5's dkdv over ``SPLIT_TILES`` query tiles per CTA merged in
-order); bf16 to the tile engine (``csrc/flash_fwd.cu``,
-``csrc/flash_bwd.cu``).  ``flash_mha_split_ref`` and
+order).  bf16 K4 runs the bf16 Hopper engine
+(``csrc/flash_fwd_bf16_sm90.cu``: q and k rotated once per call, a list of
+live key tiles of ``BF16_KEY_TILE[D]`` keys, wgmma products, the softmax
+in registers; ``bf16_prepass_ref`` is its pre-pass's plain version), bf16
+K5 the tile engine (``csrc/flash_bwd.cu``).  ``flash_mha_split_ref`` and
 ``flash_mha_bwd_split_ref`` emulate the f32 kernels' arithmetic (the
 tests only).
 
@@ -62,6 +65,9 @@ HEAD_DIMS = (64, 96)   # the kernels' instantiations
 KEY_TILE = 32
 QUERY_TILE = 64
 SPLIT_TILES = 64
+# The bf16 K4's key tile by head dim: d=64 in the K1/K2 layout, d=96 in
+# K3's (csrc/flash_fwd_bf16_sm90.cu).
+BF16_KEY_TILE = {64: 128, 96: 64}
 _LOG2E = 1.4426950408889634
 _LN2 = 0.6931471805599453
 
@@ -165,6 +171,15 @@ def _kernel_extras(what, q, k, bias, kv_valid, rope):
     return bias, row, tabs, bstr
 
 
+def _aligned(t):
+    """``t``, or a contiguous copy where its (batch, head, token) strides
+    are not in 16-byte units or its base is not 16-byte aligned."""
+    step = 16 // t.element_size()
+    if any(st % step for st in t.stride()[:3]) or t.data_ptr() % 16:
+        return t.contiguous()
+    return t
+
+
 def _flash_fwd_kernel(q, k, v, bias, kv_valid, rope, scale, with_lse):
     """Launch K4; returns (out, lse or None)."""
     _check_qkv("flash_mha", q, k, v)
@@ -178,10 +193,12 @@ def _flash_fwd_kernel(q, k, v, bias, kv_valid, rope, scale, with_lse):
     lse = (torch.empty((B, H, Nq), dtype=torch.float32, device=dev)
            if with_lse else None)
     f32 = q.dtype == torch.float32
-    # the Hopper f32 engine reads q through a tensor map: strides in
-    # 16-byte units, a 16-byte aligned base
-    if f32 and (any(st % 4 for st in q.stride()[:3]) or q.data_ptr() % 16):
-        q = q.contiguous()
+    # the Hopper engines read q (bf16: q, k and v) through tensor maps or
+    # 16-byte loads
+    if f32:
+        q = _aligned(q)
+    else:
+        q, k, v = map(_aligned, (q, k, v))
     strides = (ctypes.c_longlong * 16)(
         *(_strides(q) + _strides(k) + _strides(v) + _strides(out) + bstr))
     p, P = ctypes.c_void_p, cuda_build.ptr
@@ -197,25 +214,47 @@ def _flash_fwd_kernel(q, k, v, bias, kv_valid, rope, scale, with_lse):
         err = fn(*head, P(qr), *map(P, fwd_scratch(B, H, Nk, D, dev)),
                  stream)
     else:
-        lib, fn = cuda_build.function("flash_fwd", "p3_flash_fwd",
-                                      sig + [p])
-        err = fn(*head, stream)
+        rot = [None, None] if rope is None else [
+            torch.empty((B, H, n, D), dtype=q.dtype, device=dev)
+            for n in (Nq, Nk)]
+        nwg = bf16_warpgroups(B, H, Nq, D)
+        lib, fn = cuda_build.function(
+            "flash_fwd_bf16_sm90", "p3_flash_fwd_bf16_sm90",
+            sig + [ctypes.c_int] + [p] * 6)
+        err = fn(*head, nwg, *map(P, rot),
+                 *map(P, tile_scratch(B, Nk, BF16_KEY_TILE[D], dev)),
+                 stream)
     cuda_build.check(lib, err, "flash_mha")
     flash_mha.launches += 1
     return out, lse
 
 
+def bf16_warpgroups(B: int, H: int, Nq: int, D: int) -> int:
+    """The bf16 K4's consumer warpgroups per CTA: K2's choice
+    (``tower_attention.cta_warpgroups``) at d=64, one (64-row CTAs, two per
+    SM) at d=96; it changes no row's arithmetic."""
+    from panst3r_torch.ops.tower_attention import cta_warpgroups
+
+    return 1 if D == 96 else cta_warpgroups(B, H, Nq)
+
+
+def tile_scratch(B: int, Nk: int, tile: int, device) -> list:
+    """A key pre-pass's outputs: the key biases padded to whole tiles of
+    ``tile`` keys (B, nt·tile) f32, each batch's live tiles (B, nt) and
+    their count (B) int32."""
+    nt = -(-Nk // tile)
+    tiles = torch.empty(B * nt + B, dtype=torch.int32, device=device)
+    return [torch.empty(B, nt * tile, dtype=torch.float32, device=device),
+            tiles, tiles[B * nt:]]
+
+
 def fwd_scratch(B: int, H: int, Nk: int, D: int, device) -> list:
     """The f32 K4 pre-pass's outputs, which its main kernel reads (and the
-    f32 K1's and K6's): the K and V hi/lo planes (B, H, Nk, D) f32, the key
-    biases padded to whole ``KEY_TILE`` tiles (B, nt·KEY_TILE) f32, each
-    batch's live tiles (B, nt) and their count (B) int32."""
-    nt = -(-Nk // KEY_TILE)
-    empty = functools.partial(torch.empty, dtype=torch.float32,
-                              device=device)
-    tiles = torch.empty(B * nt + B, dtype=torch.int32, device=device)
-    return [*(empty(B, H, Nk, D) for _ in range(4)),
-            empty(B, nt * KEY_TILE), tiles, tiles[B * nt:]]
+    f32 K1's and K6's): the K and V hi/lo planes (B, H, Nk, D) f32, then
+    ``tile_scratch`` at ``KEY_TILE`` keys."""
+    planes = [torch.empty(B, H, Nk, D, dtype=torch.float32, device=device)
+              for _ in range(4)]
+    return planes + tile_scratch(B, Nk, KEY_TILE, device)
 
 
 class _FlashMHA(torch.autograd.Function):
@@ -412,19 +451,36 @@ def dkv_splits(Nq: int, split_tiles: int = None) -> int:
     return -(-(-(-Nq // QUERY_TILE)) // split_tiles)
 
 
-def key_tiles_ref(row, B: int, Nk: int, device=None):
-    """Plain version of the f32 kernels' key pre-pass: the per-key bias row
-    (B, Nk) (None: every key live) in log2 units padded to whole
-    ``KEY_TILE`` tiles, finfo.min where dead or past Nk, and each batch's
-    live tiles in order."""
-    nt = -(-Nk // KEY_TILE)
-    x = torch.full((B, nt * KEY_TILE), NEG_INF, device=device)
+def key_tiles_ref(row, B: int, Nk: int, device=None, tile: int = KEY_TILE):
+    """Plain version of the kernels' key pre-pass: the per-key bias row
+    (B, Nk) (None: every key live) in log2 units padded to whole tiles of
+    ``tile`` keys (default the f32 kernels' ``KEY_TILE``), finfo.min where
+    dead or past Nk, and each batch's live tiles in order."""
+    nt = -(-Nk // tile)
+    x = torch.full((B, nt * tile), NEG_INF, device=device)
     x[:, :Nk] = 0.0 if row is None else row.float()
     live = x > NEG_INF / 2
     bl = torch.where(live, x * _LOG2E, torch.full_like(x, NEG_INF))
     tiles = [torch.nonzero(r).flatten().tolist()
-             for r in live.view(B, nt, KEY_TILE).any(-1)]
+             for r in live.view(B, nt, tile).any(-1)]
     return bl, tiles
+
+
+def bf16_prepass_ref(q, k, bias=None, kv_valid=None, rope=None):
+    """Plain version of the bf16 K4's pre-pass (``rope_bf16``,
+    ``cross_tiles`` in ``csrc/flash_fwd_bf16_sm90.cu``): q~ and k~ rotated
+    by the tables in f32 and rounded to the input dtype once, unscaled (q
+    and k themselves without tables), and ``key_tiles_ref`` of the key row
+    (the (B|1, 1, 1, Nk) bias and the validity) at ``BF16_KEY_TILE[D]``.
+    Returns (q~, k~, bias_log2 (B, nt·tile) f32, [live tiles] per
+    batch)."""
+    B, _, _, D = q.shape
+    Nk = k.shape[2]
+    if rope is not None:
+        q = apply_rope_tables_f32(q, rope[0], rope[1])
+        k = apply_rope_tables_f32(k, rope[2], rope[3])
+    _, row = _split_bias(bias, kv_valid, B, Nk)
+    return (q, k) + key_tiles_ref(row, B, Nk, q.device, BF16_KEY_TILE[D])
 
 
 def _steps(n: int, step: int = 8):

@@ -16,10 +16,14 @@ panst3r_tpu/ops/pallas/tower_attention.py).
   call, a list of live key tiles, split-KV with a fixed merge order:
   ``split_plan``): bf16 on the wgmma engine, f32 on the 3xTF32 engine
   ``csrc/attn_f32_sm90.cuh``.
-- ``tower_cross_int8`` (K2-int8, ``csrc/tower_cross_int8.cu``) replaces
-  the ``kv_int8`` branch of ``_cross_fwd``: int8 x int8 -> int32 scores,
-  k quantized per tensor after its rotation (``int8_prepare``), q per row
-  over each head pair in the kernel.  ``tower_cross_attention`` routes to
+- ``tower_cross_int8`` (K2-int8) replaces the ``kv_int8`` branch of
+  ``_cross_fwd``: int8 x int8 -> int32 scores, k quantized per tensor
+  after its rotation (``int8_prepare``), q per row over each head pair by
+  the kernel's pre-pass (``int8_qprep_ref`` is its plain version).  bf16
+  runs ``csrc/tower_cross_int8_sm90.cu`` (the Hopper engine: wgmma s8
+  scores over 128-key tiles, the key pre-pass and live-tile list of K2),
+  f32 the tile engine's ``csrc/tower_cross_int8.cu`` (64-key tiles).
+  ``tower_cross_attention`` routes to
   it on a CUDA tensor exactly where the JAX gate opens (``int8_gate``:
   ``PANST3R_KV_INT8=1`` or ``kv_int8=True``, RoPE tables, Nq >= 16384).
   On a CPU tensor ``tower_cross_attention`` ignores int8, as the JAX
@@ -58,6 +62,12 @@ _LOG2E = math.log2(math.e)
 # arithmetic).
 BLOCK_K = 128
 SPLIT_TILES = 16
+# K2-int8's key tiles: the bf16 kernel's (BLOCK_K, the plain version's
+# default) and the f32 tile engine's; the bf16 kernel's consumer
+# warpgroups per CTA (csrc/tower_cross_int8_sm90.cu's NWG: its launcher
+# refuses any other value)
+INT8_F32_TILE = 64
+INT8_WARPGROUPS = 2
 N_SMS = 132
 # int8 scores engage only at render-scale query counts
 # (panst3r_tpu/ops/pallas/tower_attention.py:45, :472); tests monkeypatch
@@ -463,14 +473,13 @@ def _const(x: float, like) -> torch.Tensor:
     return torch.full((), x, dtype=torch.float32, device=like.device)
 
 
-def int8_prepare(k, qtab, ktab, kv_bias, scale):
+def int8_prepare(k, qtab, ktab, scale):
     """The int8 branch's work outside the kernel (tower_attention.py:483-497),
     in plain torch on the tensors' device: k rotated in f32 with its tables
     and quantized per tensor (one scale sk over batch, heads and keys; it
-    stays on the device), the q tables pre-multiplied by
-    scale·log2(e)·sk, and the key bias times log2(e).
-    Returns (k8 (B, Nk, C) int8, (qcos, qsin) (B, Nq, 64) f32, kb (B, Nk)
-    f32 or None)."""
+    stays on the device) and the q tables pre-multiplied by
+    scale·log2(e)·sk.  Returns (k8 (B, Nk, C) int8, (qcos, qsin)
+    (B, Nq, 64) f32)."""
     B, Nk, C = k.shape
     kf = k.float().reshape(B, Nk, C // 64, 64)
     kr = kf * ktab[0].float()[:, :, None] \
@@ -479,41 +488,57 @@ def int8_prepare(k, qtab, ktab, kv_bias, scale):
     k8 = torch.round(kr / sig_k).to(torch.int8).reshape(B, Nk, C)
     mul = (scale * _LOG2E) * sig_k
     qtabs = tuple((t.float() * mul).contiguous() for t in qtab)
-    kb = None if kv_bias is None \
+    return k8, qtabs
+
+
+def int8_log2_bias(kv_bias):
+    """The key bias (B, Nk) in log2 units, kv_bias·log2(e) in f32, or None:
+    what the plain version and the f32 kernel take (the bf16 kernel's key
+    pre-pass computes it from the raw bias)."""
+    return None if kv_bias is None \
         else (kv_bias.float() * _LOG2E).contiguous()
-    return k8, qtabs, kb
 
 
-def _int8_attend(q, k8, v, qcos, qsin, kb):
-    """The int8 branch's attention from ``int8_prepare``'s outputs, in
-    plain torch: q rotated in f32, amax over each head pair's 128 lanes,
-    q8 = rint(q_rot·127/amax), c = amax/127; integer scores (exact in f32);
-    the stabilizer m = rowmax(s)·c over the keys of live 64-key tiles (the
-    kernel's tiles; the zero scores of the last tile's padding keys count,
-    as in the kernel); p = exp2(s·c + kb − m) rounded to v's dtype before
-    both sums; rows without a live key → 0."""
+def int8_qprep_ref(q, qcos, qsin):
+    """Plain version of K2-int8's q pre-pass (``int8_qprep``): q rotated in
+    f32 with the pre-scaled tables, amax over each head pair's 128 lanes,
+    q8 = rint(q_rot·127/amax), c = amax/127.  Returns (q8 (B, Nq, C)
+    int8, c (B, Nq, C/128) f32)."""
+    B, Nq, C = q.shape
+    qf = q.float().reshape(B, Nq, C // 64, 64)
+    qrot = qf * qcos[:, :, None] + _rotate_half_2d(qf) * qsin[:, :, None]
+    pairs = qrot.reshape(B, Nq, C // 128, 128)
+    amax = torch.clamp(pairs.abs().amax(-1, keepdim=True), min=1e-20)
+    q8 = torch.round(pairs * (_const(127.0, q) / amax))
+    c = amax * (1.0 / 127.0)
+    return q8.to(torch.int8).reshape(B, Nq, C), c[..., 0]
+
+
+def _int8_attend(q, k8, v, qcos, qsin, kb, tile: int = BLOCK_K):
+    """The int8 branch's attention from ``int8_prepare``'s outputs and the
+    log2 key bias ``kb`` (``int8_log2_bias``), in plain torch: q8 and c
+    from ``int8_qprep_ref``; integer scores (exact in f32); the stabilizer
+    m = rowmax(s)·c over the keys of live key tiles of ``tile`` keys (the
+    kernel's tiles: BLOCK_K for bf16, INT8_F32_TILE for f32; the zero
+    scores of the last tile's padding keys count, as in the kernel); p = exp2(s·c + kb − m) rounded to v's dtype before both sums;
+    rows without a live key → 0."""
     B, Nq, C = q.shape
     Nk = k8.shape[1]
     H = C // 64
-    qf = q.float().reshape(B, Nq, H, 64)
-    qrot = qf * qcos[:, :, None] + _rotate_half_2d(qf) * qsin[:, :, None]
-    pairs = qrot.reshape(B, Nq, H // 2, 128)
-    amax = torch.clamp(pairs.abs().amax(-1, keepdim=True), min=1e-20)
-    q8 = torch.round(pairs * (_const(127.0, q) / amax))
-    c = (amax * (1.0 / 127.0)).repeat_interleave(2, dim=2)   # (B,Nq,H,1)
-    q8 = q8.reshape(B, Nq, H, 64).transpose(1, 2)
-    c = c.transpose(1, 2)                                     # (B,H,Nq,1)
+    q8, c = int8_qprep_ref(q, qcos, qsin)
+    q8 = q8.float().reshape(B, Nq, H, 64).transpose(1, 2)
+    c = c.repeat_interleave(2, dim=2).transpose(1, 2)[..., None]  # (B,H,Nq,1)
     kh = k8.float().reshape(B, Nk, H, 64).transpose(1, 2)
     s = torch.matmul(q8, kh.transpose(-1, -2))
     kbf = torch.zeros(B, Nk, device=q.device) if kb is None else kb
-    n_tiles = -(-Nk // 64)
-    padded = torch.full((B, n_tiles * 64), NEG_INF, device=q.device)
+    n_tiles = -(-Nk // tile)
+    padded = torch.full((B, n_tiles * tile), NEG_INF, device=q.device)
     padded[:, :Nk] = kbf
-    live = (padded.view(B, n_tiles, 64) > NEG_INF / 2).any(-1)
-    live_key = live.repeat_interleave(64, dim=1)[:, :Nk]      # (B, Nk)
+    live = (padded.view(B, n_tiles, tile) > NEG_INF / 2).any(-1)
+    live_key = live.repeat_interleave(tile, dim=1)[:, :Nk]    # (B, Nk)
     smax = torch.where(live_key[:, None, None], s,
                        torch.full_like(s, -math.inf)).amax(-1, keepdim=True)
-    if Nk % 64:
+    if Nk % tile:
         tail = live[:, -1][:, None, None, None]
         smax = torch.where(tail, torch.clamp(smax, min=0.0), smax)
     m = smax * c
@@ -528,16 +553,20 @@ def _int8_attend(q, k8, v, qcos, qsin, kb):
     return _merge_heads((num / den).to(q.dtype))
 
 
-def tower_cross_int8_ref(q, k, v, qtab, ktab, kv_bias=None, scale=None):
-    """Plain version of K2-int8 (same arguments as ``tower_cross_int8``)."""
+def tower_cross_int8_ref(q, k, v, qtab, ktab, kv_bias=None, scale=None,
+                         tile: int = BLOCK_K):
+    """Plain version of K2-int8 (same arguments as ``tower_cross_int8``;
+    ``tile``: the kernel's key tile, as ``_int8_attend`` takes it)."""
     if scale is None:
         scale = 64 ** -0.5
-    k8, (qcos, qsin), kb = int8_prepare(k, qtab, ktab, kv_bias, scale)
-    return _int8_attend(q, k8, v, qcos, qsin, kb)
+    k8, (qcos, qsin) = int8_prepare(k, qtab, ktab, scale)
+    return _int8_attend(q, k8, v, qcos, qsin, int8_log2_bias(kv_bias), tile)
 
 
 def _tower_cross_int8_kernel(q, k, v, qtab, ktab, kv_bias, scale):
-    """Launch K2-int8 after ``int8_prepare``."""
+    """Launch K2-int8 after ``int8_prepare``: one launch as counted,
+    whatever CUDA launches the call makes (bf16: the q and key pre-passes
+    and the main kernel)."""
     import ctypes
 
     B, Nq, C = q.shape
@@ -559,14 +588,28 @@ def _tower_cross_int8_kernel(q, k, v, qtab, ktab, kv_bias, scale):
     _tables(ktab, B, Nk, dev, "ktab")
     if kv_bias is not None:
         _check(kv_bias, "kv_bias", (B, Nk), torch.float32, dev)
-    k8, (qcos, qsin), kb = int8_prepare(k, qtab, ktab, kv_bias, scale)
+    k8, (qcos, qsin) = int8_prepare(k, qtab, ktab, scale)
     out = torch.empty((B, Nq, C), dtype=q.dtype, device=dev)
-    p = ctypes.c_void_p
-    lib, fn = cuda_build.function("tower_cross_int8", "p3_tower_cross_int8",
-                                  [p] * 7 + [ctypes.c_int] * 5 + [p])
-    P = cuda_build.ptr
-    err = fn(P(q), P(k8), P(v), P(qcos), P(qsin), P(kb), P(out), B, Nq, Nk,
-             C, int(q.dtype == torch.bfloat16), cuda_build.stream_of(q))
+    p, i32, P = ctypes.c_void_p, ctypes.c_int, cuda_build.ptr
+    stream = cuda_build.stream_of(q)
+    if q.dtype == torch.bfloat16:       # the Hopper engine
+        q8 = torch.empty((B, Nq, C), dtype=torch.int8, device=dev)
+        c = torch.empty((B, Nq, C // 128), dtype=torch.float32, device=dev)
+        lib, fn = cuda_build.function(
+            "tower_cross_int8_sm90", "p3_tower_cross_int8_sm90",
+            [p] * 12 + [i32] * 5 + [p])
+        scratch = fa.tile_scratch(B, Nk, BLOCK_K, dev)
+        # the key pre-pass takes the raw key bias (log2 units are its work)
+        err = fn(P(q), P(k8), P(v), P(qcos), P(qsin), P(kv_bias), P(out),
+                 P(q8), P(c), *map(P, scratch), B, Nq, Nk, C,
+                 INT8_WARPGROUPS, stream)
+    else:                               # f32: the tile engine
+        lib, fn = cuda_build.function("tower_cross_int8",
+                                      "p3_tower_cross_int8",
+                                      [p] * 7 + [i32] * 4 + [p])
+        kb = int8_log2_bias(kv_bias)
+        err = fn(P(q), P(k8), P(v), P(qcos), P(qsin), P(kb), P(out), B, Nq,
+                 Nk, C, stream)
     cuda_build.check(lib, err, "tower_cross_int8")
     tower_cross_int8.launches += 1
     return out

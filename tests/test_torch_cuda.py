@@ -14,6 +14,8 @@ without the repo's conftest):
     python -m pytest --noconftest -o addopts="" -p no:cacheprovider \
         -m cuda tests/test_torch_cuda.py
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -629,8 +631,9 @@ def test_flash_f32_bits_unchanged(dev):
 
 
 def test_k4_k5_route_by_dtype(dev, monkeypatch):
-    """f32 K4 and K5 run the Hopper f32 engine's libraries, bf16 the tile
-    engine's; one launch per K4 call and two per K5 call either way."""
+    """f32 K4 and K5 run the Hopper f32 engine's libraries; bf16 K4 the
+    bf16 Hopper engine's and bf16 K5 the tile engine's; one launch per K4
+    call and two per K5 call either way."""
     from panst3r_torch.ops import cuda_build
 
     names = []
@@ -642,15 +645,18 @@ def test_k4_k5_route_by_dtype(dev, monkeypatch):
 
     monkeypatch.setattr(cuda_build, "function", recording)
     g = torch.Generator(device=dev).manual_seed(6)
-    for dtype, suffix in ((torch.float32, "_sm90"), (torch.bfloat16, "")):
+    for dtype, fwd, bwd in ((torch.float32, "flash_fwd_sm90",
+                             "flash_bwd_sm90"),
+                            (torch.bfloat16, "flash_fwd_bf16_sm90",
+                             "flash_bwd")):
         q, k, v, *_ = _flash_inputs(g, dev, dtype, "plain", 96)
         n0, b0 = fa.flash_mha.launches, fa.flash_mha_bwd.launches
         del names[:]
         o, lse = fa.flash_mha(q, k, v, with_lse=True)
-        assert names == ["flash_fwd" + suffix], names
+        assert names == [fwd], names
         fa.flash_mha_bwd(q, k, v, o, lse, q)
         torch.cuda.synchronize()
-        assert names[1:] == ["flash_bwd" + suffix] * 2, names
+        assert names[1:] == [bwd] * 2, names
         assert fa.flash_mha.launches == n0 + 1
         assert fa.flash_mha_bwd.launches == b0 + 2
 
@@ -660,7 +666,10 @@ def test_gradients_through_kernels(dev, dtype):
     """K1-K3 gradients on the card bit-equal to their plain formula's on
     the same inputs, at small shapes (chip_smoke.py's ``phase_autograd``
     does it at the main paths'); K4 + K5 through autograd against
-    autograd through ``flash_mha_ref``."""
+    autograd through ``flash_mha_ref`` (f32, within 1e-4 of the gradient's
+    max); bf16, the Hopper K4 feeding the tile engine's K5 its output and
+    LSE, by the bf16 rule against the plain versions' chain
+    (``flash_mha_ref``, then ``flash_mha_bwd_ref``) in bf16 and in f32."""
     g = torch.Generator(device=dev).manual_seed(11)
     qkv = _rnd(g, dev, dtype, 2, 300, 384, s=QK_STD).requires_grad_()
     tabs = rope2d_tables(torch.randint(0, 20, (2, 300, 2), generator=g,
@@ -695,18 +704,27 @@ def test_gradients_through_kernels(dev, dtype):
         got = torch.autograd.grad(out, ins, cot)
         want = torch.autograd.grad(plain(*ins), ins, cot)
         assert all(torch.equal(a, b) for a, b in zip(got, want))
+    fq, fk, fv = (_rnd(g, dev, dtype, 2, 3, n, 96, s=s).requires_grad_()
+                  for n, s in ((130, QK_STD), (333, QK_STD), (333, 1.0)))
+    cot = torch.randn(2, 3, 130, 96, generator=g, device=dev).to(dtype)
+    n0 = fa.flash_mha_bwd.launches
+    got = torch.autograd.grad(fa.flash_mha(fq, fk, fv), (fq, fk, fv), cot)
+    assert fa.flash_mha_bwd.launches == n0 + 2
+    want = torch.autograd.grad(fa.flash_mha_ref(fq, fk, fv), (fq, fk, fv),
+                               cot)
     if dtype == torch.float32:
-        fq, fk, fv = (_rnd(g, dev, dtype, 2, 3, n, 96, s=s).requires_grad_()
-                      for n, s in ((130, QK_STD), (333, QK_STD), (333, 1.0)))
-        cot = torch.randn(2, 3, 130, 96, generator=g, device=dev)
-        n0 = fa.flash_mha_bwd.launches
-        got = torch.autograd.grad(fa.flash_mha(fq, fk, fv), (fq, fk, fv),
-                                  cot)
-        assert fa.flash_mha_bwd.launches == n0 + 2
-        want = torch.autograd.grad(fa.flash_mha_ref(fq, fk, fv),
-                                   (fq, fk, fv), cot)
         for a, b in zip(got, want):
             assert (a - b).abs().max() <= 1e-4 * b.abs().max()
+    else:
+        def chain(q, k, v, do):         # K4's and K5's plain versions
+            o, lse = fa.flash_mha_ref(q, k, v, with_lse=True)
+            return fa.flash_mha_bwd_ref(q, k, v, o, lse, do)
+
+        ins = [t.detach() for t in (fq, fk, fv, cot)]
+        check = chip_smoke._grad_check(got, chain(*ins),
+                                       chain(*(t.float() for t in ins)),
+                                       dtype)
+        assert all(c["ok"] and c["finite"] for c in check.values()), check
 
 
 def test_small_train_step_card_matches_cpu(dev):
@@ -738,17 +756,22 @@ def _int8_inputs(g, dev, dtype, B, Nq, Nk, C, bias):
 @pytest.mark.parametrize("B,Nq,Nk,C,bias", [
     (1, 130, 333, 256, True), (1, 1, 64, 128, False),
     (1, 16384, 3000, 768, True),          # chip_smoke's gate_edge
-    (2, 2000, 3072, 768, False)])         # batch2
+    (2, 2000, 3072, 768, False),          # batch2
+    (1, 300, 1000, 256, False)])          # Nk % 128 = 104 > 64: the last
+                                          # tile's padding differs by tile
 def test_tower_cross_int8_kernel(dev, dtype, B, Nq, Nk, C, bias):
-    """K2-int8 against its plain version (f32 within 1e-4, bf16 by the
-    bf16 rule against the plain version with f32 v and p)."""
+    """K2-int8 against its plain version at the kernel's key tile (f32
+    within 1e-4, bf16 by the bf16 rule against the plain version with f32
+    v and p)."""
     g = torch.Generator(device=dev).manual_seed(Nq + Nk)
     args = _int8_inputs(g, dev, dtype, B, Nq, Nk, C, bias)
     n0 = ta.tower_cross_int8.launches
     out = ta.tower_cross_int8(*args)
     assert ta.tower_cross_int8.launches == n0 + 1
+    tile = ta.BLOCK_K if dtype == torch.bfloat16 else ta.INT8_F32_TILE
+    plain = functools.partial(ta.tower_cross_int8_ref, tile=tile)
     _close(out, lambda q, k, v, *rest: chip_smoke._by_rows(
-        ta.tower_cross_int8_ref, q, rest[0], k, v, *rest[1:]), *args)
+        plain, q, rest[0], k, v, *rest[1:]), *args)
 
 
 def test_int8_gate_launches(dev, monkeypatch):

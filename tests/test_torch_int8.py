@@ -80,11 +80,12 @@ def test_int8_ref_matches_pallas(monkeypatch, B, Nq, Nk, C, bias):
 
 def test_int8_prepare_scales():
     """The per-tensor key scale and the pre-scaled q tables: k8 spans
-    [-127, 127] with one scale for all of the batch, and the q tables carry
-    scale·log2(e)·sk."""
+    [-127, 127] with one scale for all of the batch, the q tables carry
+    scale·log2(e)·sk, and ``int8_log2_bias`` gives the key bias times
+    log2(e)."""
     q, k, v, qtab, ktab, kb = _inputs(3, 2, 64, 200, 128, "soft")
-    k8, (qcos, qsin), kbs = ta.int8_prepare(_t(k), _t(qtab), _t(ktab),
-                                            _t(kb), SCALE)
+    k8, (qcos, qsin) = ta.int8_prepare(_t(k), _t(qtab), _t(ktab), SCALE)
+    kbs = ta.int8_log2_bias(_t(kb))
     assert k8.dtype == torch.int8 and k8.shape == k.shape
     assert int(k8.abs().max()) == 127
     assert int(k8[0].abs().max()) < 127        # batch 1 sets the scale
