@@ -18,11 +18,11 @@ Run from the root of a checkout.  It builds the CUDA kernels of
    (``scaled_dot_product_attention``, a yardstick only — the port never
    calls it; none computes int8-score attention, so K2-int8 records SDPA
    for scale and its distance from K2) and the least time the card could
-   take (``panst3r_torch/ops/flops.py::bound_ms``; the f32 K1-K6 also
-   at the 3xTF32 rate of their tensor-core products); the bf16 K1, K2,
-   K2-int8, K3, K4 and K6 and the f32 K1-K6 (the Hopper engines) also with
-   the device ms of each CUDA kernel of one traced call, K2, K3 and the f32 K5 with
-   each split size of ``SPLIT_TILES_TRIED``; K5 (flash_bwd) likewise
+   take (``panst3r_torch/ops/flops.py::bound_ms``; the f32 K1-K6 and
+   K2-int8 also at the 3xTF32 rate of their tensor-core products); every
+   kernel in both dtypes (the Hopper engines) also with the device ms of
+   each CUDA kernel of one traced call, K2, K3 and K5 with each split
+   size of ``SPLIT_TILES_TRIED``; K5 (flash_bwd) likewise
    against its plain version from K4's own output and LSE, and K4 + K5
    through autograd; K4 and K5 also at train_v2's LoftUp batch
    (``loftup_train_full``, f32, plain versions per slice of views), the
@@ -100,30 +100,35 @@ REPLACES = {
                        "(f32 branch)",
     "tower_cross_int8": "panst3r_tpu/ops/pallas/tower_attention.py:411 "
                         "(kv_int8)",
+    "tower_cross_int8_f32": "panst3r_tpu/ops/pallas/tower_attention.py:411 "
+                            "(kv_int8, f32)",
     "masked_attn": "panst3r_tpu/ops/pallas/masked_attention.py:119",
     "masked_attn_f32": "panst3r_tpu/ops/pallas/masked_attention.py:119 "
                        "(f32)",
     "flash_fwd": "panst3r_tpu/ops/pallas/flash_attention.py:171",
     "flash_bwd": "panst3r_tpu/ops/pallas/flash_attention_bwd.py:115",
+    "flash_bwd_bf16": "panst3r_tpu/ops/pallas/flash_attention_bwd.py:115 "
+                      "(bf16)",
     "packed_flash": "tools/ab_attention_packed.py:84",
     "packed_flash_f32": "tools/ab_attention_packed.py:84 (f32)",
 }
 PHASES = ("kernels", "small", "v1", "v2", "train_v2", "serve", "serve_long",
           "ab_packed")
-# the bf16 K1, K2, K2-int8, K3, K4 and K6 run the Hopper engine (wgmma; K2-int8
-# its s8 scores); of their f32 paths (entries ``*_f32`` of the kernels
-# line) K2 and K3 run the 3xTF32 engine in the same sources (F32_SOURCE),
-# K1 and K6 the f32 K4's source (its main kernel over strided views); K4
-# and K5, whose main paths run f32 only, run the 3xTF32 engine in sources
-# of their own; the f32 K2-int8 and the bf16 K5 stay on the tile engine
-# (tower_cross_int8.cu, flash_bwd.cu)
+# every kernel runs a Hopper engine in both dtypes: bf16 the wgmma engine
+# (K2-int8 its s8 scores); of the f32 paths (entries ``*_f32`` of the
+# kernels line) K2, K2-int8 and K3 run the 3xTF32 engine in the same
+# sources (F32_SOURCE; K2-int8 its scores by mma.sync s8), K1 and K6 the
+# f32 K4's source (its main kernel over strided views); K4 and K5 run
+# sources of their own per dtype (their main paths run f32 only)
 SOURCE = {"tower_self": "tower_self_sm90", "tower_cross": "tower_cross_sm90",
           "tower_cross_int8": "tower_cross_int8_sm90",
           "masked_attn": "masked_attn_sm90",
           "flash_fwd": "flash_fwd_bf16_sm90",
+          "flash_bwd": "flash_bwd_bf16_sm90",
           "packed_flash": "packed_flash_sm90"}
 F32_SOURCE = {"tower_self": "flash_fwd_sm90",
               "tower_cross": "tower_cross_sm90",
+              "tower_cross_int8": "tower_cross_int8_sm90",
               "masked_attn": "masked_attn_sm90",
               "flash_fwd": "flash_fwd_sm90", "flash_bwd": "flash_bwd_sm90",
               "packed_flash": "flash_fwd_sm90"}
@@ -131,21 +136,29 @@ F32_SOURCE = {"tower_self": "flash_fwd_sm90",
 # K4 in LoftUp's f32 (flax promotes that branch to f32 under amp; the v2
 # scene's 4 views), K5 at train_v2's LoftUp call (B*V = 10 views), the f32
 # K1-K3 in train_v2 (at its shapes), K6 in the A/B tool (bf16, and its f32
-# run)
+# run); two kernels no path runs (NO_PATH): the f32 K2-int8 (serving is
+# bf16) at the long render, the bf16 K5 (LoftUp runs f32) at LoftUp's
+# training shape
 MAIN_CASE = {"tower_self": ("encoder_rope", "bfloat16"),
              "tower_cross": ("render", "bfloat16"),
              "tower_self_f32": ("encoder_train", "float32"),
              "tower_cross_f32": ("render_train", "float32"),
              "tower_cross_int8": ("render_long", "bfloat16"),
+             "tower_cross_int8_f32": ("render_long", "float32"),
              "masked_attn": ("mask_transformer", "bfloat16"),
              "masked_attn_f32": ("mask_transformer_train", "float32"),
              "flash_fwd": ("loftup", "float32"),
              "flash_bwd": ("loftup_train_full", "float32"),
+             "flash_bwd_bf16": ("loftup_train", "bfloat16"),
              "packed_flash": ("tool", "bfloat16"),
              "packed_flash_f32": ("tool", "float32")}
+# entries of the kernels line that no main path launches: listed with
+# their launches summed over every path this run drove, which the launch
+# check holds to 0
+NO_PATH = ("tower_cross_int8_f32", "flash_bwd_bf16")
 # K2's and K3's fixed splits (key tiles per split) and a larger one, each
 # timed on the kernel's cases on the Hopper engines (bf16, and f32) in the
-# same run; K5's f32 dkdv splits (query tiles of 64 per split) likewise
+# same run; K5's dkdv splits (query tiles of 64 per split) likewise
 SPLIT_TILES_TRIED = {"tower_cross": (16, 48), "masked_attn": (8, 16),
                      "flash_bwd": (64, 192)}
 # LoftUp's call in the train_v2 micro-step: all B*V = 2*5 views at once,
@@ -512,8 +525,7 @@ def _int8_cases(rnd, g, es, dtype, dev):
         def sdpa(qh=qh, kh=kh, vh=vh, mask=mask):
             return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
 
-        # the plain version at the kernel's key tile (bf16: the Hopper
-        # kernel's 128, f32: the tile engine's 64)
+        # the plain version at the kernel's key tile (bf16: 128, f32: 64)
         plain = functools.partial(_by_rows, functools.partial(
             ta.tower_cross_int8_ref,
             tile=ta.BLOCK_K if dtype == torch.bfloat16 else ta.INT8_F32_TILE))
@@ -765,10 +777,10 @@ def phase_k5(dtype, dname: str, dev, rows: dict) -> None:
     K4 + K5 through autograd against autograd through ``flash_mha_ref``
     (f32; in bf16 against the plain pair's gradients, with the exact f32
     gradient as the reference).  A case with ``slices`` holds both against
-    the plain versions run per slice of views.  The f32 rows (the Hopper
-    f32 engine) also carry the device ms of each CUDA kernel of one traced
-    call, the 3xTF32 bound, the library's CUDA kernels and each dkdv split
-    of SPLIT_TILES_TRIED."""
+    the plain versions run per slice of views.  Every row (the Hopper
+    engines) also carries the device ms of each CUDA kernel of one traced
+    call, the library's CUDA kernels and each dkdv split of
+    SPLIT_TILES_TRIED; the f32 rows the 3xTF32 bound."""
     import torch
 
     from panst3r_torch.core.profiling import profile_by_kernel
@@ -827,7 +839,7 @@ def phase_k5(dtype, dname: str, dev, rows: dict) -> None:
             po, plse = fa.flash_mha_ref(q, k, v, with_lse=True, **kw)
             pair = fa.flash_mha_bwd_ref(q, k, v, po, plse, do, **kw)
         check["autograd"] = _grad_check(auto, pair, exact, dtype)
-        del ins, auto, exact, pair, f32, want_f32
+        del ins, auto, exact, pair, f32
         ok = all(g["ok"] and g["finite"] for part in check.values()
                  for g in part.values())
         reps = 5 if n is not None else 10
@@ -842,18 +854,17 @@ def phase_k5(dtype, dname: str, dev, rows: dict) -> None:
         }
         if n is not None:
             row["plain_by_slices_of"] = n
-        if dtype == torch.float32:
+        prof = profile_by_kernel(fn, top=8)
+        if not prof["top"]:                 # a trace that caught nothing
             prof = profile_by_kernel(fn, top=8)
-            if not prof["top"]:             # a trace that caught nothing
-                prof = profile_by_kernel(fn, top=8)
-            row["device_ms_by_kernel"] = {
-                _short(t["name"]): t["ms"] for t in prof["top"]}
-            row["device_ms"] = prof["device_busy_ms"]
-            lib = profile_by_kernel(_sdpa_bwd(c), top=6)
-            row["library_device_ms_by_kernel"] = {
-                t["name"][:160]: t["ms"] for t in lib["top"]}
-            row["max_splits"] = fa.dkv_splits(q.shape[2])
-            row["by_split_tiles"] = _k5_splits(fn, reps, want)
+        row["device_ms_by_kernel"] = {
+            _short(t["name"]): t["ms"] for t in prof["top"]}
+        row["device_ms"] = prof["device_busy_ms"]
+        lib = profile_by_kernel(_sdpa_bwd(c), top=6)
+        row["library_device_ms_by_kernel"] = {
+            t["name"][:160]: t["ms"] for t in lib["top"]}
+        row["max_splits"] = fa.dkv_splits(q.shape[2])
+        row["by_split_tiles"] = _k5_splits(fn, reps, want, want_f32, dtype)
         row["launches"] = fa.flash_mha_bwd.launches - n0
         row["bound_ms"], row["bound_by"] = bound_ms(c["flops"], c["bytes"],
                                                     dname)
@@ -864,17 +875,16 @@ def phase_k5(dtype, dname: str, dev, rows: dict) -> None:
         if not ok:
             raise AssertionError(f"flash_bwd {c['case']} {dname}: {check}")
         rows[("flash_bwd", c["case"], dname)] = row
-        del got, want, o, lse
+        del got, want, want_f32, o, lse
         torch.cuda.empty_cache()
 
 
-def _k5_splits(fn, reps, want) -> dict:
-    """The f32 K5 timed (CUDA events, and the device time of one traced
-    call) and held to the f32 rule against the plain gradients ``want``,
-    with each fixed dkdv split of SPLIT_TILES_TRIED in turn (the module's
-    ``SPLIT_TILES`` restored after)."""
-    import torch
-
+def _k5_splits(fn, reps, want, want_f32, dtype) -> dict:
+    """K5 timed (CUDA events, and the device time of one traced call) and
+    held to its dtype's rule against the plain gradients ``want`` (bf16:
+    with their f32 run ``want_f32``), with each fixed dkdv split of
+    SPLIT_TILES_TRIED in turn (the module's ``SPLIT_TILES`` restored
+    after)."""
     from panst3r_torch.core.profiling import profile_by_kernel
     from panst3r_torch.ops import flash_attention as fa
 
@@ -883,7 +893,7 @@ def _k5_splits(fn, reps, want) -> dict:
         for st in SPLIT_TILES_TRIED["flash_bwd"]:
             fa.SPLIT_TILES = st
             got = fn()
-            check = _grad_check(got, want, want, torch.float32)
+            check = _grad_check(got, want, want_f32, dtype)
             busy = profile_by_kernel(fn, top=8)["device_busy_ms"] \
                 or profile_by_kernel(fn, top=8)["device_busy_ms"]
             res[str(st)] = {"ms": time_ms(fn, reps=reps), "device_ms": busy,
@@ -1044,7 +1054,7 @@ def phase_kernels():
                         c["flops"] / prof["device_busy_ms"] / 1e9
                 if dtype == torch.bfloat16:
                     row["cta_warpgroups"] = c["warpgroups"]
-                else:
+                elif c["lib"] is not None:
                     # which CUDA kernels the f32 yardstick runs (and their
                     # device ms): the kernel it is compared with
                     lib = profile_by_kernel(c["lib"], top=4)
@@ -1061,7 +1071,7 @@ def phase_kernels():
             if hopper and dtype == torch.float32:
                 # the same work at the rate of the kernel's 3xTF32 products
                 row["bound_ms_tf32x3"], row["bound_by_tf32x3"] = bound_ms(
-                    c["flops"], c["bytes"], "tf32x3")
+                    c["flops"], c["bytes"], "tf32x3", c.get("int8_ops", 0))
             emit(row)
             if not (finite and check["ok"]):
                 raise AssertionError(f"{name} {label} {dname}: max abs err "
@@ -2271,36 +2281,40 @@ def main(argv=None) -> int:
         launches["ab_packed"], launches["ab_packed_f32"] = phase_ab_packed()
 
     def count(entry, path):
-        """An entry's launches on a path: the wrapper counts of K1, K2, K3
-        and K6 split into the Hopper engine's (bf16) and the f32
-        kernel's."""
-        name = entry.removesuffix("_f32")
+        """An entry's launches on a path: its wrapper's launches in the
+        entry's dtype (each wrapper's ``launches_f32`` is the f32
+        share)."""
+        name = entry.removesuffix("_f32").removesuffix("_bf16")
         n = launches.get(path, {}).get(name)
-        if n is None or name not in SOURCE:
+        if n is None:
             return n
         f32 = F32_LAUNCHES.get(path, {}).get(name, 0)
-        return f32 if entry != name else n - f32
+        return f32 if MAIN_CASE[entry][1] == "float32" else n - f32
 
     kernels = []
     for entry, (case, dname) in MAIN_CASE.items():
-        name = entry.removesuffix("_f32")
+        name = entry.removesuffix("_f32").removesuffix("_bf16")
         r = rows.get((name, case, dname), {})
         # each kernel's count on its path: K6 on the A/B tool (bf16, and
-        # its f32 run), K4, K5 and the f32 K1-K3 on train_v2, the others on
-        # serve_long
+        # its f32 run), K4, K5 and the f32 K1-K3 on train_v2, NO_PATH on
+        # none, the others on serve_long
         path = {"packed_flash": "ab_packed",
                 "packed_flash_f32": "ab_packed_f32",
                 "flash_fwd": "train_v2", "flash_bwd": "train_v2",
                 "tower_self_f32": "train_v2", "tower_cross_f32": "train_v2",
                 "masked_attn_f32": "train_v2"}.get(entry, "serve_long")
+        if entry in NO_PATH:
+            path = None
         source = (F32_SOURCE if dname == "float32" else SOURCE).get(name,
                                                                       name)
+        by_path = {p: count(entry, p) for p in launches}
         kernels.append({
             "name": entry, "route": "cuda",
             "source": f"panst3r_torch/csrc/{source}.cu",
-            "replaces": REPLACES[entry],
-            "launches": count(entry, path),
-            "launches_by_path": {p: count(entry, p) for p in launches},
+            "replaces": REPLACES[entry], "main_path": path,
+            "launches": (sum(n or 0 for n in by_path.values())
+                         if path is None else count(entry, path)),
+            "launches_by_path": by_path,
             "case": case, "dtype": dname,
             "max_abs_err": r.get("max_abs_err"), "ms": r.get("kernel_ms"),
             "plain_ms": r.get("plain_ms"), "bound_ms": r.get("bound_ms"),
@@ -2309,9 +2323,15 @@ def main(argv=None) -> int:
         if "bound_ms_tf32x3" in r:
             kernels[-1]["bound_ms_tf32x3"] = r["bound_ms_tf32x3"]
     emit({"kernels": kernels})
-    idle = [k["name"] for k in kernels if not k["launches"]]
+    idle = [k["name"] for k in kernels
+            if k["main_path"] is not None and not k["launches"]]
+    stray = [k["name"] for k in kernels
+             if k["main_path"] is None and k["launches"]]
     if phases == set(PHASES) and idle:
         raise AssertionError(f"not launched on their main paths: {idle}")
+    if stray:
+        raise AssertionError(f"launched on a path that should not run them: "
+                             f"{stray}")
     if phases != set(PHASES):
         print("chip_smoke: partial run, no result line", file=sys.stderr)
         return 1

@@ -1,6 +1,7 @@
 // Hopper engine of the f32 forwards of K2 (tower_cross_sm90.cu, f32
-// branch: d=64, 128-row CTAs) and K3 (masked_attn_sm90.cu, f32: d=96,
-// 64-row CTAs): 3xTF32 tensor-core products, a TMA ring, the online
+// branch: d=64, 128-row CTAs), K2-int8 (tower_cross_int8_sm90.cu, f32
+// branch: P.V only) and K3 (masked_attn_sm90.cu, f32: d=96, 64-row CTAs):
+// 3xTF32 tensor-core products, a TMA ring, the online
 // softmax in registers.  It reuses attn_sm90.cuh's mbarriers, TMA loads,
 // tensor-map encoder, row state and quad reductions.
 //
@@ -44,10 +45,13 @@
 //   slots with full/empty mbarriers; consumers never meet at a block-wide
 //   barrier after set-up.
 //
-// Semantics (attn_tile.cuh): logits in log2 units (exp2), a masked logit
-// is NEG (finfo(f32).min) and gives p = 0, the running max is replaced by
-// 0 while a row has seen no live key, p stays f32 (its rounding to the
-// value dtype is exact), a row with no live key writes 0.
+// Semantics (attn_common.cuh's NEG, and the plain versions in
+// panst3r_torch/ops/*_attention.py): logits in log2 units (exp2), a masked
+// logit is NEG (finfo(f32).min) and gives p = 0, the running max is
+// replaced by 0 while a row has seen no live key, p stays f32 (its
+// rounding to the value dtype is exact), a row with no live key writes 0.
+// The f32 K2-int8 (tower_cross_int8_sm90.cu) takes its products P.V and
+// its row state, with int8 scores of its own (mma.sync s8).
 #pragma once
 
 #include "attn_sm90.cuh"

@@ -2,9 +2,13 @@
 // (tower_cross_sm90.cu) and K6 (packed_flash_sm90.cu): d=64 heads, keys in
 // tiles of 128.  K3 (masked_attn_sm90.cu, d=96, 64-key tiles) reuses its
 // barriers, TMA and wgmma wrappers, its softmax step and its row state
-// with a layout of its own; so do K2-int8 (tower_cross_int8_sm90.cu: int8
-// scores from wgmma s8) and K4 (flash_fwd_bf16_sm90.cu: d=64 in this
-// layout, d=96 in K3's), which also take the key pre-pass cross_tiles.
+// with a layout of its own (32-lane sub-tiles of 64-byte rows, 64B
+// swizzle: desc_k_sub, desc_mn_sub); so do K2-int8 (tower_cross_int8_sm90.cu:
+// int8 scores from wgmma s8), K4 (flash_fwd_bf16_sm90.cu: d=64 in this
+// layout, d=96 in K3's) and the bf16 K5 (flash_bwd_bf16_sm90.cu: K3's
+// layout at d=64 and d=96), which also take the key pre-pass cross_tiles
+// and, K4 and K5, the rotation rope_bf16.  The K5 pieces both dtypes share
+// (logit, row_stats, dkv_merge) sit here too.
 //
 // A CTA holds NWG (1 or 2) consumer warpgroups and one producer
 // warpgroup, in that order.  Consumer warpgroup g owns query rows
@@ -29,8 +33,8 @@
 // against V (an MN-major B operand), into O (64 x 64 f32 per warpgroup),
 // which stays in registers for the whole key walk.
 //
-// Semantics (the tile engine's, attn_tile.cuh, and the plain versions in
-// panst3r_torch/ops/tower_attention.py): logits live in log2 units
+// Semantics (attn_common.cuh's NEG, and the plain versions in
+// panst3r_torch/ops/*_attention.py): logits live in log2 units
 // (log2 e folded into the scale, so exp2 replaces exp); a masked logit is
 // NEG and a logit <= NEG/2 gives p = 0 exactly; the running max is
 // replaced by 0 while a row has seen no live key; p is rounded to bf16
@@ -253,6 +257,25 @@ __device__ __forceinline__ uint64_t desc_mnmajor(const void* tile, int kk) {
   return desc_sw128(tile, 64, 64) + static_cast<uint64_t>(128 * kk);
 }
 
+// K3's layout (64B swizzle): a tile of R rows as D/32 sub-tiles of 32
+// lanes, each R rows of 64 bytes (R * 64 bytes).  K-major operand: step kk
+// of 16 lanes is in sub-tile kk / 2, 32 bytes in for odd kk; 8-row groups
+// 512 B apart (SBO).
+template <int R>
+__device__ __forceinline__ uint64_t desc_k_sub(const unsigned char* tile,
+                                               int kk) {
+  return desc_sw<2>(tile + (kk >> 1) * (R * 64), 1, 32) +
+         static_cast<uint64_t>(2 * (kk & 1));
+}
+// MN-major operand (a row per 64-byte row of each 32-lane sub-tile): step
+// kk covers rows [16kk, 16kk + 16), two 8-row groups 512 B apart (SBO);
+// the 32-lane atoms along N are the sub-tiles, R * 64 bytes apart (LBO).
+template <int R>
+__device__ __forceinline__ uint64_t desc_mn_sub(const unsigned char* tile,
+                                                int kk) {
+  return desc_sw<2>(tile, (R * 64) >> 4, 32) + static_cast<uint64_t>(64 * kk);
+}
+
 // ------------------------------------------------------------ wgmma ----
 
 // D (64 x 128, f32 in registers) += A (64 x 16, smem) . B (128 x 16, smem)^T,
@@ -306,6 +329,20 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 32, f32 in registers) += A (64 x 16, smem) . B (32 x 16, smem)^T,
+// both operands K-major behind swizzle descriptors (the bf16 K5's S^T).
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da,
+                                            uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
@@ -664,6 +701,145 @@ __global__ void cross_tiles(const float* __restrict__ bias,
   }
 }
 
+// x (B, H, N, D) through its strides, rotated in f32 by (B, N, D) tables
+// (rotate-half within each D/2 half: lane d's partner is d + D/4 in the
+// first quarter of a half and d - D/4 in its second), each product and the
+// sum rounded as the plain version's, then rounded to bf16, into (B, H, N,
+// D) contiguous: one thread per 8 lanes (16-byte accesses; the partner
+// lanes, D/4 = 16 or 24 away, are as aligned).  The bf16 K4's and K5's
+// pre-pass.
+template <int D>
+__global__ void rope_bf16(const __nv_bfloat16* __restrict__ x, Strides3 st,
+                          const float* __restrict__ cs,
+                          const float* __restrict__ sn,
+                          __nv_bfloat16* __restrict__ y, int H, int N,
+                          long long chunks) {
+  constexpr int Q = D / 4, PER = D / 8;
+  for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       e < chunks; e += (long long)gridDim.x * blockDim.x) {
+    const int d0 = static_cast<int>(e % PER) * 8;
+    const long long row = e / PER;
+    const int n = static_cast<int>(row % N);
+    const long long bh = row / N;
+    const int h = static_cast<int>(bh % H);
+    const long long b = bh / H;
+    const bool first = (d0 % (D / 2)) < Q;
+    const __nv_bfloat16* r = x + b * st.b + h * st.h + n * st.n;
+    const uint4 xv = *reinterpret_cast<const uint4*>(r + d0);
+    const uint4 pv = *reinterpret_cast<const uint4*>(r + (first ? d0 + Q
+                                                               : d0 - Q));
+    const __nv_bfloat16* xs = reinterpret_cast<const __nv_bfloat16*>(&xv);
+    const __nv_bfloat16* ps = reinterpret_cast<const __nv_bfloat16*>(&pv);
+    const float* c = cs + (b * N + n) * D + d0;
+    const float* s = sn + (b * N + n) * D + d0;
+    __align__(16) __nv_bfloat16 o[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float pf = __bfloat162float(ps[j]);
+      o[j] = __float2bfloat16_rn(
+          __fadd_rn(__fmul_rn(__bfloat162float(xs[j]), c[j]),
+                    __fmul_rn(first ? -pf : pf, s[j])));
+    }
+    *reinterpret_cast<uint4*>(y + row * D + d0) =
+        *reinterpret_cast<const uint4*>(o);
+  }
+}
+
+// ----------------------------------------------- K5, both dtypes ----
+//
+// The flash backward (flash_bwd_sm90.cu in f32, flash_bwd_bf16_sm90.cu in
+// bf16) recomputes p = exp2(x - LSE log2 e) from K4's LSE.
+
+// A padding or dead row's LSE in log2 units: p = 0 against it.
+constexpr float DEAD = -NEG;
+
+// The logit (log2 units, NEG where masked) of a raw score: raw * sl (sl =
+// scale * log2 e) plus the key's bias in log2 units, plus the dense bias
+// ``db`` when there is one (masked where either is <= finfo.min / 2).
+__device__ __forceinline__ float logit(float raw, float sl, float kb,
+                                       const float* db) {
+  float x = fmaf(raw, sl, kb);
+  if (db != nullptr) {
+    const float v = *db;
+    x = (v <= 0.5f * NEG) ? NEG : __fmaf_rn(v, L2E, x);
+  }
+  return (x <= 0.5f * NEG) ? NEG : x;
+}
+
+// p of one score: ``x`` the logit (log2 units, NEG where masked), ``l``
+// the row's LSE in log2 units (DEAD: p = 0).
+__device__ __forceinline__ float prob(float x, float l) {
+  return (x <= 0.5f * NEG || l >= 0.5f * DEAD) ? 0.f : exp2_approx(x - l);
+}
+
+// ds = p (dp - Dvec) scale.
+__device__ __forceinline__ float dscore(float p, float dp, float dv,
+                                        float scale) {
+  return __fmul_rn(__fmul_rn(p, __fsub_rn(dp, dv)), scale);
+}
+
+// One warp per row of (B*H, Nqp): the LSE (natural log, (B, H, Nq)) in
+// log2 units, DEAD (p = 0) for a row with no live key, for padding and
+// past Nq; Dvec = sum_d do * o in f32 (0 past Nq), each lane's lanes d,
+// d + 32, ... by fmaf, then a butterfly over the warp: an order that
+// depends on D alone (torch's reduction order follows the row count, so a
+// query range's Dvec could differ from the whole call's in its last bit).
+// do and o are read in their own types (f32 or bf16), unrounded.
+template <int D, typename TG, typename TO = TG>
+__global__ void row_stats(const float* __restrict__ lse,
+                          const TG* __restrict__ g, Strides3 gs,
+                          const TO* __restrict__ o, Strides3 os,
+                          float* __restrict__ lse2, float* __restrict__ dv2,
+                          int H, int Nq, int Nqp, long long rows) {
+  const int lane = threadIdx.x & 31;
+  const long long stride = ((long long)gridDim.x * blockDim.x) >> 5;
+  for (long long r = (blockIdx.x * (long long)blockDim.x + threadIdx.x) >> 5;
+       r < rows; r += stride) {
+    const int i = static_cast<int>(r % Nqp);
+    const long long bh = r / Nqp, b = bh / H;
+    const int h = static_cast<int>(bh % H);
+    float l = DEAD, acc = 0.f;
+    if (i < Nq) {
+      const TG* gr = g + b * gs.b + h * gs.h + i * gs.n;
+      const TO* orow = o + b * os.b + h * os.h + i * os.n;
+#pragma unroll
+      for (int d = lane; d < D; d += 32)
+        acc = fmaf(to_f(gr[d]), to_f(orow[d]), acc);
+      l = lse[bh * Nq + i];
+    }
+#pragma unroll
+    for (int m = 16; m > 0; m >>= 1)
+      acc = __fadd_rn(acc, __shfl_xor_sync(0xffffffffu, acc, m));
+    if (lane == 0) {
+      lse2[r] = (l <= 0.5f * NEG || l >= 0.5f * DEAD) ? DEAD : l * L2E;
+      dv2[r] = acc;
+    }
+  }
+}
+
+// dk = sum_s part_k[s], dv likewise, added in split order.
+__global__ void dkv_merge(const float* __restrict__ pk,
+                          const float* __restrict__ pv_,
+                          float* __restrict__ dk, float* __restrict__ dv,
+                          long long total, int ns) {
+  for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       e < total; e += (long long)gridDim.x * blockDim.x) {
+    float a = pk[e], c = pv_[e];
+    for (int s = 1; s < ns; ++s) {
+      a = __fadd_rn(a, pk[s * total + e]);
+      c = __fadd_rn(c, pv_[s * total + e]);
+    }
+    dk[e] = a;
+    dv[e] = c;
+  }
+}
+
+// Grid of a grid-stride pass over ``total`` elements.
+inline int blocks_for(long long total) {
+  const long long b = (total + 255) / 256;
+  return static_cast<int>(b < 132LL * 32 ? b : 132LL * 32);
+}
+
 // ------------------------------------------------------------- host ----
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -719,6 +895,19 @@ inline cudaError_t make_map(CUtensorMap* map, const void* base, int B, int N,
   const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
   return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, base, dims,
                     strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// rope_bf16 over the bf16 x (B, H, N, D) with element strides s[0..2]
+// into y (B, H, N, D) contiguous.
+template <int D>
+inline cudaError_t rotate_bf16(const __nv_bfloat16* x, const long long* s,
+                               const float* cs, const float* sn,
+                               __nv_bfloat16* y, int B, int H, int N,
+                               cudaStream_t st) {
+  const long long chunks = (long long)B * H * N * (D / 8);
+  rope_bf16<D><<<blocks_for(chunks), 256, 0, st>>>(
+      x, Strides3{s[0], s[1], s[2]}, cs, sn, y, H, N, chunks);
+  return cudaGetLastError();
 }
 
 // A (B, H, N, D) tensor of ``elem``-byte values with element strides (sb,

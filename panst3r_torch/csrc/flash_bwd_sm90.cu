@@ -1,6 +1,7 @@
 // K5, f32 — flash-attention backward on the Hopper f32 engine
-// (attn_f32_sm90.cuh, 3xTF32; the shared pieces in flash_sm90.cuh).  The
-// bf16 K5 stays on the tile engine (flash_bwd.cu).
+// (attn_f32_sm90.cuh, 3xTF32; the shared pieces in flash_sm90.cuh, and
+// the pre-pass row_stats, the split merge and the formulas of p and ds in
+// attn_sm90.cuh, which the bf16 K5, flash_bwd_bf16_sm90.cu, shares).
 //
 // Replaces panst3r_tpu/ops/pallas/flash_attention_bwd.py::flash_bwd in
 // f32 and its two kernels, _dq_kernel (query rows, walking the keys) and
@@ -50,6 +51,10 @@
 
 using namespace p3;
 using namespace p3::flash32;
+using sm90::dkv_merge;
+using sm90::dscore;
+using sm90::prob;
+using sm90::row_stats;
 
 namespace {
 
@@ -69,21 +74,6 @@ using DqSmem = flash32::Smem<D, 8, 1, 4, 4, 2, KE * 4, 2>;
 // and the entry's LSE (log2 units) and Dvec.
 template <int D>
 using DkvSmem = flash32::Smem<D, 8, 1, 4, 4, 2, 2 * KE * 4, 2>;
-
-// p of one score: ``x`` the logit (log2 units, NEG where masked), ``l``
-// the row's LSE in log2 units (DEAD: p = 0).
-__device__ __forceinline__ float prob(float x, float l) {
-  return (x <= 0.5f * NEG || l >= 0.5f * DEAD) ? 0.f
-                                               : sm90::exp2_approx(x - l);
-}
-
-// ds = p (dp - Dvec) scale.
-__device__ __forceinline__ float dscore(float p, float dp, float dv,
-                                        float scale) {
-  return __fmul_rn(__fmul_rn(p, __fsub_rn(dp, dv)), scale);
-}
-
-
 
 template <int D>
 __global__ void __launch_bounds__(DqSmem<D>::kThreads, 1)
@@ -305,59 +295,6 @@ dkv_main(const __grid_constant__ CUtensorMap mkh,
   }
 }
 
-// dk = sum_s part_k[s], dv likewise, added in split order.
-__global__ void dkv_merge(const float* __restrict__ pk,
-                          const float* __restrict__ pv_,
-                          float* __restrict__ dk, float* __restrict__ dv,
-                          long long total, int ns) {
-  for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       e < total; e += (long long)gridDim.x * blockDim.x) {
-    float a = pk[e], c = pv_[e];
-    for (int s = 1; s < ns; ++s) {
-      a = __fadd_rn(a, pk[s * total + e]);
-      c = __fadd_rn(c, pv_[s * total + e]);
-    }
-    dk[e] = a;
-    dv[e] = c;
-  }
-}
-
-// One warp per row of (B*H, Nqp): the LSE (natural log, (B, H, Nq)) in
-// log2 units, DEAD (p = 0) for a row with no live key, for padding and
-// past Nq; Dvec = sum_d do * o (0 past Nq), each lane's lanes d, d + 32,
-// ... by fmaf, then a butterfly over the warp: an order that depends on
-// D alone.
-template <int D>
-__global__ void row_stats(const float* __restrict__ lse,
-                          const float* __restrict__ g, Strides3 gs,
-                          const float* __restrict__ o, Strides3 os,
-                          float* __restrict__ lse2, float* __restrict__ dv2,
-                          int H, int Nq, int Nqp, long long rows) {
-  const int lane = threadIdx.x & 31;
-  const long long stride = ((long long)gridDim.x * blockDim.x) >> 5;
-  for (long long r = (blockIdx.x * (long long)blockDim.x + threadIdx.x) >> 5;
-       r < rows; r += stride) {
-    const int i = static_cast<int>(r % Nqp);
-    const long long bh = r / Nqp, b = bh / H;
-    const int h = static_cast<int>(bh % H);
-    float l = DEAD, acc = 0.f;
-    if (i < Nq) {
-      const float* gr = g + b * gs.b + h * gs.h + i * gs.n;
-      const float* orow = o + b * os.b + h * os.h + i * os.n;
-#pragma unroll
-      for (int d = lane; d < D; d += 32) acc = fmaf(gr[d], orow[d], acc);
-      l = lse[bh * Nq + i];
-    }
-#pragma unroll
-    for (int m = 16; m > 0; m >>= 1)
-      acc = __fadd_rn(acc, __shfl_xor_sync(0xffffffffu, acc, m));
-    if (lane == 0) {
-      lse2[r] = (l <= 0.5f * NEG || l >= 0.5f * DEAD) ? DEAD : l * sm90::L2E;
-      dv2[r] = acc;
-    }
-  }
-}
-
 struct Args {
   const float *q, *k, *v, *g, *lse, *o, *bias, *kbias, *qcos, *qsin, *kcos,
       *ksin;
@@ -386,7 +323,7 @@ cudaError_t run_dq(const Args& a, float* dq) {
   key_tiles<<<a.B, 1024, nt * sizeof(int), a.st>>>(a.kbias, a.bl, a.list,
                                                    a.count, a.Nk, nt);
   const long long rows = (long long)BH * Nqp;
-  row_stats<D><<<blocks_for(rows * 32), 256, 0, a.st>>>(
+  row_stats<D, float><<<blocks_for(rows * 32), 256, 0, a.st>>>(
       a.lse, a.g, Strides3{s[9], s[10], s[11]}, a.o,
       Strides3{s[16], s[17], s[18]}, a.lse2, a.dv2, a.H, a.Nq, Nqp, rows);
   cudaError_t err = cudaGetLastError();

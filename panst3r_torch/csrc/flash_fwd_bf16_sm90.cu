@@ -14,7 +14,7 @@
 // added after it; the row sum takes the unrounded f32 p and p.v takes p
 // rounded to bf16 (the engine's softmax step without ``RoundedSum``); a
 // row with no live key writes 0 and the LSE finfo.min; the LSE is (m +
-// log2 l) * ln 2, which the bf16 K5 (flash_bwd.cu) reads.
+// log2 l) * ln 2, which the bf16 K5 (flash_bwd_bf16_sm90.cu) reads.
 //
 // Bound on the H100: at the v2 LoftUp shape (B=4, H=4, Nq=49152, Nk=768,
 // D=96) 232 GFLOP against ~0.15 GB of q and out: bound by operations,
@@ -22,8 +22,9 @@
 // special-function units.
 //
 // Design, two or three launches per call:
-// (1) with tables, rope_bf16 writes q~ and k~ = bf16(rope(x)) (B, H, N, D)
-//     contiguous (one thread per 8 lanes, read through the strides);
+// (1) with tables, rope_bf16 (attn_sm90.cuh) writes q~ and k~ =
+//     bf16(rope(x)) (B, H, N, D) contiguous (one thread per 8 lanes, read
+//     through the strides);
 // (2) cross_tiles (attn_sm90.cuh) writes the key row in log2 units padded
 //     to whole key tiles (NEG where dead or past Nk) and each batch's live
 //     tiles (every tile below Nk without a row);
@@ -42,8 +43,6 @@
 //     dense bias from global memory at their accumulators' positions.
 // A row's arithmetic depends only on its own q, its batch's k, v and
 // biases and Nk: never on B, Nq or the grid.
-#include <algorithm>
-
 #include "attn_sm90.cuh"
 
 using namespace p3;
@@ -56,22 +55,8 @@ namespace {
 constexpr float LN2 = 0.6931471805599453f;
 
 // d = 96 (K3's layout): a tile of 64 rows x 96 lanes as three 32-lane
-// sub-tiles of 64-byte rows, 4 KB each.
+// sub-tiles of 64-byte rows, 4 KB each (desc_k_sub, desc_mn_sub).
 constexpr uint32_t kSub96 = 64 * 32 * 2;
-// K-major operand (Q, K): step kk of 16 lanes is in sub-tile kk / 2, 32
-// bytes in for odd kk; 8-row groups 512 B apart (SBO).
-__device__ __forceinline__ uint64_t desc_k96(const unsigned char* tile,
-                                             int kk) {
-  return desc_sw<2>(tile + (kk >> 1) * kSub96, 1, 32) +
-         static_cast<uint64_t>(2 * (kk & 1));
-}
-// MN-major operand (V): step kk covers keys [16kk, 16kk + 16), two 8-key
-// groups 512 B apart (SBO); the three 32-lane atoms along N are the
-// sub-tiles (LBO).
-__device__ __forceinline__ uint64_t desc_v96(const unsigned char* tile,
-                                             int kk) {
-  return desc_sw<2>(tile, kSub96 >> 4, 32) + static_cast<uint64_t>(64 * kk);
-}
 
 // The two layouts: keys per tile, S and O registers, the TMA boxes (BOX
 // lanes, NBOX of them per row) and the products.
@@ -103,7 +88,8 @@ struct Lay<96> {
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < 96 / 16; ++kk)
-      wgmma_ss_n64(s, desc_k96(q, kk), desc_k96(k, kk), kk > 0);
+      wgmma_ss_n64(s, desc_k_sub<64>(q, kk), desc_k_sub<64>(k, kk),
+                   kk > 0);
     wg_commit();
   }
   __device__ static void pv(float (&o)[NO], const uint32_t (&p)[NS / 2],
@@ -113,7 +99,7 @@ struct Lay<96> {
     for (int kk = 0; kk < BT / 16; ++kk) {
       const uint32_t a[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
                              p[4 * kk + 3]};
-      wgmma_rs_n96(o, a, desc_v96(v, kk), 1);
+      wgmma_rs_n96(o, a, desc_mn_sub<64>(v, kk), 1);
     }
     wg_commit();
   }
@@ -152,48 +138,6 @@ struct FSmem {
     return q_full() + 1 + STAGES + s;
   }
 };
-
-// x (B, H, N, D) through its strides, rotated in f32 by (B, N, D) tables
-// (rotate-half within each D/2 half: lane d's partner is d + D/4 in the
-// first quarter of a half and d - D/4 in its second), each product and the
-// sum rounded as the plain version's, then rounded to bf16, into (B, H, N,
-// D) contiguous: one thread per 8 lanes (16-byte accesses; the partner
-// lanes, D/4 = 16 or 24 away, are as aligned).
-template <int D>
-__global__ void rope_bf16(const bf16* __restrict__ x, Strides3 st,
-                          const float* __restrict__ cs,
-                          const float* __restrict__ sn, bf16* __restrict__ y,
-                          int H, int N, long long chunks) {
-  constexpr int Q = D / 4, PER = D / 8;
-  for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       e < chunks; e += (long long)gridDim.x * blockDim.x) {
-    const int d0 = static_cast<int>(e % PER) * 8;
-    const long long row = e / PER;
-    const int n = static_cast<int>(row % N);
-    const long long bh = row / N;
-    const int h = static_cast<int>(bh % H);
-    const long long b = bh / H;
-    const bool first = (d0 % (D / 2)) < Q;
-    const bf16* r = x + b * st.b + h * st.h + n * st.n;
-    const uint4 xv = *reinterpret_cast<const uint4*>(r + d0);
-    const uint4 pv = *reinterpret_cast<const uint4*>(r + (first ? d0 + Q
-                                                               : d0 - Q));
-    const bf16* xs = reinterpret_cast<const bf16*>(&xv);
-    const bf16* ps = reinterpret_cast<const bf16*>(&pv);
-    const float* c = cs + (b * N + n) * D + d0;
-    const float* s = sn + (b * N + n) * D + d0;
-    __align__(16) bf16 o[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float pf = __bfloat162float(ps[j]);
-      o[j] = __float2bfloat16_rn(
-          __fadd_rn(__fmul_rn(__bfloat162float(xs[j]), c[j]),
-                    __fmul_rn(first ? -pf : pf, s[j])));
-    }
-    *reinterpret_cast<uint4*>(y + row * D + d0) =
-        *reinterpret_cast<const uint4*>(o);
-  }
-}
 
 // grid (ceil(Nq / (64 NWG)), H, B).
 template <int D, int NWG>
@@ -327,18 +271,6 @@ struct Args {
   cudaStream_t st;
 };
 
-template <int D>
-cudaError_t rotate(const bf16* x, const long long* s, const float* cs,
-                   const float* sn, bf16* y, int B, int H, int N,
-                   cudaStream_t st) {
-  const long long chunks = (long long)B * H * N * (D / 8);
-  const int blocks =
-      static_cast<int>(std::min<long long>((chunks + 255) / 256, 132LL * 32));
-  rope_bf16<D><<<blocks, 256, 0, st>>>(x, Strides3{s[0], s[1], s[2]}, cs, sn,
-                                       y, H, N, chunks);
-  return cudaGetLastError();
-}
-
 template <int D, int NWG>
 cudaError_t run_main(const Args& a, const bf16* q, const long long* qs,
                      const bf16* k, const long long* ks, int nt) {
@@ -377,10 +309,10 @@ cudaError_t run(const Args& a) {
   long long qs[3] = {s[0], s[1], s[2]}, ks[3] = {s[3], s[4], s[5]};
   cudaError_t err;
   if (a.qcos != nullptr) {   // q~, k~ contiguous
-    if ((err = rotate<D>(a.q, s, a.qcos, a.qsin, a.qr, a.B, a.H, a.Nq,
-                         a.st)) != cudaSuccess ||
-        (err = rotate<D>(a.k, s + 3, a.kcos, a.ksin, a.kr, a.B, a.H, a.Nk,
-                         a.st)) != cudaSuccess)
+    if ((err = rotate_bf16<D>(a.q, s, a.qcos, a.qsin, a.qr, a.B, a.H, a.Nq,
+                              a.st)) != cudaSuccess ||
+        (err = rotate_bf16<D>(a.k, s + 3, a.kcos, a.ksin, a.kr, a.B, a.H,
+                              a.Nk, a.st)) != cudaSuccess)
       return err;
     q = a.qr;
     k = a.kr;

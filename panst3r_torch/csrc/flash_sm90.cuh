@@ -46,10 +46,11 @@ using sm90::RowStateN;
 constexpr int KE = 32;   // rows per ring entry (and per live-tile entry)
 constexpr int QT = 64;   // queries per tile of dkdv's fixed split
 constexpr float LN2 = 0.6931471805599453f;
-// a padding or dead row's LSE in log2 units: p = 0 against it
-constexpr float DEAD = -NEG;
 
 using sm90::BiasStrides;
+using sm90::blocks_for;
+using sm90::DEAD;
+using sm90::logit;
 using sm90::Perm;
 using sm90::pick;
 using sm90::Strides3;
@@ -375,26 +376,7 @@ __device__ __forceinline__ void pv(const float (&p)[MT][4 * NT],
   }
 }
 
-// The logit (log2 units, NEG where masked) of a raw score: raw * sl (sl =
-// scale * log2 e) plus the key's bias in log2 units, plus the dense bias
-// ``db`` when there is one (masked where either is <= finfo.min / 2).
-__device__ __forceinline__ float logit(float raw, float sl, float kb,
-                                       const float* db) {
-  float x = fmaf(raw, sl, kb);
-  if (db != nullptr) {
-    const float v = *db;
-    x = (v <= 0.5f * NEG) ? NEG : __fmaf_rn(v, sm90::L2E, x);
-  }
-  return (x <= 0.5f * NEG) ? NEG : x;
-}
-
 // ------------------------------------------------------------- host ----
-
-// Grid of a grid-stride pre-pass over ``total`` elements.
-inline int blocks_for(long long total) {
-  const long long b = (total + 255) / 256;
-  return static_cast<int>(b < 132LL * 32 ? b : 132LL * 32);
-}
 
 // The planes of x (B, H, N, D), rotated when ``cs`` is given, and with
 // ``tail`` one more unrotated row per (b, h) (split_planes): four lanes a

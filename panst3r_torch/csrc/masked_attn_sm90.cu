@@ -89,24 +89,6 @@ struct MSmem {
   }
 };
 
-// K-major operand (Q, K: 64 rows x 96 lanes as three sub-tiles of 64-byte
-// rows): step kk of 16 lanes is in sub-tile kk / 2, 32 bytes in for odd
-// kk; 8-row groups 512 B apart (SBO).
-__device__ __forceinline__ uint64_t desc_k64(const unsigned char* tile,
-                                             int kk) {
-  return desc_sw<2>(tile + (kk >> 1) * kSubBytes, 1, 32) +
-         static_cast<uint64_t>(2 * (kk & 1));
-}
-// MN-major operand (V: a key per 64-byte row of each 32-lane sub-tile):
-// step kk covers keys [16kk, 16kk + 16), two 8-key groups 512 B apart
-// (SBO); the three 32-lane atoms along N are the sub-tiles, 4 KB apart
-// (LBO).
-__device__ __forceinline__ uint64_t desc_v64(const unsigned char* tile,
-                                             int kk) {
-  return desc_sw<2>(tile, kSubBytes >> 4, 32) +
-         static_cast<uint64_t>(64 * kk);
-}
-
 __host__ __device__ __forceinline__ int n_splits(int live, int split_tiles) {
   return live > split_tiles ? (live + split_tiles - 1) / split_tiles : 1;
 }
@@ -236,7 +218,8 @@ masked_main(const __grid_constant__ CUtensorMap mq,
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < MD / 16; ++kk)
-      wgmma_ss_n64(s, desc_k64(sm.q(), kk), desc_k64(sm.k(cur), kk), kk > 0);
+      wgmma_ss_n64(s, desc_k_sub<BR>(sm.q(), kk),
+                   desc_k_sub<BR>(sm.k(cur), kk), kk > 0);
     wg_commit();
     wg_wait<0>();
     fence_regs(s);
@@ -258,7 +241,7 @@ masked_main(const __grid_constant__ CUtensorMap mq,
     for (int kk = 0; kk < BKK / 16; ++kk) {
       const uint32_t a[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
                              p[4 * kk + 3]};
-      wgmma_rs_n96(st.o, a, desc_v64(sm.v(cur), kk), 1);
+      wgmma_rs_n96(st.o, a, desc_mn_sub<BKK>(sm.v(cur), kk), 1);
     }
     wg_commit();
     wg_wait<0>();

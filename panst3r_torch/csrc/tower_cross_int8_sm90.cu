@@ -1,6 +1,6 @@
-// K2-int8, bf16 — memory cross-attention with int8 x int8 -> int32 scores
-// on the Hopper engine (attn_sm90.cuh).  The f32 branch stays on the tile
-// engine (tower_cross_int8.cu).
+// K2-int8, bf16 and f32 — memory cross-attention with int8 x int8 ->
+// int32 scores on the Hopper engines (attn_sm90.cuh for bf16,
+// attn_f32_sm90.cuh for f32).
 //
 // Replaces the kv_int8 branch of
 // panst3r_tpu/ops/pallas/tower_attention.py::_cross_fwd (body _cross_kernel,
@@ -21,7 +21,9 @@
 // of traffic: bound by operations, 1.0988 ms.  Below that sits a floor the
 // bound does not count: one exp2 per score, 38400 * 12288 * 12 = 5.66e9 on
 // the special-function units, at 16 results per clock per SM (compute
-// capability 9.0), 132 SMs and 1.98 GHz 1.35 ms.
+// capability 9.0), 132 SMs and 1.98 GHz 1.35 ms.  In f32 the p.v half runs
+// at the 494.7 / 3 TFLOP/s of 3xTF32 products: 4.4 ms (10.8 at 67 TFLOP/s
+// of f32 FMA).
 //
 // Design, three launches per call:
 // (1) int8_qprep, the pre-pass of q: per query row and head pair, q
@@ -34,29 +36,43 @@
 //     that nvcc contracts none of them into an FMA: q8 equals the Pallas
 //     branch's bit for bit.
 // (2) cross_tiles (attn_sm90.cuh, as K2): the key bias in log2 units padded
-//     to whole 128-key tiles (NEG where dead or past Nk) and each batch's
-//     live tiles.
-// (3) int8_main: one CTA per (128 query rows, head, batch), two consumer
-//     warpgroups of 64 rows and the producer warpgroup.  The gate (Nq >=
-//     16384) gives at least 128 query tiles per head, so no split-KV.  A
-//     head's q8 and k8 rows are 64 bytes: TMA boxes of 64 bytes with 64B
-//     swizzle (wgmma layout type 2, K-major, SBO 512 B), which the s8
-//     wgmma needs K-major on both sides (it takes no transpose for 8-bit
-//     types); V is K2's bf16 tile (128 keys x 64 lanes, 128B swizzle).
-//     Per live tile: S = q8 k8^T by two wgmma m64n128k32.s32.s8.s8 steps
-//     into 64 s32 registers; the stabilizer m = max(m, rowmax_int32(S) *
-//     c), the int32 max taken before any conversion (the bias left out:
-//     any m >= the row max of the logits is valid because the bias is <=
-//     0; the zeros that TMA fills past Nk count, as in the plain version);
-//     the logit s * c + kb, s converted by the magic-number add (exact for
-//     |s| < 2^22; here |s| <= 64 * 127 * 127) instead of cvt.rn.f32.s32,
-//     which issues at a fraction of the FP32 rate; p = exp2(logit - m)
-//     rounded to bf16 before both the row sum and p.v (``RoundedSum``),
-//     p.v the engine's issue_pv.  Rows that saw no live key write 0.
-#include <algorithm>
-#include <climits>
+//     to whole key tiles (bf16: 128 keys, f32: 64; NEG where dead or past
+//     Nk) and each batch's live tiles.
+// (3) bf16, int8_main: one CTA per (128 query rows, head, batch), two
+//     consumer warpgroups of 64 rows and the producer warpgroup.  The gate
+//     (Nq >= 16384) gives at least 128 query tiles per head, so no
+//     split-KV.  A head's q8 and k8 rows are 64 bytes: TMA boxes of 64
+//     bytes with 64B swizzle (wgmma layout type 2, K-major, SBO 512 B),
+//     which the s8 wgmma needs K-major on both sides (it takes no
+//     transpose for 8-bit types); V is K2's bf16 tile (128 keys x 64 lanes,
+//     128B swizzle).  Per live tile: S = q8 k8^T by two wgmma
+//     m64n128k32.s32.s8.s8 steps into 64 s32 registers; the stabilizer m =
+//     max(m, rowmax_int32(S) * c), the int32 max taken before any
+//     conversion (the bias left out: any m >= the row max of the logits is
+//     valid because the bias is <= 0; the zeros that TMA fills past Nk
+//     count, as in the plain version); the logit s * c + kb, s converted
+//     by the magic-number add (exact for |s| < 2^22; here |s| <= 64 * 127 *
+//     127) instead of cvt.rn.f32.s32, which issues at a fraction of the
+//     FP32 rate; p = exp2(logit - m) rounded to bf16 before both the row
+//     sum and p.v (``RoundedSum``), p.v the engine's issue_pv.  Rows that
+//     saw no live key write 0.
+// (3) f32, int8_main_f32: the f32 K2's layout (attn_f32_sm90.cuh): one CTA
+//     per (128 query rows, head, batch), four consumer warps of two 16-row
+//     tiles and a producer warp, whose ring entries hold a live 64-key
+//     tile's k8 (64 bytes a key, 64B swizzle), f32 V (two 32-lane boxes,
+//     128B swizzle) and key biases.  A warp's q8 fragments stay in
+//     registers for the whole walk (16 rows x 64 bytes: 8 a row tile); k8
+//     fragments come by ldmatrix; the scores by mma.sync m16n8k32 s8 (exact
+//     int32, in the m16n8 accumulator layout the engine's row state reads).
+//     The stabilizer is the int32 row max over the 64-key tile times c, as
+//     above; p = exp2(s * c + kb - m) stays f32 (each operation _rn, as the
+//     plain version rounds it) and enters the row sum, and P.V runs on
+//     3xTF32, each 8-key step added to O in f32 round-to-nearest (f32e::pv).
+//     The tile (64 keys, ops/tower_attention.py::INT8_F32_TILE) decides
+//     which padding zeros enter the stabilizer; no split-KV: the long
+//     render gives 300 row tiles x 12 heads.
 
-#include "attn_sm90.cuh"
+#include "attn_f32_sm90.cuh"
 
 using namespace p3;
 using namespace p3::sm90;
@@ -190,10 +206,25 @@ __device__ __forceinline__ void int8_step(RowState& st, const Rows& rw,
 
 }  // namespace
 
+// Eight consecutive values of q as f32.
+__device__ __forceinline__ void load8(const bf16* p, float (&x)[8]) {
+  const uint4 v = *reinterpret_cast<const uint4*>(p);
+  const bf16* h = reinterpret_cast<const bf16*>(&v);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) x[j] = __bfloat162float(h[j]);
+}
+__device__ __forceinline__ void load8(const float* p, float (&x)[8]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  x[0] = a.x, x[1] = a.y, x[2] = a.z, x[3] = a.w;
+  x[4] = b.x, x[5] = b.y, x[6] = b.z, x[7] = b.w;
+}
+
 // One warp per two (row, head pair) items, 16 lanes an item, 8 lanes of q
-// a thread: q rotated in f32 over the pair, amax over the pair (a
-// half-warp reduction), q8 and c.
-__global__ void int8_qprep(const bf16* __restrict__ q,
+// a thread: q (bf16 or f32) rotated in f32 over the pair, amax over the
+// pair (a half-warp reduction), q8 and c.
+template <typename T>
+__global__ void int8_qprep(const T* __restrict__ q,
                            const float* __restrict__ qcos,
                            const float* __restrict__ qsin,
                            int8_t* __restrict__ q8, float* __restrict__ cs,
@@ -208,20 +239,17 @@ __global__ void int8_qprep(const bf16* __restrict__ q,
     const long row = valid ? item / P : 0;
     const int pair = valid ? static_cast<int>(item % P) : 0;
     const int l0 = sub * 8, d0 = l0 & 63;      // this thread's 8 lanes
-    const bf16* head = q + row * C + pair * 128 + (l0 - d0);
-    const uint4 xv = *reinterpret_cast<const uint4*>(head + d0);
-    const uint4 pv = *reinterpret_cast<const uint4*>(head + (d0 ^ 16));
-    const bf16* x = reinterpret_cast<const bf16*>(&xv);
-    const bf16* xp = reinterpret_cast<const bf16*>(&pv);
+    const T* head = q + row * C + pair * 128 + (l0 - d0);
+    float x[8], xp[8];
+    load8(head + d0, x);
+    load8(head + (d0 ^ 16), xp);
     const float* cr = qcos + row * 64 + d0;
     const float* sr = qsin + row * 64 + d0;
     float r[8], amax = 0.f;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      const float pf = __bfloat162float(xp[j]);
-      const float rot = (d0 & 16) ? pf : -pf;
-      r[j] = __fadd_rn(__fmul_rn(__bfloat162float(x[j]), cr[j]),
-                       __fmul_rn(rot, sr[j]));
+      const float rot = (d0 & 16) ? xp[j] : -xp[j];
+      r[j] = __fadd_rn(__fmul_rn(x[j], cr[j]), __fmul_rn(rot, sr[j]));
       amax = fmaxf(amax, fabsf(r[j]));
     }
 #pragma unroll
@@ -321,6 +349,214 @@ int8_main(const __grid_constant__ CUtensorMap mq,
   });
 }
 
+// ------------------------------------------------------------- f32 ----
+
+namespace {
+
+constexpr int F_NW = 4;                        // consumer warps
+constexpr int F_MT = 2;                        // 16-row tiles per warp
+constexpr int F_R = 16 * F_MT * F_NW;          // 128 query rows per CTA
+constexpr int F_ST = 4;                        // ring slots
+constexpr int FKT = f32e::KT;                  // 64 keys per live tile
+constexpr uint32_t kFK8 = FKT * D;             // k8: 64 keys x 64 B, 4 KB
+constexpr uint32_t kFV = FKT * D * 4;          // V: 64 keys x 64 f32, 16 KB
+constexpr uint32_t kFBias = FKT * 4;           // the tile's key biases
+
+// Dynamic shared memory of the f32 CTA: per ring slot the k8 tile, the f32
+// V tile (two 32-lane boxes of 128-byte rows) and the key biases; every
+// tile on a 1024-byte boundary of the aligned base.
+struct F32Smem {
+  static constexpr uint32_t kK = 0;
+  static constexpr uint32_t kV = kK + F_ST * kFK8;
+  static constexpr uint32_t kBias = kV + F_ST * kFV;
+  static constexpr uint32_t kBar = kBias + F_ST * kFBias;
+  static constexpr uint32_t kEnd = kBar + 2 * F_ST * 8;
+  static constexpr int kBytes = kEnd + 1024;    // room to align the base
+
+  unsigned char* base;
+  __device__ explicit F32Smem(unsigned char* raw)
+      : base(reinterpret_cast<unsigned char*>(
+            (reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023))) {}
+  __device__ unsigned char* k(int s) const { return base + kK + s * kFK8; }
+  __device__ unsigned char* v(int s) const { return base + kV + s * kFV; }
+  __device__ float* bias(int s) const {
+    return reinterpret_cast<float*>(base + kBias + s * kFBias);
+  }
+  __device__ uint64_t* full(int s) const {
+    return reinterpret_cast<uint64_t*>(base + kBar) + s;
+  }
+  __device__ uint64_t* empty(int s) const { return full(F_ST + s); }
+};
+
+// d (16 x 8, s32) += a (16 x 32, s8, row) . b (32 x 8, s8, col): exact.
+__device__ __forceinline__ void mma_s8(int* d, const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Byte offset of 16-byte chunk ``c`` of key row ``r`` of a k8 tile written
+// by TMA with 64B swizzle (chunk c of row r sits at c ^ ((r / 2) % 4)):
+// ldmatrix's eight row addresses then fall in distinct bank groups.
+__device__ __forceinline__ uint32_t k8_off(int r, int c) {
+  return r * 64 + ((c ^ ((r >> 1) & 3)) << 4);
+}
+
+// The online-softmax step on the int32 scores of one 64-key tile of one
+// row tile, f32: the stabilizer from the int32 row max times the row's c,
+// p = exp2(s * c + kb - m) in place of nothing rounded (each operation
+// _rn, as the plain version's), the row sum of p.  Returns in ``alpha``
+// the factor O is scaled by.
+__device__ __forceinline__ void int8_step_f32(RowState& st, int cq,
+                                              const int (&s)[32],
+                                              const float (&c)[2],
+                                              const float* __restrict__ kb,
+                                              float (&p)[32],
+                                              float (&alpha)[2]) {
+  int mx[2] = {INT_MIN, INT_MIN};
+#pragma unroll
+  for (int i = 0; i < 32; ++i) mx[Rows::hi(i)] = max(mx[Rows::hi(i)], s[i]);
+  float safe[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    int x = max(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+    x = max(x, __shfl_xor_sync(0xffffffffu, x, 2));
+    const float m_new = fmaxf(st.m[h], __fmul_rn(static_cast<float>(x), c[h]));
+    safe[h] = (m_new <= 0.5f * NEG) ? 0.f : m_new;
+    alpha[h] = (st.m[h] <= 0.5f * NEG) ? 0.f : exp2_approx(st.m[h] - safe[h]);
+    st.m[h] = m_new;
+  }
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int h = Rows::hi(i);
+    // a dead or padding key has kb = NEG: its exp2 is 0
+    const float x = __fsub_rn(
+        __fadd_rn(__fmul_rn(i2f_exact(s[i]), c[h]), kb[Rows::col(i) + cq]),
+        safe[h]);
+    p[i] = exp2_approx(x);
+    sum[h] += p[i];
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) st.l[h] = st.l[h] * alpha[h] + quad_sum(sum[h]);
+}
+
+}  // namespace
+
+// grid (ceil(Nq / 128), heads, B).  ``mk``: the (C, Nk, B) int8 map, boxes
+// of 64 bytes x 64 keys, 64B swizzle; ``mv``: the f32 engine's map of v
+// (32-lane boxes of 64 keys).
+__global__ void __launch_bounds__((F_NW + 1) * 32, 1)
+int8_main_f32(const __grid_constant__ CUtensorMap mk,
+              const __grid_constant__ CUtensorMap mv,
+              const int8_t* __restrict__ q8, const float* __restrict__ cs,
+              const float* __restrict__ bl, const int* __restrict__ list,
+              const int* __restrict__ count, float* __restrict__ out, int Nq,
+              int C, int nt) {
+  extern __shared__ unsigned char smem_raw[];
+  const int h = blockIdx.y, b = blockIdx.z, q0 = blockIdx.x * F_R;
+  const int n = count[b];
+  const int* tiles = list + b * nt;
+  const F32Smem sm(smem_raw);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < F_ST; ++s) {
+      mbar_init(sm.full(s), 1);
+      mbar_init(sm.empty(s), F_NW * 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (w == F_NW) {  // producer warp
+    if (lane == 0) {
+      for (int i = 0; i < n; ++i) {
+        const int s = i % F_ST, t = tiles[i];
+        mbar_wait(sm.empty(s), ((i / F_ST) & 1) ^ 1);
+        mbar_expect_tx(sm.full(s), kFK8 + kFV + kFBias);
+        tma_load_3d(sm.k(s), &mk, sm.full(s), h * D, t * FKT, b);
+        for (int j = 0; j < 2; ++j)
+          tma_load_3d(sm.v(s) + j * FKT * 128, &mv, sm.full(s),
+                      h * D + 32 * j, t * FKT, b);
+        bulk_load(sm.bias(s), bl + ((long)b * nt + t) * FKT, kFBias,
+                  sm.full(s));
+      }
+    }
+    return;
+  }
+  // consumer warp w: row tiles 2w and 2w + 1, query rows q0 + 32 w + [0, 32)
+  const int g = lane >> 2, t4 = lane & 3, P = C / 128;
+  uint32_t a[F_MT][2][4];   // q8 fragments: [row tile][32-byte step][reg]
+  float c[F_MT][2];
+  RowState st[F_MT];
+#pragma unroll
+  for (int mt = 0; mt < F_MT; ++mt) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int i = q0 + 16 * (F_MT * w + mt) + g + 8 * hh;
+      const bool in = i < Nq;
+      const int8_t* row = q8 + ((long)b * Nq + (in ? i : 0)) * C + h * D;
+      c[mt][hh] = in ? cs[((long)b * Nq + i) * P + (h >> 1)] : 0.f;
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        const uint32_t* r32 =
+            reinterpret_cast<const uint32_t*>(row + 32 * kk + 4 * t4);
+        a[mt][kk][hh] = in ? r32[0] : 0u;        // bytes 4t .. 4t + 3
+        a[mt][kk][2 + hh] = in ? r32[4] : 0u;    // bytes 16 + 4t ..
+      }
+    }
+    st[mt].zero();
+  }
+  // ldmatrix: matrix mi = lane / 8 holds keys 8j + 8 (mi / 2) + [0, 8) at
+  // 16-byte chunk 2 kk + mi % 2: b0, b1 of n-tile j, then of j + 1
+  const int mi = lane >> 3, rr = lane & 7;
+  const int krow = rr + 8 * (mi >> 1), kch = mi & 1;
+  const int cq = 2 * t4;
+  int s[F_MT][32];
+  float p[F_MT][32], alpha[2];
+  for (int i = 0; i < n; ++i) {
+    const int slot = i % F_ST;
+    mbar_wait(sm.full(slot), (i / F_ST) & 1);
+    const uint32_t kb = smem_u32(sm.k(slot));
+#pragma unroll
+    for (int mt = 0; mt < F_MT; ++mt)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) s[mt][e] = 0;
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+      for (int j = 0; j < FKT / 8; j += 2) {
+        uint32_t bb[4];
+        f32e::ldsm_x4(bb, kb + k8_off(8 * j + krow, 2 * kk + kch));
+#pragma unroll
+        for (int mt = 0; mt < F_MT; ++mt) {
+          mma_s8(s[mt] + 4 * j, a[mt][kk], bb[0], bb[1]);
+          mma_s8(s[mt] + 4 * j + 4, a[mt][kk], bb[2], bb[3]);
+        }
+      }
+#pragma unroll
+    for (int mt = 0; mt < F_MT; ++mt) {
+      int8_step_f32(st[mt], cq, s[mt], c[mt], sm.bias(slot), p[mt], alpha);
+      rescale(st[mt], alpha);
+    }
+    f32e::pv<D>(sm.v(slot), p, st);
+    mbar_arrive(sm.empty(slot));
+  }
+#pragma unroll
+  for (int mt = 0; mt < F_MT; ++mt) {
+    const Rows rw = f32e::tile_rows(F_MT * w + mt);
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int i = q0 + (hh ? rw.r1 : rw.r0);
+      if (i >= Nq) continue;
+      const float l = st[mt].l[hh];
+      f32e::store_row(st[mt], rw, hh, 1.f / (l == 0.f ? 1.f : l),
+                      out + ((long)b * Nq + i) * C + h * D);
+    }
+  }
+}
+
 // A (B, N, C) int8 tensor as a 3-D map (C, N, B), boxes of 64 bytes x
 // ``rows`` rows of one batch, 64B swizzle, zeros outside.
 static cudaError_t make_map_i8(CUtensorMap* map, const void* base, int B,
@@ -333,6 +569,24 @@ static cudaError_t make_map_i8(CUtensorMap* map, const void* base, int B,
 }
 
 P3_ERROR_STRING_FN
+
+// The pre-passes: q8 and c, then the key tiles of BT keys.
+template <int BT, typename T>
+static cudaError_t prepass(const void* q, const void* qcos, const void* qsin,
+                           const void* bias, void* q8, void* c, void* bl,
+                           void* list, void* count, int B, int Nq, int Nk,
+                           int C, cudaStream_t st) {
+  const long items = (long)B * Nq * (C / 128);
+  int8_qprep<<<blocks_for(items * 16), 256, 0, st>>>(
+      static_cast<const T*>(q), static_cast<const float*>(qcos),
+      static_cast<const float*>(qsin), static_cast<int8_t*>(q8),
+      static_cast<float*>(c), items, C);
+  const int nt = (Nk + BT - 1) / BT;
+  cross_tiles<BT><<<B, 1024, nt * sizeof(int), st>>>(
+      static_cast<const float*>(bias), static_cast<float*>(bl),
+      static_cast<int*>(list), static_cast<int*>(count), Nk, nt);
+  return cudaGetLastError();
+}
 
 // q, v (B, Nq | Nk, C) bf16; k8 (B, Nk, C) int8; qcos/qsin (B, Nq, 64) f32
 // pre-scaled; bias (B, Nk) f32 (raw: the pre-pass takes log2 units) or
@@ -350,17 +604,8 @@ extern "C" int p3_tower_cross_int8_sm90(
   if (B < 1 || Nq < 1 || Nk < 1 || C % 128 != 0 || nt * 4L > 48 * 1024 ||
       nwg != NWG)
     return cudaErrorInvalidValue;
-  const long items = (long)B * Nq * (C / 128);
-  const int blocks =
-      static_cast<int>(std::min<long>((items * 16 + 255) / 256, 132L * 32));
-  int8_qprep<<<blocks, 256, 0, st>>>(
-      static_cast<const bf16*>(q), static_cast<const float*>(qcos),
-      static_cast<const float*>(qsin), static_cast<int8_t*>(q8),
-      static_cast<float*>(c), items, C);
-  cross_tiles<BKT><<<B, 1024, nt * sizeof(int), st>>>(
-      static_cast<const float*>(bias), static_cast<float*>(bl),
-      static_cast<int*>(list), static_cast<int*>(count), Nk, nt);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = prepass<BKT, bf16>(q, qcos, qsin, bias, q8, c, bl, list,
+                                       count, B, Nq, Nk, C, st);
   if (err != cudaSuccess) return err;
   CUtensorMap mq, mk, mv;
   if ((err = make_map_i8(&mq, q8, B, Nq, C, BQW)) != cudaSuccess ||
@@ -374,5 +619,33 @@ extern "C" int p3_tower_cross_int8_sm90(
       mq, mk, mv, static_cast<const float*>(c),
       static_cast<const float*>(bl), static_cast<const int*>(list),
       static_cast<const int*>(count), static_cast<bf16*>(out), Nq, C, nt);
+  return cudaGetLastError();
+}
+
+// As p3_tower_cross_int8_sm90 in f32: q, v and out f32, and key tiles of
+// 64 keys (nt = ceil(Nk / 64) in the scratch's shapes).
+extern "C" int p3_tower_cross_int8_f32_sm90(
+    const void* q, const void* k8, const void* v, const void* qcos,
+    const void* qsin, const void* bias, void* out, void* q8, void* c,
+    void* bl, void* list, void* count, int B, int Nq, int Nk, int C,
+    void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int nt = (Nk + FKT - 1) / FKT;
+  if (B < 1 || Nq < 1 || Nk < 1 || C % 128 != 0 || nt * 4L > 48 * 1024)
+    return cudaErrorInvalidValue;
+  cudaError_t err = prepass<FKT, float>(q, qcos, qsin, bias, q8, c, bl, list,
+                                        count, B, Nq, Nk, C, st);
+  if (err != cudaSuccess) return err;
+  CUtensorMap mk, mv;
+  if ((err = make_map_i8(&mk, k8, B, Nk, C, FKT)) != cudaSuccess ||
+      (err = f32e::make_map(&mv, v, B, Nk, C, FKT)) != cudaSuccess)
+    return err;
+  const int bytes = F32Smem::kBytes;
+  if ((err = prepare(int8_main_f32, bytes)) != cudaSuccess) return err;
+  const dim3 grid((Nq + F_R - 1) / F_R, C / D, B);
+  int8_main_f32<<<grid, (F_NW + 1) * 32, bytes, st>>>(
+      mk, mv, static_cast<const int8_t*>(q8), static_cast<const float*>(c),
+      static_cast<const float*>(bl), static_cast<const int*>(list),
+      static_cast<const int*>(count), static_cast<float*>(out), Nq, C, nt);
   return cudaGetLastError();
 }

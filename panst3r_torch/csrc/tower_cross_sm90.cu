@@ -7,7 +7,7 @@
 // and rounded to its dtype once (a no-op in f32), a per-key additive bias
 // (B, Nk) f32 (the memory validity), key tiles whose bias is all <=
 // finfo.min/2 skipped (no loads, no products), rows with no live key
-// written as 0.  The int8 branch is tower_cross_int8.cu.
+// written as 0.  The int8 branch is tower_cross_int8_sm90.cu.
 //
 // Bound on the H100: 4*Nq*Nk_live*C operations against the bytes of q, the
 // live k and v, the out and the tables.  At the render (3072 x 3072) 29

@@ -22,10 +22,11 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-KERNEL_SOURCES = ("tower_self_sm90", "tower_cross_sm90", "tower_cross_int8",
+KERNEL_SOURCES = ("tower_self_sm90", "tower_cross_sm90",
                   "tower_cross_int8_sm90", "masked_attn_sm90",
-                  "flash_fwd_bf16_sm90", "flash_fwd_sm90", "flash_bwd",
-                  "flash_bwd_sm90", "packed_flash_sm90")
+                  "flash_fwd_bf16_sm90", "flash_fwd_sm90",
+                  "flash_bwd_bf16_sm90", "flash_bwd_sm90",
+                  "packed_flash_sm90")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -19,11 +19,11 @@ finfo.min.
 ``flash_mha`` is differentiable in q, k and v (the bias, the validity and
 the tables are not, as in the JAX ``custom_vjp``s, flash_attention.py:
 429-570).  When a gradient is wanted its forward also keeps the LSE, and
-its backward is ``flash_mha_bwd``: K5 (``csrc/flash_bwd.cu``), which
-replaces ``flash_bwd`` — FlashAttention-2's two kernels, dq over query
-tiles and dk, dv over key tiles, recomputing p = exp(s - lse) tile by
-tile.  The JAX package makes its kernel backward opt-in
-(``PANST3R_FLASH_BWD=1``, flash_attention.py:404-413) because XLA's fused
+its backward is ``flash_mha_bwd``: K5, which replaces ``flash_bwd`` —
+FlashAttention-2's two kernels, dq over query tiles and dk, dv over key
+tiles, recomputing p = exp(s - lse) tile by tile.  The JAX package makes
+its kernel backward opt-in (``PANST3R_FLASH_BWD=1``,
+flash_attention.py:404-413) because XLA's fused
 recompute measured faster on a TPU; on the card the alternative is plain
 torch over the materialized logits, 6 GB per LoftUp call at 10 views in
 f32.  So on the card the K4 backward is always K5: no switch selects it.
@@ -33,13 +33,16 @@ the main paths (LoftUp runs in f32 under amp), to the Hopper f32 engine
 (``csrc/flash_fwd_sm90.cu``, ``csrc/flash_bwd_sm90.cu``: a pre-pass that
 writes the streamed operands as TF32 hi/lo planes, 3xTF32 tensor-core
 products, K5's dkdv over ``SPLIT_TILES`` query tiles per CTA merged in
-order).  bf16 K4 runs the bf16 Hopper engine
+order).  bf16 K4 and K5 run the bf16 Hopper engine
 (``csrc/flash_fwd_bf16_sm90.cu``: q and k rotated once per call, a list of
 live key tiles of ``BF16_KEY_TILE[D]`` keys, wgmma products, the softmax
-in registers; ``bf16_prepass_ref`` is its pre-pass's plain version), bf16
-K5 the tile engine (``csrc/flash_bwd.cu``).  ``flash_mha_split_ref`` and
-``flash_mha_bwd_split_ref`` emulate the f32 kernels' arithmetic (the
-tests only).
+in registers; ``bf16_prepass_ref`` is its pre-pass's plain version;
+``csrc/flash_bwd_bf16_sm90.cu``: the same rotation, live key tiles of
+``BF16_BWD_KEY_TILE`` keys, the LSE and Dvec pre-pass of the f32 K5,
+wgmma products, dkdv over the same fixed query splits).
+``flash_mha_split_ref`` and ``flash_mha_bwd_split_ref`` emulate the
+kernels' arithmetic (the f32 K4 and K5; K5 in bf16 too; the tests
+only).
 
 On a CPU tensor ``flash_mha`` and ``flash_mha_bwd`` run their plain
 versions (``flash_mha_ref``, ``flash_mha_bwd_ref``); on a CUDA tensor they
@@ -66,8 +69,11 @@ KEY_TILE = 32
 QUERY_TILE = 64
 SPLIT_TILES = 64
 # The bf16 K4's key tile by head dim: d=64 in the K1/K2 layout, d=96 in
-# K3's (csrc/flash_fwd_bf16_sm90.cu).
+# K3's (csrc/flash_fwd_bf16_sm90.cu); the bf16 K5's, K3's layout at both
+# (csrc/flash_bwd_bf16_sm90.cu).  The bf16 K5's dkdv walks the f32 K5's
+# fixed splits of SPLIT_TILES query tiles of QUERY_TILE.
 BF16_KEY_TILE = {64: 128, 96: 64}
+BF16_BWD_KEY_TILE = 64
 _LOG2E = 1.4426950408889634
 _LN2 = 0.6931471805599453
 
@@ -226,6 +232,7 @@ def _flash_fwd_kernel(q, k, v, bias, kv_valid, rope, scale, with_lse):
                  stream)
     cuda_build.check(lib, err, "flash_mha")
     flash_mha.launches += 1
+    flash_mha.launches_f32 += int(f32)
     return out, lse
 
 
@@ -310,7 +317,8 @@ def flash_mha(q, k, v, bias=None, kv_valid=None, rope=None, scale=None,
                                with_lse, need_grad)
 
 
-flash_mha.launches = 0
+# launches: every call; launches_f32: those of them on the f32 kernel
+flash_mha.launches = flash_mha.launches_f32 = 0
 
 
 def _rope_adjoint(g, cos, sin):
@@ -377,63 +385,75 @@ def _flash_bwd_kernel(q, k, v, o, lse, do, bias, kv_valid, rope, scale):
     cuda_build.check_tensor(lse, "lse", (B, H, Nq), torch.float32, dev)
     bias, row, tabs, bstr = _kernel_extras("flash_mha_bwd", q, k, bias,
                                            kv_valid, rope)
+    in_f32 = int(q.dtype == torch.float32)
+    # the products take do rounded to q's dtype (g); Dvec = rowsum(do * o)
+    # takes do and o unrounded, as the plain version does: the f32 kernels
+    # read both in f32 (exact from any narrower float), the bf16 kernels
+    # each in bf16 or f32 (``raw``: the unrounded do, and o)
     g = do.to(q.dtype)
-    if g.stride(-1) != 1:
-        g = g.contiguous()
+    raw, o = ((g, o.to(q.dtype)) if in_f32 else
+              (x if x.dtype in (torch.bfloat16, torch.float32) else x.float()
+               for x in (do, o)))
+    g, raw, o = (x if x.stride(-1) == 1 else x.contiguous()
+                 for x in (g, raw, o))
     f32 = functools.partial(torch.empty, dtype=torch.float32, device=dev)
     dq, dk, dv = f32(B, H, Nq, D), f32(B, H, Nk, D), f32(B, H, Nk, D)
     p, i32, P = ctypes.c_void_p, ctypes.c_int, cuda_build.ptr
-    stream = cuda_build.stream_of(q)
-    if q.dtype == torch.float32:        # the Hopper f32 engine
-        # Dvec = rowsum(do * o) is summed by the kernels' pre-pass in an
-        # order fixed per row (torch's reduction order follows the row
-        # count, so a query range's Dvec could differ in its last bit)
-        if o.stride(-1) != 1:
-            o = o.contiguous()
-        strides = (ctypes.c_longlong * 19)(
-            *(_strides(q) + _strides(k) + _strides(v) + _strides(g) + bstr
-              + _strides(o)))
-        ins = (P(q), P(k), P(v), P(g), P(lse), P(o), P(bias), P(row),
-               *map(P, tabs), strides)   # strides: o's at [16:19]
-        nt, Nqp = -(-Nk // KEY_TILE), -(-Nq // QUERY_TILE) * QUERY_TILE
-        ns = dkv_splits(Nq)
+    ints = functools.partial(torch.empty, dtype=torch.int32, device=dev)
+    Nqp = -(-Nq // QUERY_TILE) * QUERY_TILE
+    # Dvec = rowsum(do * o) is summed by the kernels' pre-pass in an order
+    # fixed per row (torch's reduction order follows the row count, so a
+    # query range's Dvec could differ in its last bit); the LSE and Dvec
+    # rows are padded to whole query tiles
+    stats = [f32(B, H, Nqp), f32(B, H, Nqp)]
+    if in_f32:                          # the Hopper f32 engine
+        lib_name, sfx = "flash_bwd_sm90", "sm90"
+        nt = -(-Nk // KEY_TILE)
+        # q hi/lo, do hi/lo, k hi/lo, v hi/lo, key biases, LSE, Dvec
         work = [f32(B, H, Nq, D) for _ in range(4)] \
             + [f32(B, H, Nk, D) for _ in range(4)] \
-            + [f32(B, nt * KEY_TILE), f32(B, H, Nqp), f32(B, H, Nqp),
-               torch.empty(B, nt, dtype=torch.int32, device=dev),
-               torch.empty(B, dtype=torch.int32, device=dev)]
-        ptrs = (p * len(work))(*(t.data_ptr() for t in work))
-        part = f32(2 * ns * B * H * Nk * D) if ns > 1 else None
-        shape = (ptrs, B, H, Nq, Nk, D, float(scale))
-        sig = [p] * 14 + [i32] * 5 + [ctypes.c_float]
-        lib, fn = cuda_build.function("flash_bwd_sm90", "p3_flash_bwd_dq_sm90",
+            + [f32(B, nt * KEY_TILE)] + stats + [ints(B, nt), ints(B)]
+    else:                               # the bf16 Hopper engine
+        lib_name, sfx = "flash_bwd_bf16_sm90", "bf16_sm90"
+        # the tensor maps read q, k, v and do through their strides
+        q, k, v, g = map(_aligned, (q, k, v, g))
+        # q~ and k~ (with tables), key biases, LSE, Dvec, live tiles
+        bl, tiles, count = tile_scratch(B, Nk, BF16_BWD_KEY_TILE, dev)
+        rot = [None, None] if rope is None else [
+            torch.empty((B, H, n, D), dtype=q.dtype, device=dev)
+            for n in (Nq, Nk)]
+        work = rot + [bl] + stats + [tiles, count]
+    strides = (ctypes.c_longlong * 22)(
+        *(_strides(q) + _strides(k) + _strides(v) + _strides(g) + bstr
+          + _strides(o) + _strides(raw)))
+    ins = (P(q), P(k), P(v), P(g), P(lse), P(o), P(bias), P(row),
+           *map(P, tabs), strides)   # strides: o's at [16:19], raw's [19:]
+    ptrs = (p * len(work))(*(None if t is None else t.data_ptr()
+                             for t in work))
+    ns = dkv_splits(Nq)
+    part = f32(2 * ns * B * H * Nk * D) if ns > 1 else None
+    shape = (ptrs, B, H, Nq, Nk, D, float(scale))
+    sig = [p] * 14 + [i32] * 5 + [ctypes.c_float]
+    stream = cuda_build.stream_of(q)
+    if in_f32:
+        lib, fn = cuda_build.function(lib_name, f"p3_flash_bwd_dq_{sfx}",
                                       sig + [p, p])
-        cuda_build.check(lib, fn(*ins, *shape, P(dq), stream),
-                         "flash_mha_bwd (dq)")
-        flash_mha_bwd.launches += 1
-        lib, fn = cuda_build.function(
-            "flash_bwd_sm90", "p3_flash_bwd_dkdv_sm90",
-            sig + [p, p, p, i32, p])
-        cuda_build.check(lib, fn(*ins, *shape, P(dk), P(dv), P(part),
-                                 SPLIT_TILES, stream), "flash_mha_bwd (dkdv)")
-        flash_mha_bwd.launches += 1
+        rc = fn(*ins, *shape, P(dq), stream)
     else:
-        dvec = (do.float() * o.float()).sum(-1).contiguous()
-        strides = (ctypes.c_longlong * 16)(
-            *(_strides(q) + _strides(k) + _strides(v) + _strides(g) + bstr))
-        ins = (P(q), P(k), P(v), P(g), P(lse), P(dvec), P(bias), P(row),
-               *map(P, tabs))
-        tail = (strides, B, H, Nq, Nk, D, float(scale), stream)
-        sig = [i32] * 5 + [ctypes.c_float, p]
-        lib, fn = cuda_build.function("flash_bwd", "p3_flash_bwd_dq",
-                                      [p] * 14 + sig)
-        cuda_build.check(lib, fn(*ins, P(dq), *tail), "flash_mha_bwd (dq)")
-        flash_mha_bwd.launches += 1
-        lib, fn = cuda_build.function("flash_bwd", "p3_flash_bwd_dkdv",
-                                      [p] * 15 + sig)
-        cuda_build.check(lib, fn(*ins, P(dk), P(dv), *tail),
-                         "flash_mha_bwd (dkdv)")
-        flash_mha_bwd.launches += 1
+        lib, fn = cuda_build.function(lib_name, f"p3_flash_bwd_dq_{sfx}",
+                                      sig + [p, i32, p, p])
+        raw_f32 = (int(raw.dtype == torch.float32)
+                   + 2 * int(o.dtype == torch.float32))
+        rc = fn(*ins, *shape, P(raw), raw_f32, P(dq), stream)
+    cuda_build.check(lib, rc, "flash_mha_bwd (dq)")
+    flash_mha_bwd.launches += 1
+    flash_mha_bwd.launches_f32 += in_f32
+    lib, fn = cuda_build.function(lib_name, f"p3_flash_bwd_dkdv_{sfx}",
+                                  sig + [p, p, p, i32, p])
+    cuda_build.check(lib, fn(*ins, *shape, P(dk), P(dv), P(part),
+                             SPLIT_TILES, stream), "flash_mha_bwd (dkdv)")
+    flash_mha_bwd.launches += 1
+    flash_mha_bwd.launches_f32 += in_f32
     if rope is not None:
         qcos, qsin, kcos, ksin = rope
         dq = _rope_adjoint(dq, qcos, qsin)
@@ -441,12 +461,14 @@ def _flash_bwd_kernel(q, k, v, o, lse, do, bias, kv_valid, rope, scale):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-flash_mha_bwd.launches = 0
+# launches: one per main kernel, two per backward; launches_f32: those of
+# them on the f32 kernels
+flash_mha_bwd.launches = flash_mha_bwd.launches_f32 = 0
 
 
 def dkv_splits(Nq: int, split_tiles: int = None) -> int:
-    """How many fixed query splits K5's f32 dkdv kernel walks: ceil(query
-    tiles / ``split_tiles``) (default ``SPLIT_TILES``)."""
+    """How many fixed query splits K5's dkdv kernel walks (f32 and bf16):
+    ceil(query tiles / ``split_tiles``) (default ``SPLIT_TILES``)."""
     split_tiles = SPLIT_TILES if split_tiles is None else split_tiles
     return -(-(-(-Nq // QUERY_TILE)) // split_tiles)
 
@@ -488,27 +510,29 @@ def _steps(n: int, step: int = 8):
     return [(a, min(a + step, n)) for a in range(0, n, step)]
 
 
-def _split_logits(q, k, bias, kv_valid, rope, scale, matmul):
+def _split_logits(q, k, bias, kv_valid, rope, scale, matmul,
+                  tile: int = KEY_TILE):
     """(rotated q, rotated k, logits in log2 units (NEG where masked), the
-    live keys of each batch) as the f32 kernels form them: s·scale·log2(e)
-    plus the key row and the dense bias in log2 units."""
+    live keys of each batch) as the kernels form them: q and k rotated in
+    f32 and rounded to their dtype once (then held in f32), s·scale·log2(e)
+    plus the key row and the dense bias in log2 units; the live keys are
+    those of the live tiles of ``tile`` keys."""
     B, H, Nq, D = q.shape
     Nk = k.shape[2]
-    q, k = q.float(), k.float()
     if rope is not None:
         qcos, qsin, kcos, ksin = rope
         q = apply_rope_tables_f32(q, qcos, qsin)
         k = apply_rope_tables_f32(k, kcos, ksin)
+    q, k = q.float(), k.float()
     dense, row = _split_bias(bias, kv_valid, B, Nk)
-    bl, tiles = key_tiles_ref(row, B, Nk, q.device)
+    bl, tiles = key_tiles_ref(row, B, Nk, q.device, tile)
     x = matmul(q, k.transpose(-1, -2)) * (scale * _LOG2E) \
         + bl[:, None, None, :Nk]
     if dense is not None:
         d = dense.float().expand(B, H, Nq, Nk)
         x = torch.where(d <= NEG_INF / 2, NEG_INF, x + d * _LOG2E)
     x = torch.where(x <= NEG_INF / 2, NEG_INF, x)
-    keys = [[j for t in tl for j in range(t * KEY_TILE,
-                                          min((t + 1) * KEY_TILE, Nk))]
+    keys = [[j for t in tl for j in range(t * tile, min((t + 1) * tile, Nk))]
             for tl in tiles]
     return q, k, x, keys
 
@@ -563,20 +587,25 @@ def flash_mha_bwd_split_ref(q, k, v, o, lse, do, bias=None, kv_valid=None,
                             rope=None, scale=None,
                             split_tiles: int = SPLIT_TILES,
                             matmul=torch.matmul):
-    """Plain version of the f32 K5's arithmetic (``csrc/flash_bwd_sm90.cu``):
-    p = exp2(x − LSE·log2 e) from K4's LSE (0 where x or the LSE is dead),
-    ds = p·(dp − Dvec)·scale; dq summed over the batch's live keys per
-    8-key step in f32; dk and dv summed per 8-query step in f32 within
-    each fixed split of ``split_tiles`` query tiles, the splits' sums added
-    in split order; the rotation's adjoint on dq and dk.  ``matmul`` takes
-    the products."""
+    """Plain version of K5's arithmetic on the Hopper engines
+    (``csrc/flash_bwd_sm90.cu`` in f32, ``csrc/flash_bwd_bf16_sm90.cu`` in
+    bf16): q and k rotated in f32 and rounded to their dtype, p = exp2(x −
+    LSE·log2 e) from K4's LSE (0 where x or the LSE is dead), ds = p·(dp −
+    Dvec)·scale, ds and p rounded to the inputs' dtype before the products
+    (a no-op in f32); dq summed over the batch's live keys (tiles of
+    ``KEY_TILE`` keys in f32, ``BF16_BWD_KEY_TILE`` in bf16) per 8-key step
+    in f32; dk and dv summed per 8-query step in f32 within each fixed
+    split of ``split_tiles`` query tiles, the splits' sums added in split
+    order; the rotation's adjoint on dq and dk; the gradients in the
+    inputs' dtypes.  ``matmul`` takes the products."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     B, H, Nq, D = q.shape
-    Nk = k.shape[2]
+    dt = q.dtype
+    tile = KEY_TILE if dt == torch.float32 else BF16_BWD_KEY_TILE
     qr, kr, x, keys = _split_logits(q, k, bias, kv_valid, rope, scale,
-                                    matmul)
-    g = do.float()
+                                    matmul, tile)
+    g = do.to(dt).float()
     lse = lse.float()
     dead = (lse <= NEG_INF / 2) | (lse >= -NEG_INF / 2)
     l2 = torch.where(dead, -NEG_INF, lse * _LOG2E)[..., None]
@@ -584,7 +613,8 @@ def flash_mha_bwd_split_ref(q, k, v, o, lse, do, bias=None, kv_valid=None,
                     torch.zeros_like(x), torch.exp2(x - l2))
     dp = matmul(g, v.float().transpose(-1, -2))
     dvec = (g * o.float()).sum(-1, keepdim=True)
-    ds = p * (dp - dvec) * scale
+    ds = (p * (dp - dvec) * scale).to(dt).float()
+    p = p.to(dt).float()
     dq = torch.zeros(B, H, Nq, D, device=q.device)
     for b in range(B):
         idx = torch.tensor(keys[b], dtype=torch.long, device=q.device)
@@ -602,4 +632,4 @@ def flash_mha_bwd_split_ref(q, k, v, o, lse, do, bias=None, kv_valid=None,
         qcos, qsin, kcos, ksin = rope
         dq = _rope_adjoint(dq, qcos, qsin)
         dk = _rope_adjoint(dk, kcos, ksin)
-    return dq, dk, dv
+    return dq.to(dt), dk.to(k.dtype), dv.to(v.dtype)

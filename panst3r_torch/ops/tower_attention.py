@@ -20,9 +20,10 @@ panst3r_tpu/ops/pallas/tower_attention.py).
   ``_cross_fwd``: int8 x int8 -> int32 scores, k quantized per tensor
   after its rotation (``int8_prepare``), q per row over each head pair by
   the kernel's pre-pass (``int8_qprep_ref`` is its plain version).  bf16
-  runs ``csrc/tower_cross_int8_sm90.cu`` (the Hopper engine: wgmma s8
-  scores over 128-key tiles, the key pre-pass and live-tile list of K2),
-  f32 the tile engine's ``csrc/tower_cross_int8.cu`` (64-key tiles).
+  and f32 run ``csrc/tower_cross_int8_sm90.cu`` (q pre-pass, the key
+  pre-pass and live-tile list of K2): bf16 on the wgmma engine (wgmma s8
+  scores over 128-key tiles), f32 on the 3xTF32 engine (mma.sync s8
+  scores over 64-key tiles, ``INT8_F32_TILE``; P.V in 3xTF32).
   ``tower_cross_attention`` routes to
   it on a CUDA tensor exactly where the JAX gate opens (``int8_gate``:
   ``PANST3R_KV_INT8=1`` or ``kv_int8=True``, RoPE tables, Nq >= 16384).
@@ -63,7 +64,7 @@ _LOG2E = math.log2(math.e)
 BLOCK_K = 128
 SPLIT_TILES = 16
 # K2-int8's key tiles: the bf16 kernel's (BLOCK_K, the plain version's
-# default) and the f32 tile engine's; the bf16 kernel's consumer
+# default) and the f32 kernel's (its ring entries); the bf16 kernel's consumer
 # warpgroups per CTA (csrc/tower_cross_int8_sm90.cu's NWG: its launcher
 # refuses any other value)
 INT8_F32_TILE = 64
@@ -493,8 +494,8 @@ def int8_prepare(k, qtab, ktab, scale):
 
 def int8_log2_bias(kv_bias):
     """The key bias (B, Nk) in log2 units, kv_bias·log2(e) in f32, or None:
-    what the plain version and the f32 kernel take (the bf16 kernel's key
-    pre-pass computes it from the raw bias)."""
+    what the plain version takes (the kernels' key pre-pass computes it
+    from the raw bias)."""
     return None if kv_bias is None \
         else (kv_bias.float() * _LOG2E).contiguous()
 
@@ -565,8 +566,8 @@ def tower_cross_int8_ref(q, k, v, qtab, ktab, kv_bias=None, scale=None,
 
 def _tower_cross_int8_kernel(q, k, v, qtab, ktab, kv_bias, scale):
     """Launch K2-int8 after ``int8_prepare``: one launch as counted,
-    whatever CUDA launches the call makes (bf16: the q and key pre-passes
-    and the main kernel)."""
+    whatever CUDA launches the call makes (the q and key pre-passes and
+    the main kernel)."""
     import ctypes
 
     B, Nq, C = q.shape
@@ -591,27 +592,27 @@ def _tower_cross_int8_kernel(q, k, v, qtab, ktab, kv_bias, scale):
     k8, (qcos, qsin) = int8_prepare(k, qtab, ktab, scale)
     out = torch.empty((B, Nq, C), dtype=q.dtype, device=dev)
     p, i32, P = ctypes.c_void_p, ctypes.c_int, cuda_build.ptr
+    f32 = q.dtype == torch.float32
+    q8 = torch.empty((B, Nq, C), dtype=torch.int8, device=dev)
+    c = torch.empty((B, Nq, C // 128), dtype=torch.float32, device=dev)
+    # the key pre-pass takes the raw key bias (log2 units are its work)
+    head = (P(q), P(k8), P(v), P(qcos), P(qsin), P(kv_bias), P(out), P(q8),
+            P(c), *map(P, fa.tile_scratch(
+                B, Nk, INT8_F32_TILE if f32 else BLOCK_K, dev)), B, Nq, Nk, C)
     stream = cuda_build.stream_of(q)
-    if q.dtype == torch.bfloat16:       # the Hopper engine
-        q8 = torch.empty((B, Nq, C), dtype=torch.int8, device=dev)
-        c = torch.empty((B, Nq, C // 128), dtype=torch.float32, device=dev)
+    if f32:
+        lib, fn = cuda_build.function(
+            "tower_cross_int8_sm90", "p3_tower_cross_int8_f32_sm90",
+            [p] * 12 + [i32] * 4 + [p])
+        err = fn(*head, stream)
+    else:
         lib, fn = cuda_build.function(
             "tower_cross_int8_sm90", "p3_tower_cross_int8_sm90",
             [p] * 12 + [i32] * 5 + [p])
-        scratch = fa.tile_scratch(B, Nk, BLOCK_K, dev)
-        # the key pre-pass takes the raw key bias (log2 units are its work)
-        err = fn(P(q), P(k8), P(v), P(qcos), P(qsin), P(kv_bias), P(out),
-                 P(q8), P(c), *map(P, scratch), B, Nq, Nk, C,
-                 INT8_WARPGROUPS, stream)
-    else:                               # f32: the tile engine
-        lib, fn = cuda_build.function("tower_cross_int8",
-                                      "p3_tower_cross_int8",
-                                      [p] * 7 + [i32] * 4 + [p])
-        kb = int8_log2_bias(kv_bias)
-        err = fn(P(q), P(k8), P(v), P(qcos), P(qsin), P(kb), P(out), B, Nq,
-                 Nk, C, stream)
+        err = fn(*head, INT8_WARPGROUPS, stream)
     cuda_build.check(lib, err, "tower_cross_int8")
     tower_cross_int8.launches += 1
+    tower_cross_int8.launches_f32 += int(f32)
     return out
 
 
@@ -632,7 +633,8 @@ def tower_cross_int8(q, k, v, qtab, ktab, kv_bias=None, scale=None):
                              v)
 
 
-tower_cross_int8.launches = 0
+# launches: every call; launches_f32: those of them on the f32 kernel
+tower_cross_int8.launches = tower_cross_int8.launches_f32 = 0
 
 
 def tower_cross_attention(q, k, v, qtab=None, ktab=None, kv_bias=None,

@@ -503,8 +503,9 @@ def test_image_cast_matches_cpu_bit_for_bit(dev):
 def test_flash_bwd_kernel(dev, monkeypatch, dtype, D, case):
     """K5's dq, dk, dv against its plain version from K4's own output and
     LSE: f32 within 1e-4 of the plain gradient's max |value|; bf16 by the
-    bf16 rule, per gradient.  ``split_merge``: the f32 dkdv walks one query
-    tile per split, so that 130 queries take three merged in order."""
+    bf16 rule, per gradient.  ``split_merge``: the dkdv kernel (f32 and
+    bf16) walks one query tile per split, so that 130 queries take three
+    merged in order."""
     if case == "split_merge":
         monkeypatch.setattr(fa, "SPLIT_TILES", 1)
     g = torch.Generator(device=dev).manual_seed(D + 1)
@@ -522,6 +523,30 @@ def test_flash_bwd_kernel(dev, monkeypatch, dtype, D, case):
     assert all(c["ok"] and c["finite"] for c in check.values()), check
     if case == "masked_rows":               # rows without a live key
         assert (got[0][1] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 96])
+@pytest.mark.parametrize("other", ["do", "o", "do_and_o"])
+def test_flash_bwd_kernel_mixed_dtypes(dev, dtype, D, other):
+    """K5 with ``do``, ``o`` or both in the other float type than q (f32
+    on bf16 inputs, bf16 on f32 ones): Dvec takes them unrounded, as the
+    plain version does, and the gradients pass the rule of
+    test_flash_bwd_kernel against it."""
+    g = torch.Generator(device=dev).manual_seed(D + 7)
+    q, k, v, bias, kv_valid, rope = _flash_inputs(g, dev, dtype, "rope", D)
+    kw = dict(bias=bias, kv_valid=kv_valid, rope=rope)
+    alt = torch.bfloat16 if dtype == torch.float32 else torch.float32
+    do = _rnd(g, dev, alt if other != "o" else dtype, *q.shape)
+    o, lse = fa.flash_mha(q, k, v, with_lse=True, **kw)
+    if other != "do":
+        o = o.to(alt)
+    got = fa.flash_mha_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    plain = fa.flash_mha_bwd_ref(q, k, v, o, lse, do, **kw)
+    exact = fa.flash_mha_bwd_ref(*_f32((q, k, v, o)), lse, _f32(do), **kw)
+    check = chip_smoke._grad_check(got, plain, exact, dtype)
+    assert all(c["ok"] and c["finite"] for c in check.values()), check
 
 
 @pytest.mark.parametrize("D", [64, 96])
@@ -631,9 +656,9 @@ def test_flash_f32_bits_unchanged(dev):
 
 
 def test_k4_k5_route_by_dtype(dev, monkeypatch):
-    """f32 K4 and K5 run the Hopper f32 engine's libraries; bf16 K4 the
-    bf16 Hopper engine's and bf16 K5 the tile engine's; one launch per K4
-    call and two per K5 call either way."""
+    """f32 K4 and K5 run the Hopper f32 engine's libraries, bf16 K4 and K5
+    the bf16 Hopper engine's; one launch per K4 call and two per K5 call
+    either way."""
     from panst3r_torch.ops import cuda_build
 
     names = []
@@ -648,7 +673,7 @@ def test_k4_k5_route_by_dtype(dev, monkeypatch):
     for dtype, fwd, bwd in ((torch.float32, "flash_fwd_sm90",
                              "flash_bwd_sm90"),
                             (torch.bfloat16, "flash_fwd_bf16_sm90",
-                             "flash_bwd")):
+                             "flash_bwd_bf16_sm90")):
         q, k, v, *_ = _flash_inputs(g, dev, dtype, "plain", 96)
         n0, b0 = fa.flash_mha.launches, fa.flash_mha_bwd.launches
         del names[:]
@@ -667,8 +692,8 @@ def test_gradients_through_kernels(dev, dtype):
     the same inputs, at small shapes (chip_smoke.py's ``phase_autograd``
     does it at the main paths'); K4 + K5 through autograd against
     autograd through ``flash_mha_ref`` (f32, within 1e-4 of the gradient's
-    max); bf16, the Hopper K4 feeding the tile engine's K5 its output and
-    LSE, by the bf16 rule against the plain versions' chain
+    max); bf16, the Hopper K4 feeding the Hopper K5 its output and LSE,
+    by the bf16 rule against the plain versions' chain
     (``flash_mha_ref``, then ``flash_mha_bwd_ref``) in bf16 and in f32."""
     g = torch.Generator(device=dev).manual_seed(11)
     qkv = _rnd(g, dev, dtype, 2, 300, 384, s=QK_STD).requires_grad_()
