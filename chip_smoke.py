@@ -59,6 +59,22 @@ Run from the root of a checkout.  It builds the CUDA kernels of
    exactly 24 K6 launches per run of the ``packed`` variant, K6 against
    K4, every variant's ms per layer and the bound; one f32 run of the
    ``packed`` variant (24 launches of the f32 K6);
+8. ``multibucket``: the mixed-aspect v1 main path
+   (``MultiBucketEngine.run`` + ``fuse``, bf16, V=8 uint8 views over the
+   384x512, 336x512 and 160x512 buckets, one portrait view, K=4 linspace
+   keyframes in three buckets sharing one memory of 2080 slots): times,
+   peak memory, shapes and finiteness, launches held to
+   ``expected_multibucket_launches``; then the same scene at depth 2 in
+   f32 for v1 and v2, card against CPU at ``small``'s limits; the
+   ``kernels`` phase holds K1, K2 and K3 at this scene's shapes
+   (``encoder_672``, ``encoder_320``, ``render_mixed``,
+   ``mask_transformer_mixed``);
+9. ``demo``: full v2 weights saved by ``core/checkpoint.py`` into a
+   temporary directory, ``apps/common.py::build_engine`` from it (weights,
+   classes and class embeddings restored), ``apps/demo.py``'s
+   ``reconstruct_scene`` with QUBO and standard v2 fusion on V=8 uint8
+   views, and ``export_scene``'s PLY and cameras.json, with finite poses;
+   neither PIL nor PyYAML is imported;
 
 then one ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``.  Any failed phase raises, and the script exits non-zero without
@@ -113,7 +129,7 @@ REPLACES = {
     "packed_flash_f32": "tools/ab_attention_packed.py:84 (f32)",
 }
 PHASES = ("kernels", "small", "v1", "v2", "train_v2", "serve", "serve_long",
-          "ab_packed")
+          "ab_packed", "multibucket", "demo")
 # every kernel runs a Hopper engine in both dtypes: bf16 the wgmma engine
 # (K2-int8 its s8 scores); of the f32 paths (entries ``*_f32`` of the
 # kernels line) K2, K2-int8 and K3 run the 3xTF32 engine in the same
@@ -182,6 +198,14 @@ JAX_SCENE_FLOPS = {("v1", 8, 4): 14_320_910_696_448,
 FLOPS_RTOL = 1e-6
 # K6 against K4 in the A/B tool: a few bf16 units of outputs of size ~1
 AB_PARITY_ATOL = 2.0 ** -6
+# The mixed-aspect scene of phase multibucket: V=8 views over three
+# DEFAULT_BUCKETS entries, view 5 a portrait view stored landscape; its
+# linspace keyframes 0, 2, 4, 7 lie in three buckets, their token grids
+# 24x32, 21x32, 10x32 and 10x32 (a shared memory of 2080 slots)
+MB_SHAPES = ((384, 512), (384, 512), (336, 512), (336, 512), (160, 512),
+             (336, 512), (384, 512), (160, 512))
+MB_PORTRAIT = (5,)
+MB_KEYFRAME_GRIDS = (24, 21, 10, 10)
 
 
 def emit(obj) -> None:
@@ -283,12 +307,13 @@ def kernel_cases(dtype, dev):
     # K2: decoder update (second +1 step: 1536 of 3072 memory slots valid,
     # own 768 tokens appended), render (4 views x 768 against a full
     # 4-keyframe memory), and a ragged shape with dead tiles.
-    def k2(label, B, Nq, Nk, valid):
+    def k2(label, B, Nq, Nk, valid, qpos=None, kpos=None):
         C = 768
         q, k = rnd(B, Nq, C, s=QK_STD), rnd(B, Nk, C, s=QK_STD)
         v = rnd(B, Nk, C)
-        qpos = torch.randint(0, 32, (B, Nq, 2), generator=g, device=dev)
-        kpos = torch.randint(0, 32, (B, Nk, 2), generator=g, device=dev)
+        if qpos is None:
+            qpos = torch.randint(0, 32, (B, Nq, 2), generator=g, device=dev)
+            kpos = torch.randint(0, 32, (B, Nk, 2), generator=g, device=dev)
         qtab, ktab = rope2d_tables(qpos, 64), rope2d_tables(kpos, 64)
         bias = torch.where(valid, 0.0, float(torch.finfo(torch.float32).min))
         live = int(valid.sum())                        # over the batch
@@ -355,13 +380,30 @@ def kernel_cases(dtype, dev):
                  es, dev)
         _k1_case(cases, "decoder_train", 10, 768, 12, True, False, rnd, g,
                  es, dev)
+    # the mixed-bucket scene's shapes (phase multibucket, chunk 4), drawn
+    # last: the encoder over the 3 views of the 336x512 bucket and the 2 of
+    # the 160x512 bucket; the render of its largest 21x32 group (the 2
+    # non-keyframe views 3 and 5) against the keyframe memory of the grids
+    # 24x32, 21x32, 10x32 and 10x32 (2080 slots: a ragged last key tile);
+    # the mask transformer over those 2080 keyframe tokens
+    for label, B, grid in (("encoder_672", 3, (21, 32)),
+                           ("encoder_320", 2, (10, 32))):
+        _k1_case(cases, label, B, 1024, 16, True, False, rnd, g, es, dev,
+                 grid=grid)
+    kpos = torch.cat([_grid_pos(1, gh, 32, dev) for gh in MB_KEYFRAME_GRIDS],
+                     1)
+    k2("render_mixed", 1, 2 * 672, kpos.shape[1],
+       torch.ones(1, kpos.shape[1], dtype=torch.bool, device=dev),
+       qpos=_grid_pos(1, 21, 32, dev).repeat(1, 2, 1), kpos=kpos)
+    _k3_case(cases, "mask_transformer_mixed", kpos.shape[1], rnd, g, es, dev)
     return cases
 
 
-def _k1_case(cases, label, B, C, H, rope, cls, rnd, g, es, dev):
-    """Appends K1's case at (B, 768 tokens, C) with H heads of 64, RoPE
-    tables and a cls key/value as asked; the library call is SDPA on the
-    heads split out (without the cls column)."""
+def _k1_case(cases, label, B, C, H, rope, cls, rnd, g, es, dev,
+             grid=(24, 32)):
+    """Appends K1's case at (B, gh*gw tokens, C) with H heads of 64, RoPE
+    tables of the grid and a cls key/value as asked; the library call is
+    SDPA on the heads split out (without the cls column)."""
     import torch
     import torch.nn.functional as F
 
@@ -375,9 +417,9 @@ def _k1_case(cases, label, B, C, H, rope, cls, rnd, g, es, dev):
         B, N, C = t.shape
         return t.reshape(B, N, C // D, D).transpose(1, 2).contiguous()
 
-    N = 768
+    N = grid[0] * grid[1]
     qkv = torch.cat([rnd(B, N, 2 * C, s=QK_STD), rnd(B, N, C)], -1)
-    tabs = rope2d_tables(_grid_pos(B, 24, 32, dev), 64) if rope else None
+    tabs = rope2d_tables(_grid_pos(B, *grid, dev), 64) if rope else None
     ckv = (rnd(B, 1, C, s=QK_STD), rnd(B, 1, C)) if cls else None
     q, k, v = (heads(t, 64) for t in qkv.split(C, -1))
     nbytes = qkv.numel() * es + B * N * C * es \
@@ -417,9 +459,12 @@ def _k3_case(cases, label, Nk, rnd, g, es, dev, B=1):
             blocked[b, qi, s:s + 100 + 30 * (qi % 8)] = False
     blocked &= torch.rand(B, Nq, Nk, generator=g, device=dev) > 0.02
     blocked[:, 150:160] = True                         # fully blocked rows
-    _, count = ma.plan_blocks(blocked, ma.BLOCK_Q, ma.BLOCK_K, 256, Nk)
+    _, count = ma.plan_blocks(blocked, ma.BLOCK_Q, ma.BLOCK_K, 256,
+                              ma.BLOCK_K * -(-Nk // ma.BLOCK_K))
     live_tiles = int(count.sum())
-    live_kb = int((~blocked.view(B, Nq, Nk // 64, 64).all(-1).all(1)).sum())
+    nkb = -(-Nk // 64)                  # a ragged last key block counts
+    padded = F.pad(blocked, (0, nkb * 64 - Nk), value=True)
+    live_kb = int((~padded.view(B, Nq, nkb, 64).all(-1).all(1)).sum())
     nbytes = (2 * q.numel() + 2 * H * live_kb * 64 * D) * es + blocked.numel()
     cases.append(dict(
         kernel="masked_attn", case=label,
@@ -2222,6 +2267,288 @@ def phase_ab_packed():
 
 # ------------------------------------------------------------------ main --
 
+# ------------------------------------------------ mixed aspect, demo --
+
+def _mb_inputs(ncls=32):
+    rng = np.random.default_rng(0)
+    images = [rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+              for h, w in MB_SHAPES]
+    portrait = np.zeros(len(images), bool)
+    portrait[list(MB_PORTRAIT)] = True
+    return images, portrait, \
+        rng.standard_normal((ncls, 768)).astype(np.float32)
+
+
+def expected_multibucket_launches(cfg, buckets, K, chunk):
+    """Launches per kernel for one MultiBucketEngine.run: per bucket, the
+    encoder over its views in chunks; per keyframe bucket group, the
+    memory updates on the [init, +1, ...] schedule; per bucket group of
+    the keyframes, then of the other views, the render and DINO in chunks
+    and one head call, which runs the v2 mixer (K1) and LoftUp (K4); the
+    mask transformer's masked layers once, in the joint keyframe decode
+    (the other views take the frozen queries)."""
+    from panst3r_torch.engine.retrieval import select_keyframes_linspace
+    from panst3r_torch.models.upscalers import LoftUpUpscalerConfig
+
+    V = len(buckets)
+    kf = select_keyframes_linspace(V, K)
+    nk = [i for i in range(V) if i not in kf]
+
+    def groups(idxs):
+        out = {}
+        for i in idxs:
+            out.setdefault(buckets[i], []).append(i)
+        return list(out.values())
+
+    def chunks(n):
+        return math.ceil(n / min(chunk, n))
+
+    n_enc = sum(chunks(len(g)) for g in groups(range(V)))
+    n_updates = sum(len(cfg.mem_batches(len(g))) for g in groups(kf))
+    head_groups = groups(kf) + groups(nk)
+    n_render = sum(chunks(len(g)) for g in head_groups)
+    dec = cfg.decoder.depth
+    pan = cfg.panoptic
+    mixer = pan.input_mixer.num_layers if pan.input_mixer else 0
+    loftup = pan.upscaler.num_layers \
+        if isinstance(pan.upscaler, LoftUpUpscalerConfig) else 0
+    return {
+        "tower_self": n_enc * cfg.encoder.depth + n_render * cfg.dino.depth
+        + (n_updates + n_render) * dec + len(head_groups) * mixer,
+        "tower_cross": (n_updates + n_render) * dec,
+        "masked_attn": pan.mask_transformer.dec_layers,
+        "flash_fwd": len(head_groups) * loftup,
+        "flash_bwd": 0,
+        "tower_cross_int8": 0,
+        "packed_flash": 0,
+    }
+
+
+def _mb_check(out, cfg, ncls) -> dict:
+    """Shapes and finiteness of a MultiBucketEngine.run output."""
+    Q = cfg.panoptic.mask_transformer.num_queries
+    ok = {"pred_logits": (list(out["pred_logits"].shape) == [Q, ncls],
+                          bool(np.isfinite(out["pred_logits"]).all()))}
+    for key, shape_of in (("pointmaps_raw", lambda h, w: [h, w, 7]),
+                          ("pred_masks", lambda h, w: [Q, h // 2, w // 2])):
+        ok[key] = (all(list(o.shape) == shape_of(h, w) for o, (h, w)
+                       in zip(out[key], MB_SHAPES)),
+                   all(bool(np.isfinite(o).all()) for o in out[key]))
+    return ok
+
+
+def phase_multibucket():
+    """The mixed-aspect main path (full v1, bf16: ``run`` + ``fuse``, which
+    brings every output to the host, and ``run_device`` + ``fuse``, and a
+    profile of the latter), then a depth-2 f32 check of the same scene,
+    card against CPU, for v1 and v2; returns the full scene's launch
+    counts."""
+    import torch
+
+    from panst3r_torch.core.bucketing import Bucket
+    from panst3r_torch.core.profiling import profile_by_kernel
+    from panst3r_torch.engine.inference import MultiBucketEngine
+    from panst3r_torch.models.panst3r import build_model
+
+    images, portrait, cls_emb = _mb_inputs()
+    buckets = [Bucket(*im.shape[:2]) for im in images]
+    K, chunk = 4, 4
+    cfg = _config("v1")
+    model = build_model(cfg, seed=0)
+    eng = MultiBucketEngine(model, num_keyframes=K, chunk=chunk, amp=True)
+    eng.fuse(eng.run(images, portrait, cls_emb))           # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    out = eng.run(images, portrait, cls_emb)
+    t1 = time.perf_counter()
+    fused = eng.fuse(out)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    counts = _read_counts("multibucket")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    # the same scene kept on the card (run_device + fuse, as the v1 phase
+    # times its scene), then one traced run
+    t3 = time.perf_counter()
+    eng.fuse(eng.run_device(images, portrait, cls_emb))
+    torch.cuda.synchronize()
+    on_device = time.perf_counter() - t3
+    profile = profile_by_kernel(lambda: eng.fuse(
+        eng.run_device(images, portrait, cls_emb)))
+    profile["device_idle_share_untraced"] = 1 - profile["device_busy_ms"] \
+        / (on_device * 1e3)
+    want = expected_multibucket_launches(cfg, buckets, K, chunk)
+    checks = _mb_check(out, cfg, cls_emb.shape[0])
+    kf_buckets = sorted({buckets[i].shape for i in out["keyframes"]})
+    pan_ok = [p.shape for p in fused[0]["pan"]] == list(MB_SHAPES)
+    emit({"phase": "multibucket", "model": "v1", "views": len(images),
+          "shapes": [list(b) for b in MB_SHAPES],
+          "portrait": portrait.tolist(), "keyframes": out["keyframes"],
+          "keyframe_buckets": kf_buckets,
+          "memory_slots": sum(buckets[i].num_patches(16)
+                              for i in out["keyframes"]),
+          "run_s": t1 - t0, "fuse_s": t2 - t1, "run_plus_fuse_s": t2 - t0,
+          "run_device_plus_fuse_s": on_device, "peak_mem_gib": peak,
+          "n_segments": len(fused[0]["segments_info"]), "pan_ok": pan_ok,
+          "checks": checks, "launches": counts, "expected_launches": want})
+    emit({"phase": "multibucket_profile", **profile})
+    bad = [k for k, (shape_ok, finite) in checks.items()
+           if not (shape_ok and finite)]
+    if bad or not pan_ok:
+        raise AssertionError(f"multibucket: wrong or non-finite outputs: "
+                             f"{bad}, pan shapes ok: {pan_ok}")
+    if len(kf_buckets) < 2:
+        raise AssertionError(f"multibucket: keyframes in {kf_buckets}")
+    if counts != want:
+        raise AssertionError(f"multibucket: launches {counts} != expected "
+                             f"{want}")
+    del eng, model, out, fused
+    torch.cuda.empty_cache()
+
+    for preset in ("v1", "v2"):
+        cfg = _config(preset, depth=2)
+        cpu_model = build_model(cfg, device="cpu", seed=0)
+        gpu_model = build_model(cfg, device="cuda", seed=1)
+        gpu_model.load_state_dict(cpu_model.state_dict())
+        outs = {}
+        for name, m in (("cuda", gpu_model), ("cpu", cpu_model)):
+            e = MultiBucketEngine(m, num_keyframes=K, chunk=chunk, amp=False,
+                                  device=name)
+            _reset_counts()
+            t0 = time.perf_counter()
+            outs[name] = e.run(images, portrait, cls_emb)
+            n = _read_counts()
+            emit({"phase": "multibucket_small", "model": preset,
+                  "device": name, "seconds": time.perf_counter() - t0,
+                  "launches": n})
+            if name == "cuda":
+                want = expected_multibucket_launches(cfg, buckets, K, chunk)
+                if n != want:
+                    raise AssertionError(f"multibucket_small {preset}: "
+                                         f"launches {n} != {want}")
+        a, b = outs["cuda"], outs["cpu"]
+        row = {"phase": "multibucket_small", "model": preset,
+               "compare": "cuda_vs_cpu"}
+        for key, atol, rtol in (("pointmaps_raw", 2e-4, 0.0),
+                                ("pred_logits", 2e-3, 0.0),
+                                ("pred_masks", 1e-2, 1e-2)):
+            pairs = list(zip(a[key], b[key])) if isinstance(a[key], list) \
+                else [(a[key], b[key])]
+            err = max(float(np.abs(x - y).max()) for x, y in pairs)
+            ok = all(bool(np.all(np.abs(x - y) <= atol + rtol * np.abs(y)))
+                     for x, y in pairs)
+            row[key] = {"max_abs_err": err, "atol": atol, "rtol": rtol,
+                        "ok": ok}
+        emit(row)
+        bad = [k for k in ("pointmaps_raw", "pred_logits", "pred_masks")
+               if not row[k]["ok"]]
+        if bad or a["keyframes"] != b["keyframes"]:
+            raise AssertionError(f"multibucket_small {preset}: card and CPU "
+                                 f"disagree on {bad}")
+        del cpu_model, gpu_model, outs
+        torch.cuda.empty_cache()
+    return counts
+
+
+def phase_demo():
+    """The demo entry points at full v2 width: a checkpoint saved by
+    ``core/checkpoint.py`` (bf16 weights, classes and class embeddings in
+    its meta) into a temporary directory, ``build_engine`` from it,
+    ``reconstruct_scene`` with QUBO and standard v2 fusion on uint8 views,
+    and ``export_scene`` (the PLY and cameras.json; no PNG: nothing here
+    imports PIL or PyYAML); returns the launch counts of the QUBO scene."""
+    import tempfile
+
+    import torch
+
+    from panst3r_torch.apps import demo
+    from panst3r_torch.apps.common import build_engine
+    from panst3r_torch.core.bucketing import Bucket
+    from panst3r_torch.core.checkpoint import save_checkpoint
+    from panst3r_torch.models.panst3r import build_model
+
+    before = {m.split(".")[0] for m in sys.modules}
+    V, K, H, W = 8, 4, 384, 512
+    cfg = _config("v2")
+    rng = np.random.default_rng(1)
+    classes = list(demo.SCANNET_CLASSES)
+    emb = rng.standard_normal((len(classes),
+                               cfg.panoptic.mask_transformer.lang_dim)) \
+        .astype(np.float32)
+    emb /= np.linalg.norm(emb, axis=-1, keepdims=True)
+    images = rng.integers(0, 256, (V, H, W, 3), dtype=np.uint8)
+    portrait = np.zeros(V, bool)
+    counts = None
+    with tempfile.TemporaryDirectory() as tmp:
+        model = build_model(cfg, seed=0).to(torch.bfloat16)
+        t0 = time.perf_counter()
+        save_checkpoint(tmp, "demo", model, cfg,
+                        {"classes": classes, "cls_emb": emb})
+        saved = {k: v.detach().clone() for k, v in
+                 model.state_dict().items()}
+        del model
+        eng, got_classes, got_emb = build_engine(
+            "v2", Bucket(H, W), checkpoint=f"{tmp}/demo", num_keyframes=K)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        same = all(torch.equal(v, saved[k])
+                   for k, v in eng.model.state_dict().items())
+        if got_classes != classes or not np.array_equal(got_emb, emb) \
+                or not same:
+            raise AssertionError("demo: build_engine did not restore the "
+                                 "checkpoint's weights, classes and "
+                                 "embeddings")
+        del saved
+        for fusion in ("qubo", "standard_v2"):
+            if fusion == "qubo":
+                _reset_counts()
+            t0 = time.perf_counter()
+            scene = demo.reconstruct_scene(eng, images, portrait, classes,
+                                           got_emb, fusion=fusion)
+            torch.cuda.synchronize()
+            scene_s = time.perf_counter() - t0
+            if fusion == "qubo":
+                counts = _read_counts("demo")
+            out_dir = f"{tmp}/{fusion}"
+            t0 = time.perf_counter()
+            demo.export_scene(out_dir, images, scene, overlays=False)
+            export_s = time.perf_counter() - t0
+            with open(f"{out_dir}/cameras.json") as f:
+                cams = json.load(f)
+            with open(f"{out_dir}/scene.ply") as f:
+                head = [next(f) for _ in range(3)]
+            n_points = int(head[2].split()[-1])
+            rot = scene["cams2world"][:, :3, :3]
+            checks = {
+                "pan_shape": list(scene["pan"].shape) == [V, H, W],
+                "poses_finite": bool(np.isfinite(scene["cams2world"]).all()
+                                     and np.isfinite(scene["focals"]).all()),
+                "rotations": bool(np.allclose(np.linalg.det(rot), 1.0,
+                                              atol=1e-3)),
+                "cameras_json": len(cams["focals"]) == V
+                and bool(np.isfinite(np.asarray(cams["cams2world"])).all()),
+                "ply": head[0].strip() == "ply" and n_points > 0,
+            }
+            emit({"phase": "demo", "model": "v2", "fusion": fusion,
+                  "views": V, "checkpoint_to_engine_s": load_s,
+                  "scene_s": scene_s, "export_s": export_s,
+                  "n_segments": len(scene["segments_info"]),
+                  "ply_points": n_points, "checks": checks,
+                  **({"launches": counts} if fusion == "qubo" else {})})
+            if not all(checks.values()):
+                raise AssertionError(f"demo {fusion}: {checks}")
+    new = ({m.split(".")[0] for m in sys.modules} - before) & {"PIL", "yaml"}
+    if new:
+        raise AssertionError(f"demo imported {sorted(new)}")
+    want = expected_launches(cfg, V, K, 4)
+    if counts != want:
+        raise AssertionError(f"demo: launches {counts} != {want}")
+    del eng
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES))
@@ -2279,6 +2606,10 @@ def main(argv=None) -> int:
         launches["serve_long"] = phase_serve_long()
     if "ab_packed" in phases:
         launches["ab_packed"], launches["ab_packed_f32"] = phase_ab_packed()
+    if "multibucket" in phases:
+        launches["multibucket"] = phase_multibucket()
+    if "demo" in phases:
+        launches["demo"] = phase_demo()
 
     def count(entry, path):
         """An entry's launches on a path: its wrapper's launches in the

@@ -1,12 +1,14 @@
 """Declarative configuration registry (counterpart of panst3r_tpu/core/config.py).
 
 Configs are frozen dataclasses registered by class name so that a config
-tree round-trips through plain dicts.  The file helpers (YAML/JSON) of the
-JAX package wait for the training slice.
+tree round-trips through plain dicts, YAML and JSON files.  PyYAML is
+imported only inside the YAML helpers: nothing on the card's path needs it.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
+from pathlib import Path
 from typing import Any, Type, TypeVar
 
 _REGISTRY: dict[str, type] = {}
@@ -53,3 +55,20 @@ def from_dict(d: Any) -> Any:
         return {k: from_dict(v) for k, v in d.items()}
     return d
 
+
+def save_yaml(cfg: Any, path: str | Path) -> None:
+    import yaml
+    Path(path).write_text(yaml.safe_dump(to_dict(cfg), sort_keys=False))
+
+
+def load_yaml(path: str | Path) -> Any:
+    import yaml
+    return from_dict(yaml.safe_load(Path(path).read_text()))
+
+
+def save_json(cfg: Any, path: str | Path) -> None:
+    Path(path).write_text(json.dumps(to_dict(cfg), indent=2))
+
+
+def load_json(path: str | Path) -> Any:
+    return from_dict(json.loads(Path(path).read_text()))

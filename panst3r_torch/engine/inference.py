@@ -30,9 +30,16 @@ retrieval keyframes, and packs one uint8/uint16 wire buffer that
 ``serve_latency_overlap`` upload in chunks (packed YUV420 decoded per
 chunk) and run the towers per chunk; ``serve_stream`` pipelines scenes
 with a fetcher thread.  Every input may be packed YUV420
-(``ops/image.py``).  ``serve_many_device`` and ``MultiBucketEngine`` wait
-for later slices and raise.  ``stage_flops`` / ``pipeline_flops`` count a
-scene's matmul work for MFU (``ops/flops.py``).
+(``ops/image.py``).  ``serve_many_device`` waits for a later slice and
+raises.  ``stage_flops`` / ``pipeline_flops`` count a scene's matmul work
+for MFU (``ops/flops.py``).
+
+``MultiBucketEngine`` runs a scene whose views lie in different resolution
+buckets (mixed aspect ratios): one ``InferenceEngine`` per bucket over one
+shared model, one token memory shared by every bucket's keyframes (tokens
+of different grids side by side, each with its own 2-D position), and one
+joint panoptic decode whose masked cross-attention spans every bucket's
+keyframe tokens.
 """
 from __future__ import annotations
 
@@ -688,13 +695,174 @@ class InferenceEngine:
 
 
 class MultiBucketEngine:
-    """Mixed aspect-ratio scenes (the JAX engine's shared-memory,
-    multi-bucket pipeline): not ported yet."""
+    """Inference over scenes with mixed aspect-ratio buckets (the JAX
+    engine's ``MultiBucketEngine``): views group into resolution buckets,
+    each bucket runs its own ``InferenceEngine`` stages over the one shared
+    model, and everything meets in a SHARED token memory (capacity: the
+    keyframes' tokens over all buckets) and the joint multi-bucket
+    mask-transformer decode of the keyframes.  The other views take the
+    frozen keyframe queries per bucket."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "MultiBucketEngine waits for a later slice of the port; run one "
-            "InferenceEngine per bucket")
+    def __init__(self, model: PanSt3R, num_keyframes: int = 16,
+                 chunk: int = 4, amp: bool = True, device=None):
+        self.device = resolve_device(device)
+        self.num_keyframes = num_keyframes
+        self.chunk = chunk
+        self.amp = amp
+        self.dtype = torch.bfloat16 if amp else torch.float32
+        # cast once: every bucket engine shares these parameters
+        model = model.to(self.device)
+        if amp:
+            model = model.to(torch.bfloat16)
+        self.model = model.eval()
+        self._engines: dict[Bucket, InferenceEngine] = {}
+
+    def _engine(self, bucket: Bucket) -> InferenceEngine:
+        if bucket not in self._engines:
+            self._engines[bucket] = InferenceEngine(
+                self.model, bucket, num_keyframes=self.num_keyframes,
+                chunk=self.chunk, amp=self.amp, device=self.device)
+        return self._engines[bucket]
+
+    @staticmethod
+    def _groups(idxs, buckets) -> dict[Bucket, list[int]]:
+        groups: dict[Bucket, list[int]] = {}
+        for i in idxs:
+            groups.setdefault(buckets[i], []).append(i)
+        return groups
+
+    @torch.inference_mode()
+    def run_device(self, images, portrait, cls_embeddings,
+                   num_keyframes: Optional[int] = None) -> dict:
+        """images: per-view (H_i, W_i, 3) arrays (uint8 or float in
+        [-1, 1]), each in some bucket shape; portrait (V,) bool.  Returns
+        device tensors in input order: {pointmaps_raw: per-view (H_i, W_i,
+        7), pred_logits (Q, ncls), pred_masks: per-view (Q, H_i/2, W_i/2),
+        out_queries, keyframes, true_shapes}."""
+        dev = self.device
+        V = len(images)
+        K = min(num_keyframes or self.num_keyframes, V)
+        c = self.model.config
+        cls_emb = torch.as_tensor(cls_embeddings, device=dev).to(self.dtype)
+        portrait = torch.as_tensor(np.asarray(portrait), device=dev)
+        buckets = [Bucket(*im.shape[:2]) for im in images]
+        keyframes = select_keyframes_linspace(V, K)
+        kf_set = set(keyframes)
+
+        # upload and encode per bucket (chunks of ``chunk`` views)
+        img, enc = {}, {}
+        for bucket, idxs in self._groups(range(V), buckets).items():
+            stack = torch.stack([torch.as_tensor(images[i])
+                                 for i in idxs]).to(dev)
+            x, pos = self._engine(bucket).encode_batch(stack)
+            for j, i in enumerate(idxs):
+                img[i], enc[i] = stack[j], (x[j], pos[j])
+
+        def stacked(idxs, part):
+            return torch.stack([enc[i][part] for i in idxs])
+
+        # shared memory over every bucket's keyframe tokens; keyframes are
+        # injected per bucket group on the [init, +1, ...] schedule
+        capacity = sum(self._engine(buckets[i]).n_tokens for i in keyframes)
+        mem = memlib.init_memory(c.decoder.depth, 1, capacity, c.decoder.dim,
+                                 dtype=self.dtype, device=dev)
+        for bucket, idxs in self._groups(keyframes, buckets).items():
+            grid = self._engine(bucket).grid
+            x, pos = stacked(idxs, 0), stacked(idxs, 1)
+            start = 0
+            for nb in c.mem_batches(len(idxs)):
+                mem = self.model.decoder_update(
+                    x[None, start:start + nb], pos[None, start:start + nb],
+                    mem, grid)[0]
+                start += nb
+
+        def render_group(idxs):
+            """Render + DINO per bucket group: (groups, {view: (pointmap,
+            decoder features, DINO tokens)})."""
+            groups = self._groups(idxs, buckets)
+            outs = {}
+            for bucket, gidx in groups.items():
+                eng = self._engine(bucket)
+                pm, y = eng.render_batch(stacked(gidx, 0), stacked(gidx, 1),
+                                         mem)
+                dino = eng.dino_batch(torch.stack([img[i] for i in gidx]))
+                for j, i in enumerate(gidx):
+                    outs[i] = (pm[j], y[j], dino[j])
+            return groups, outs
+
+        def head_inputs(gidx, outs):
+            return ((stacked(gidx, 0)[None],
+                     torch.stack([outs[i][1] for i in gidx])[None],
+                     torch.stack([outs[i][2] for i in gidx])[None]),
+                    image_cast(torch.stack([img[i] for i in gidx]),
+                               self.amp)[None],
+                    stacked(gidx, 1)[None], portrait[gidx][None])
+
+        # the joint multi-bucket panoptic decode over the keyframes
+        kf_groups, kf_out = render_group(keyframes)
+        parts = [head_inputs(gidx, kf_out) for gidx in kf_groups.values()]
+        feats = tuple([p[0][k] for p in parts] for k in range(3))
+        panout = self.model.panoptic(
+            feats, [p[1] for p in parts], [p[2] for p in parts],
+            [p[3] for p in parts], cls_emb,
+            [self._engine(b).grid for b in kf_groups],
+            deep_supervision=False)
+        pred_masks = {}
+        for b_i, gidx in enumerate(kf_groups.values()):
+            for j, i in enumerate(gidx):
+                pred_masks[i] = panout["pred_masks"][b_i][0, j]
+
+        # the other views: render + frozen-query decode per bucket
+        all_out = kf_out
+        not_kf = [i for i in range(V) if i not in kf_set]
+        if not_kf:
+            nk_groups, nk_out = render_group(not_kf)
+            for bucket, gidx in nk_groups.items():
+                f, im, pos, port = head_inputs(gidx, nk_out)
+                out_i = self.model.panoptic(
+                    f, im, pos, port, cls_emb, self._engine(bucket).grid,
+                    memory_queries=panout["out_queries"])
+                for j, i in enumerate(gidx):
+                    pred_masks[i] = out_i["pred_masks"][0, j]
+            all_out = {**kf_out, **nk_out}
+
+        return {
+            "pointmaps_raw": [all_out[i][0] for i in range(V)],
+            "pred_logits": panout["pred_logits"][0],
+            "pred_masks": [pred_masks[i] for i in range(V)],
+            "out_queries": panout["out_queries"][0],
+            "keyframes": keyframes,
+            "true_shapes": [tuple(b.shape) for b in buckets],
+        }
+
+    def run(self, images, portrait, cls_embeddings,
+            num_keyframes: Optional[int] = None) -> dict:
+        """run_device with the tensors returned as host numpy arrays
+        (f32)."""
+        out = self.run_device(images, portrait, cls_embeddings, num_keyframes)
+
+        def host(t):
+            return t.float().cpu().numpy()
+
+        return {"pointmaps_raw": [host(t) for t in out["pointmaps_raw"]],
+                "pred_logits": host(out["pred_logits"]),
+                "pred_masks": [host(t) for t in out["pred_masks"]],
+                "out_queries": host(out["out_queries"]),
+                "keyframes": out["keyframes"],
+                "true_shapes": out["true_shapes"]}
+
+    def fuse(self, out: dict, true_shapes=None, **fusion_kw) -> list[dict]:
+        """Joint fusion of a mixed-bucket scene on the engine's device:
+        per-view upsample to each view's true shape, zero-pad to the
+        largest, fuse jointly, crop (``panoptic_fusion_multi_ar``)."""
+        from panst3r_torch.engine.fusion import panoptic_fusion_multi_ar
+
+        dev = self.device
+        with torch.inference_mode():
+            return panoptic_fusion_multi_ar(
+                torch.as_tensor(out["pred_logits"], device=dev),
+                [torch.as_tensor(m, device=dev) for m in out["pred_masks"]],
+                list(true_shapes or out["true_shapes"]), **fusion_kw)
 
 
 def fetch_wire(wire) -> np.ndarray:

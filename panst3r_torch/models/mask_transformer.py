@@ -1,5 +1,6 @@
 """Mask2Former-style multi-view query decoder (counterpart of
-panst3r_tpu/models/mask_transformer.py), single resolution bucket.
+panst3r_tpu/models/mask_transformer.py), over one resolution bucket or a
+list of them (a mixed-aspect scene, decoded jointly).
 
 200 learnable queries with a query PE; ``dec_layers`` rounds of [masked
 cross-attention over the concatenated multi-view token axis (K3), query
@@ -7,7 +8,8 @@ self-attention (plain: 200 queries is the JAX package's tiny-shape jnp
 branch), FFN], post-norm (LayerNorm eps 1e-5).  The attention mask comes
 from the previous layer's mask prediction against token-grid-resized mask
 features (``attn_feats``), sigmoid < 0.5 → blocked, with the fully-blocked
-row → unblock fixup.  The mask products run in the wider of the two
+row → unblock fixup (applied after the buckets' key axes are
+concatenated).  The mask products run in the wider of the two
 dtypes, as jnp.einsum promotes: under amp the v2 head's LoftUp mask
 features are f32 while the queries are bf16.  Two-stage query selection
 waits for a later slice.
@@ -117,6 +119,12 @@ class MaskTransformerConfig:
         return len(self.fpn_dims)
 
 
+def _as_buckets(x) -> list:
+    """One bucket's tensor → a one-element list; a list over buckets as it
+    is."""
+    return list(x) if isinstance(x, (list, tuple)) else [x]
+
+
 class MaskTransformer(nn.Module):
     def __init__(self, config: MaskTransformerConfig = MaskTransformerConfig()):
         super().__init__()
@@ -150,25 +158,34 @@ class MaskTransformer(nn.Module):
 
     def prediction_heads(self, output, mask_feats, cls_embeddings,
                          attn_feats=None, need_mask: bool = True):
-        """output (B, Q, C); mask_feats (B, V, Hm, Wm, mask_dim);
-        attn_feats: token-grid mask features (B, V, gh, gw, mask_dim) or
-        None.  Returns (class logits (B, Q, ncls), masks (B, V, Q, Hm, Wm)
-        or None, blocked (B, Q, V*gh*gw) bool or None)."""
+        """output (B, Q, C); mask_feats (B, V, Hm, Wm, mask_dim) or a list
+        of such per resolution bucket; attn_feats: token-grid mask features
+        (B, V_b, gh_b, gw_b, mask_dim) per bucket (a tensor for one bucket)
+        or None.  Returns (class logits (B, Q, ncls), masks with the
+        structure of mask_feats, each (B, V_b, Q, Hm_b, Wm_b), or None,
+        blocked (B, Q, Σ_b V_b·gh_b·gw_b) bool or None)."""
+        single = not isinstance(mask_feats, (list, tuple))
+        mf_list = _as_buckets(mask_feats)
         dec_out = self.decoder_norm(output)
         outputs_class = self._class_logits(dec_out, cls_embeddings)
         mask_embed = self.mask_embed(dec_out)
         mask_embed = mask_embed.to(torch.promote_types(mask_embed.dtype,
-                                                       mask_feats.dtype))
+                                                       mf_list[0].dtype))
         outputs_mask = None
         if need_mask:
-            outputs_mask = torch.einsum("bqc,bvhwc->bvqhw", mask_embed,
-                                        mask_feats.to(mask_embed.dtype))
+            outputs_mask = [torch.einsum("bqc,bvhwc->bvqhw", mask_embed,
+                                         mf.to(mask_embed.dtype))
+                            for mf in mf_list]
+            if single:
+                outputs_mask = outputs_mask[0]
         blocked = None
         if attn_feats is not None:
-            am = torch.einsum("bqc,bvhwc->bqvhw", mask_embed,
-                              attn_feats.to(mask_embed.dtype))
-            B, Q = am.shape[:2]
-            blocked = (torch.sigmoid(am) < 0.5).reshape(B, Q, -1)
+            B, Q = output.shape[:2]
+            blocked = torch.cat([
+                (torch.sigmoid(torch.einsum("bqc,bvhwc->bqvhw", mask_embed,
+                                            af.to(mask_embed.dtype)))
+                 < 0.5).reshape(B, Q, -1)
+                for af in _as_buckets(attn_feats)], -1)
             all_blocked = blocked.all(dim=-1, keepdim=True)
             blocked = blocked & ~all_blocked
         return outputs_class, outputs_mask, blocked
@@ -183,23 +200,40 @@ class MaskTransformer(nn.Module):
 
     def forward(self, fpn_f, mask_feats, cls_embeddings, portrait,
                 deep_supervision: bool = True):
-        """fpn_f: per-level (B, V, gh, gw, C); mask_feats (B, V, Hm, Wm,
-        mask_dim); portrait (B, V) bool."""
+        """fpn_f: per-level (B, V, gh, gw, C), or per-level lists over
+        resolution buckets; mask_feats (B, V, Hm, Wm, mask_dim) or a list;
+        portrait (B, V) bool or a list.  Multi-bucket inputs are decoded
+        jointly: every bucket's tokens join one cross-attention key axis,
+        and ``pred_masks`` is then a list per bucket."""
         c = self.config
         assert len(fpn_f) == c.num_feature_levels
-        B, V, gh, gw, _ = fpn_f[0].shape
-        attn_feats = resize(mask_feats, (*mask_feats.shape[:2], gh, gw,
-                                         mask_feats.shape[-1]), "bilinear")
+        single = not isinstance(fpn_f[0], (list, tuple))
+        if single:
+            fpn_f, mask_feats, portrait = [[f] for f in fpn_f], [mask_feats], \
+                [portrait]
+        B = fpn_f[0][0].shape[0]
+        # Token-grid mask features for the attention mask, resized once per
+        # bucket and reused by every layer.
+        attn_feats = [resize(mf, (*mf.shape[:2], f.shape[2], f.shape[3],
+                                  mf.shape[-1]), "bilinear")
+                      for mf, f in zip(mask_feats, fpn_f[0])]
         src, pos = [], []
-        for lvl, f in enumerate(fpn_f):
+        for lvl in range(c.num_feature_levels):
             proj = getattr(self, f"input_proj_{lvl}", None)
-            if proj is not None:
-                f = proj(f.reshape(B * V, gh, gw, -1).permute(0, 3, 1, 2)) \
-                    .permute(0, 2, 3, 1).reshape(B, V, gh, gw, -1)
-            src.append(f.reshape(B, V * gh * gw, c.hidden_dim)
-                       + self.level_embed[lvl])
-            pe = pe_with_portrait(gh, gw, c.hidden_dim // 2, portrait)
-            pos.append(pe.reshape(B, V * gh * gw, c.hidden_dim).to(f.dtype))
+            src_parts, pos_parts = [], []
+            for f, port in zip(fpn_f[lvl], portrait):
+                _, V, gh, gw, _ = f.shape
+                if proj is not None:
+                    f = proj(f.reshape(B * V, gh, gw, -1)
+                             .permute(0, 3, 1, 2)) \
+                        .permute(0, 2, 3, 1).reshape(B, V, gh, gw, -1)
+                src_parts.append(f.reshape(B, V * gh * gw, c.hidden_dim)
+                                 + self.level_embed[lvl])
+                pe = pe_with_portrait(gh, gw, c.hidden_dim // 2, port)
+                pos_parts.append(pe.reshape(B, V * gh * gw, c.hidden_dim)
+                                 .to(f.dtype))
+            src.append(torch.cat(src_parts, 1))
+            pos.append(torch.cat(pos_parts, 1))
 
         output = self.query_feat[None].expand(B, -1, -1)
         query_embed = self.query_embed[None].expand(B, -1, -1)
@@ -226,6 +260,8 @@ class MaskTransformer(nn.Module):
                 need_mask=deep_supervision or last)
             pred_cls.append(ocls)
             pred_masks.append(omask)
+        if single:
+            pred_masks = [m if m is None else m[0] for m in pred_masks]
         out = {"pred_logits": pred_cls[-1], "pred_masks": pred_masks[-1],
                "out_queries": output}
         if deep_supervision:

@@ -1,6 +1,8 @@
 """Panoptic head: feature concat → (input mixer) → upscaler → mask
-transformer (counterpart of panst3r_tpu/models/panoptic_decoder.py), one
-resolution bucket.  v1: PixelShuffle upscaler, no mixer; v2: InputMixer and
+transformer (counterpart of panst3r_tpu/models/panoptic_decoder.py), over
+one resolution bucket or a list of them (the features run per bucket, so
+LoftUp's min-max spans one bucket's views; the mask transformer decodes
+the buckets jointly).  v1: PixelShuffle upscaler, no mixer; v2: InputMixer and
 LoftUp.  The softmax label mode appends the learned ``nocls_token`` to the
 class embeddings.  ``memory_queries`` selects the fast path that reuses
 keyframe queries through the prediction heads only; the features (mixer
@@ -78,8 +80,24 @@ class PanopticDecoder(nn.Module):
                 memory_queries=None, deep_supervision=None):
         """in_feats: (x_must3r, y_must3r, x_dino) each (B, V, N, C_i);
         images (B, V, H, W, 3) normalized; pos (B, V, N, 2); portrait
-        (B, V) bool; cls_embeddings (num_classes, lang_dim)."""
-        fpn, mask_f = self.features(in_feats, images, pos, grid)
+        (B, V) bool; cls_embeddings (num_classes, lang_dim).  For a
+        multi-bucket scene each of in_feats' members, images, pos,
+        portrait and grid is a list over the buckets."""
+        single = not isinstance(images, (list, tuple))
+        if single:
+            in_feats = [[x] for x in in_feats]
+            images, pos, grid = [images], [pos], [grid]
+        # The features run per bucket (LoftUp's min-max spans one bucket's
+        # views); the mask transformer then decodes the buckets jointly.
+        fpn_b, mask_f = [], []
+        for feats_b, img_b, pos_b, grid_b in zip(zip(*in_feats), images, pos,
+                                                 grid):
+            fpn_i, mf_i = self.features(feats_b, img_b, pos_b, grid_b)
+            fpn_b.append(fpn_i)
+            mask_f.append(mf_i)
+        fpn = [[f[lvl] for f in fpn_b] for lvl in range(len(fpn_b[0]))]
+        if single:
+            fpn, mask_f = [f[0] for f in fpn], mask_f[0]
         cls_emb = self.cls_embeddings(cls_embeddings)
         if deep_supervision is None:
             deep_supervision = self.config.deep_supervision

@@ -63,6 +63,12 @@ def resize_bilinear(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     return out.reshape(*lead, out_h, out_w, C)
 
 
+def resize_bilinear_hw(x: torch.Tensor, out_h: int, out_w: int
+                       ) -> torch.Tensor:
+    """Same, for (..., H, W) tensors (no channel axis)."""
+    return resize_bilinear(x[..., None], out_h, out_w)[..., 0]
+
+
 def _keys_cubic(x):
     out = ((1.5 * x - 2.5) * x) * x + 1.0
     out = np.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)

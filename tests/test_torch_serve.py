@@ -15,7 +15,7 @@ from panst3r_torch.core.bucketing import Bucket as TBucket
 from panst3r_torch.engine import pose as tpose
 from panst3r_torch.engine import retrieval as tret
 from panst3r_torch.engine.inference import InferenceEngine as TEngine
-from panst3r_torch.engine.inference import MultiBucketEngine, fetch_wire
+from panst3r_torch.engine.inference import fetch_wire
 from panst3r_torch.models.decoder import postprocess as t_post
 from panst3r_torch.models.panst3r import PanSt3R as TPanSt3R
 from panst3r_torch.models.panst3r import build_model
@@ -378,8 +378,6 @@ def test_later_slices_raise(engines):
     images, portrait, cls_emb = _scene()
     with pytest.raises(NotImplementedError, match="later slice"):
         teng.serve_many_device(images[None], portrait[None], cls_emb)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        MultiBucketEngine()
     with pytest.raises(NotImplementedError, match="retrieval head"):
         tret.select_keyframes_retrieval(torch.zeros(3, 4, 8), 2,
                                         head=object())
