@@ -27,13 +27,18 @@ Run from the root of a checkout.  It builds the CUDA kernels of
    through autograd; K4 and K5 also at train_v2's LoftUp batch
    (``loftup_train_full``, f32, plain versions per slice of views), the
    f32 K1 at its B*V = 10 views (``encoder_train``, ``decoder_train``);
+   K2 and K3 at ``serve_many``'s batch of two scenes (``update_many``,
+   ``render_many``, ``mask_transformer_many``);
    gradients through K1-K3 on the card bit-equal to their plain formulas';
 2. ``small``: v1 and v2 widths at depth 2 (v2 with its full mixer and
    LoftUp), f32, V=4 / K=3 at 384x512, the same seeded weights on the card
    (kernels) and on the CPU (plain versions), outputs and FLOP counts
    (``ops/flops.py``) compared; one v2 train step (B=1, V=3 at 160x512),
    card against CPU, its FLOP count included; one v1 serve wire with
-   cameras, card against CPU;
+   cameras, card against CPU; ``serve_many_device`` of two scenes, v1 and
+   v2 (K4 in LoftUp), each scene at the serve wire's limits; memory
+   refinement (one pass) and a two-stage v1 mask transformer (under one
+   query selection), card against CPU;
 3. ``v1`` and ``v2``: the full v1 and v2 main paths
    (``InferenceEngine.run_device`` + ``fuse``, bf16, V=8 / K=4 at 384x512,
    random seeded weights), stage times, peak memory, finiteness and shapes,
@@ -75,6 +80,23 @@ Run from the root of a checkout.  It builds the CUDA kernels of
    ``reconstruct_scene`` with QUBO and standard v2 fusion on V=8 uint8
    views, and ``export_scene``'s PLY and cameras.json, with finite poses;
    neither PIL nor PyYAML is imported;
+10. ``serve_many``: ``serve_many_device`` of S=2 v1 scenes of V=8 (K=4,
+   bf16, hybrid wire with cameras; RGB and packed YUV420), each scene's
+   wire against its own ``serve_device`` wire, launches those of one
+   scene (the memory build, the render and the heads run at batch 2),
+   seconds against two sequential ``serve_device`` calls, peak memory;
+   a wire that differs is traced to the first module whose output depends
+   on the batch (``_batch_trace``);
+11. ``refine``: ``build_memory(refine_iterations=1)`` at full v1 width,
+   launches as the call structure implies, seconds against no refinement;
+12. ``retrieval_head``: ``run_device(use_retrieval=True)`` with a seeded
+   ``RetrievalHead`` (``RETRIEVAL_WIDTHS``, through
+   ``port_retrieval_checkpoint``): the keyframes of the host selection on
+   the same tokens, ``asmk_similarity``'s seconds;
+13. ``serve_app``: the serving daemon (``apps/serve.py``) in a thread on
+   127.0.0.1 with the engine on the card: ``/healthz``, one
+   ``/reconstruct?cameras=1`` equal to the unpacked ``serve_device`` wire,
+   ``/slam/start`` refused;
 
 then one ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``.  Any failed phase raises, and the script exits non-zero without
@@ -129,7 +151,8 @@ REPLACES = {
     "packed_flash_f32": "tools/ab_attention_packed.py:84 (f32)",
 }
 PHASES = ("kernels", "small", "v1", "v2", "train_v2", "serve", "serve_long",
-          "ab_packed", "multibucket", "demo")
+          "ab_packed", "multibucket", "demo", "serve_many", "refine",
+          "retrieval_head", "serve_app")
 # every kernel runs a Hopper engine in both dtypes: bf16 the wgmma engine
 # (K2-int8 its s8 scores); of the f32 paths (entries ``*_f32`` of the
 # kernels line) K2, K2-int8 and K3 run the 3xTF32 engine in the same
@@ -396,6 +419,17 @@ def kernel_cases(dtype, dev):
        torch.ones(1, kpos.shape[1], dtype=torch.bool, device=dev),
        qpos=_grid_pos(1, 21, 32, dev).repeat(1, 2, 1), kpos=kpos)
     _k3_case(cases, "mask_transformer_mixed", kpos.shape[1], rnd, g, es, dev)
+    # serve_many's batch of S = 2 scenes (phase serve_many), drawn last:
+    # each scene's second +1 memory update (768 queries against its
+    # 3072-slot memory, 1536 slots valid, and the view's own 768 keys), the
+    # render of both scenes' 8 views against their full memories, the mask
+    # transformer over both scenes' 4 x 768 keyframe tokens
+    valid = torch.ones(2, 3840, dtype=torch.bool, device=dev)
+    valid[:, 1536:3072] = False
+    k2("update_many", 2, 768, 3840, valid)
+    k2("render_many", 2, 6144, 3072,
+       torch.ones(2, 3072, dtype=torch.bool, device=dev))
+    _k3_case(cases, "mask_transformer_many", 3072, rnd, g, es, dev, B=2)
     return cases
 
 
@@ -2265,6 +2299,660 @@ def phase_ab_packed():
     return counts, counts32
 
 
+# ------------------------------------- many scenes, refinement, retrieval --
+
+def _v1_engine(V=8, K=4, H=384, W=512):
+    """The v1 main path's engine at full width and depth (bf16, random
+    weights from seed 0, chunk 4), the ``serve`` phase's V uint8 views and
+    portrait flags, and class embeddings under which four queries pass
+    fusion's threshold (``segment_classes``)."""
+    from panst3r_torch.core.bucketing import Bucket
+    from panst3r_torch.engine.inference import InferenceEngine
+    from panst3r_torch.models.panst3r import build_model
+
+    images, portrait, _ = _inputs(V, H, W)
+    eng = InferenceEngine(build_model(_config("v1"), seed=0), Bucket(H, W),
+                          num_keyframes=K, chunk=4, amp=True)
+    return eng, images, portrait, segment_classes(eng, images, portrait)
+
+
+def _first_tensor(o):
+    import torch
+
+    if torch.is_tensor(o):
+        return o
+    if isinstance(o, dict):
+        o = list(o.values())
+    if isinstance(o, (list, tuple)):
+        for e in o:
+            t = _first_tensor(e)
+            if t is not None:
+                return t
+    return None
+
+
+def _scene0(t, like):
+    """Scene 0's rows of a tensor of the batch of scenes: the leading rows
+    of ``like``'s count where only the leading axis differs."""
+    if t.shape[0] != like.shape[0] and t.shape[1:] == like.shape[1:]:
+        return t[:like.shape[0]]
+    return t
+
+
+# module types whose forward is one torch library call (cuBLAS, cuDNN,
+# the LayerNorm kernel): no port kernel runs inside them
+LIBRARY_MODULES = ("Linear", "Conv2d", "LayerNorm")
+
+
+def _batch_trace(eng, scenes, ports, cls) -> dict:
+    """Where the batch of S scenes first changes scene 0's bits in
+    ``serve_many_device``: each stage (towers, memory build, render, heads)
+    is fed the batch path's own inputs, for scene 0 alone and beside the
+    others, and its scene-0 outputs compared bit for bit; in the first
+    stage that differs, every module's first input and output are recorded
+    (scene 0 alone), and the first module, in the order modules finish,
+    whose input is equal beside the others but whose output is not is the
+    culprit.  ``library``: the culprit is a torch library layer
+    (``LIBRARY_MODULES``), not code that launches a port kernel."""
+    import torch
+
+    from panst3r_torch.engine.inference import _pick
+    from panst3r_torch.engine.retrieval import select_keyframes_linspace
+    from panst3r_torch.models.memory import TokenMemory
+
+    model = eng.model
+    cls = torch.as_tensor(cls, device=eng.device).to(eng.dtype)
+    ports = torch.as_tensor(ports, device=eng.device)
+    with torch.inference_mode():
+        imgs = torch.as_tensor(scenes, device=eng.device)
+        S, V = imgs.shape[:2]
+        K = min(eng.num_keyframes, V)
+        keyframes = select_keyframes_linspace(V, K)
+        kf = torch.as_tensor(keyframes, device=eng.device).expand(S, K)
+        nk = torch.as_tensor(sorted(set(range(V)) - set(keyframes)),
+                             device=eng.device).expand(S, V - K)
+
+        def towers(n):
+            out = eng._towers(imgs[:n].reshape(-1, *imgs.shape[2:]))
+            return tuple(t.reshape(n, V, *t.shape[1:]) for t in out)
+
+        img, x, pos, dino = towers(S)
+        mem = eng.build_memory(_pick(x, kf), _pick(pos, kf))
+
+        def memory(n):
+            return (eng.build_memory(_pick(x, kf)[:n], _pick(pos, kf)[:n])
+                    .y.transpose(0, 1),)
+
+        def render(n):
+            part = TokenMemory(mem.y[:, :n], mem.pos[:n], mem.valid[:n],
+                               mem.count)
+            return model.decoder_render(x[:n], pos[:n], part, eng.grid)
+
+        pm, y = render(S)
+
+        def heads(n):
+            out = eng._heads(img[:n], x[:n], y[:n], dino[:n], pos[:n],
+                             ports[:n], cls, kf[:n], nk[:n])
+            return out["pred_logits"], out["pred_masks"]
+
+        stages, first = {}, None
+        for name, fn in (("towers", towers), ("memory", memory),
+                         ("render", render), ("heads", heads)):
+            one, many = fn(1), fn(S)
+            stages[name] = [bool(torch.equal(a, b[:1]))
+                            for a, b in zip(one, many)]
+            if first is None and not all(stages[name]):
+                first = (name, fn)
+        res = {"stages_bit_equal": stages, "first_stage": None,
+               "culprit": None, "library": False}
+        if first is None:
+            return res
+        res["first_stage"] = first[0]
+        rec, calls, state = [], [], {"i": 0, "hit": None}
+        names = {m: n for n, m in model.named_modules()}
+
+        def hook(mod, inp, out):
+            i0, o = _first_tensor(inp), _first_tensor(out)
+            if o is None:
+                return
+            if state["mode"] == "one":
+                rec.append((names[mod], i0, o))
+                return
+            j = state["i"]
+            state["i"] += 1
+            if state["hit"] is not None or j >= len(rec):
+                return
+            name, a_in, a_out = rec[j]
+            same_in = a_in is None or i0 is None or bool(torch.equal(
+                _scene0(i0, a_in), a_in))
+            if same_in and not torch.equal(_scene0(o, a_out), a_out):
+                state["hit"] = (name, type(mod).__name__, float(
+                    (_scene0(o, a_out).float() - a_out.float()).abs().max()))
+
+        handles = [m.register_forward_hook(hook) for m in model.modules()]
+        try:
+            state["mode"] = "one"
+            first[1](1)
+            state["mode"] = "many"
+            first[1](S)
+        finally:
+            for h in handles:
+                h.remove()
+        if state["hit"] is not None:
+            name, kind, diff = state["hit"]
+            res.update(culprit=name, culprit_type=kind, max_abs_diff=diff,
+                       library=kind in LIBRARY_MODULES)
+        del rec
+        torch.cuda.empty_cache()
+        return res
+
+
+def phase_serve_many():
+    """``serve_many_device`` at full v1 width (bf16, K = 4): S = 2 scenes of
+    V = 8, the ``serve`` phase's views and a ``np.roll`` of them, hybrid
+    wire with cameras, then the same from packed YUV420.  Each scene's
+    wire against its own ``serve_device`` wire under ``wire_agreement`` at
+    1/255; where the two differ, ``_batch_trace`` finds the first module
+    whose output depends on the batch, and only when that is a library
+    layer the small ``v1_serve`` rule holds instead (pan on >= 99.9% of
+    pixels, seg_ids, labels and selected equal).  Launches equal to one
+    scene's (``expected_serve_launches``); the batched call's seconds
+    against two sequential ``serve_device`` calls, in turns, two readings
+    each; the peak memory.  Returns the launches of the RGB call."""
+    import torch
+
+    from panst3r_torch.engine.inference import fetch_wire
+    from panst3r_torch.ops.image import rgb_to_yuv420
+
+    cfg = _config("v1")
+    V, K, S = 8, 4, 2
+    eng, images, portrait, cls_emb = _v1_engine(V, K)
+    scenes = np.stack([images, np.roll(images, 1, axis=0)])
+    packed = np.stack([rgb_to_yuv420(sc) for sc in scenes])
+    port, cls = (torch.as_tensor(a, device="cuda") for a in (portrait,
+                                                             cls_emb))
+    ports = torch.stack([port] * S)
+    kw = dict(fusion_res="hybrid", with_cameras=True)
+
+    def many(sc):
+        return eng.serve_many_device(sc, ports, cls, **kw)
+
+    def pair(sc):
+        return [fetch_wire(eng.serve_device(sc[s], port, cls, **kw))
+                for s in range(S)]
+
+    many(scenes)                                               # warm-up
+    pair(scenes)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    wires, t = _timed(many, scenes)
+    counts = _read_counts("serve_many")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    secs = {"serve_many": [t], "two_serve_device": []}
+    for turn in range(3):            # in turns: many, pair, many, pair
+        if turn % 2 == 0:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            singles = pair(scenes)
+            secs["two_serve_device"].append(time.perf_counter() - t0)
+        else:
+            secs["serve_many"].append(_timed(many, scenes)[1])
+
+    checks = {}
+    for name, got, want in (("rgb", wires, singles),
+                            ("yuv420", fetch_wire(many(packed)),
+                             pair(packed))):
+        for s in range(S):
+            a = eng.unpack_wire(got[s], V, with_cameras=True)
+            b = eng.unpack_wire(want[s], V, with_cameras=True)
+            c = wire_agreement(a, b, 1.0 / 255)
+            c.update(wire_equal=bool(np.array_equal(got[s], want[s])),
+                     pan_agree=float((a["pan"] == b["pan"]).mean()),
+                     n_segments=int(b["selected"].sum()),
+                     cameras_max_abs_diff=max(
+                         float(np.abs(a[k] - b[k]).max())
+                         for k in ("focals", "cam2world")))
+            checks[f"{name}_{s}"] = c
+    trace = None
+    if not all(c["ok"] for c in checks.values()):
+        trace = _batch_trace(eng, scenes, ports, cls)
+        if trace["library"]:
+            for c in checks.values():
+                c["rule"] = "small v1_serve (library layer)"
+                c["ok"] = c["pan_agree"] >= 0.999 and all(
+                    c[k] for k in ("seg_ids", "labels", "selected"))
+    want = expected_serve_launches(cfg, V, K, eng.n_tokens)
+    emit({"phase": "serve_many", "scenes": S, "views": V, "keyframes": K,
+          "wire": "hybrid+cameras", "seconds": secs,
+          "views_per_s": {"serve_many": S * V / min(secs["serve_many"]),
+                          "two_serve_device":
+                          S * V / min(secs["two_serve_device"])},
+          "peak_mem_gib": peak, "launches": counts,
+          "expected_launches": want, "checks": checks, "trace": trace})
+    bad = [k for k, c in checks.items() if not c["ok"]]
+    if not sum(c["n_segments"] for c in checks.values()):
+        bad.append("no segments")
+    if bad or counts != want:
+        raise AssertionError(f"serve_many: checks {bad}, launches {counts} "
+                             f"!= {want}, trace {trace}")
+    del eng
+    torch.cuda.empty_cache()
+    return counts
+
+
+def expected_refine_launches(cfg, K, chunk, r):
+    """K1's and K2's launches for one ``build_memory(refine_iterations=r)``:
+    per decoder layer, (1 + r) builds of the update schedule and r renders
+    of the keyframes, ``chunk`` views a call."""
+    n = ((1 + r) * len(cfg.mem_batches(K)) + r * math.ceil(K / chunk)) \
+        * cfg.decoder.depth
+    return {"tower_self": n, "tower_cross": n, "masked_attn": 0,
+            "flash_fwd": 0, "flash_bwd": 0, "tower_cross_int8": 0,
+            "packed_flash": 0}
+
+
+def phase_refine():
+    """``build_memory(refine_iterations=1)`` at full v1 width (bf16) over
+    K = 4 keyframes: launches as the call structure implies
+    (``expected_refine_launches``), a finite memory and a finite render of
+    the keyframes against it, and its seconds against
+    ``refine_iterations=0`` (in turns, two readings each).  Returns the
+    launches."""
+    import torch
+
+    cfg = _config("v1")
+    K = 4
+    eng, images, _, _ = _v1_engine(8, K)
+    with torch.inference_mode():
+        x, pos = eng.encode_batch(torch.as_tensor(images[:K], device="cuda"))
+        eng.build_memory(x, pos, refine_iterations=1)           # warm-up
+        torch.cuda.synchronize()
+        _reset_counts()
+        mem = eng.build_memory(x, pos, refine_iterations=1)
+        counts = _read_counts("refine")
+        pm, y = eng.render_batch(x, pos, mem)
+        finite = bool(torch.isfinite(mem.y).all() and torch.isfinite(pm).all()
+                      and torch.isfinite(y).all())
+        secs = {0: [], 1: []}
+        for r in (1, 0, 0, 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.build_memory(x, pos, refine_iterations=r)
+            torch.cuda.synchronize()
+            secs[r].append(time.perf_counter() - t0)
+    want = expected_refine_launches(cfg, K, eng.chunk, 1)
+    emit({"phase": "refine", "keyframes": K, "refine_iterations": 1,
+          "seconds": {"refine_1": secs[1], "refine_0": secs[0]},
+          "launches": counts, "expected_launches": want, "finite": finite,
+          "count": mem.count})
+    if counts != want or not finite or mem.count != K * eng.n_tokens:
+        raise AssertionError(f"refine: launches {counts} != {want}, "
+                             f"finite {finite}, count {mem.count}")
+    del eng
+    torch.cuda.empty_cache()
+    return counts
+
+
+# the seeded retrieval head of phase retrieval_head: the v1 encoder's 1024
+# channels in; prewhiten 1024 x 1024, a projector 1024 -> 1024 -> 128 with
+# GELU between, postwhiten 128 x 128, 1024 codebook words (the released
+# retrieval model's widths and codebook are not in the repository)
+RETRIEVAL_WIDTHS = (1024, 1024, 128, 1024)
+
+
+def retrieval_checkpoint(seed: int = 0) -> dict:
+    """A retrieval checkpoint in the released files' layout (``model``,
+    ``args``, ``asmk_codebook``, ``asmk_params``) at ``RETRIEVAL_WIDTHS``,
+    drawn from ``seed`` on the CPU: weights scaled by 1/sqrt(fan-in),
+    small biases, unit codebook rows."""
+    import argparse
+
+    import torch
+
+    C, hid, out, words = RETRIEVAL_WIDTHS
+    g = torch.Generator().manual_seed(seed)
+
+    def lin(o, i):
+        return (torch.randn(o, i, generator=g) / i ** 0.5,
+                0.01 * torch.randn(o, generator=g))
+
+    model = {}
+    for name, (o, i) in (("prewhiten", (C, C)), ("projector.0", (hid, C)),
+                         ("projector.2", (out, hid)),
+                         ("postwhiten", (out, out))):
+        model[f"{name}.weight"], model[f"{name}.bias"] = lin(o, i)
+    cb = torch.randn(words, out, generator=g)
+    return {"model": model, "args": argparse.Namespace(residual=False),
+            "asmk_codebook": {"centroids": cb / cb.norm(dim=-1,
+                                                        keepdim=True)},
+            "asmk_params": {"similarity": {"alpha": 3.0,
+                                           "similarity_threshold": 0.0}}}
+
+
+def phase_retrieval_head():
+    """``run_device(use_retrieval=True)`` at full v1 width (bf16, V = 8,
+    K = 4) with a seeded ``RetrievalHead`` built through
+    ``port_retrieval_checkpoint``: launches those of one ``run_device``,
+    the keyframes equal to ``select_keyframes_retrieval`` with the same
+    head on the same encoder tokens moved to the CPU; the seconds of
+    ``asmk_similarity`` on the card's tokens (projection on the card, the
+    ASMK loops on the host) and on the CPU.  Returns the launches."""
+    import torch
+
+    from panst3r_torch.engine.retrieval import (RetrievalHead,
+                                                asmk_similarity,
+                                                select_keyframes_retrieval)
+    from panst3r_torch.port_checkpoint import port_retrieval_checkpoint
+
+    cfg = _config("v1")
+    V, K = 8, 4
+    eng, images, portrait, cls_emb = _v1_engine(V, K)
+    head = RetrievalHead(**port_retrieval_checkpoint(retrieval_checkpoint()))
+    eng.retrieval_head = head
+    eng.run_device(images, portrait, cls_emb, use_retrieval=True)  # warm-up
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    out = eng.run_device(images, portrait, cls_emb, use_retrieval=True)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = _read_counts("retrieval_head")
+    with torch.inference_mode():
+        x, _ = eng.encode_batch(torch.as_tensor(images, device="cuda"))
+        tokens = x.float()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sim = asmk_similarity(head, tokens)
+        card_s = time.perf_counter() - t0
+        host = tokens.cpu()
+        t0 = time.perf_counter()
+        sim_cpu = asmk_similarity(head, host)
+        cpu_s = time.perf_counter() - t0
+        want = select_keyframes_retrieval(host, K, head=head)
+        pooled = select_keyframes_retrieval(host, K)
+        words, _, _ = head.assign_and_binarize(tokens[:1])
+    want_launches = expected_launches(cfg, V, K, eng.chunk)
+    res = {"phase": "retrieval_head", "views": V, "keyframes": out[
+        "keyframes"], "keyframes_cpu": want, "keyframes_pooled_cosine":
+        pooled, "widths": list(RETRIEVAL_WIDTHS),
+        "run_device_s": run_s, "asmk_similarity_s": {"card_tokens": card_s,
+                                                     "cpu": cpu_s},
+        "sim_card_vs_cpu_max_abs_diff": float(np.abs(sim - sim_cpu).max()),
+        "sim_offdiag_range": [float(sim[~np.eye(V, dtype=bool)].min()),
+                              float(sim[~np.eye(V, dtype=bool)].max())],
+        "words_used_view0": int(words.unique().numel()),
+        "launches": counts, "expected_launches": want_launches}
+    emit(res)
+    if out["keyframes"] != want or counts != want_launches \
+            or len(set(want)) != K:
+        raise AssertionError(f"retrieval_head: {res}")
+    del eng
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_serve_app():
+    """The port's serving daemon (``apps/serve.py``) on 127.0.0.1, port 0,
+    in a thread, with the v1 engine on the card (bf16, V = 8, K = 4):
+    ``GET /healthz`` answers ok; one ``POST /reconstruct?cameras=1`` of the
+    scene equals ``unpack_wire(serve_device(...))`` (pan equal, cameras
+    within 1e-5); ``POST /slam/start`` answers 400.  Returns the launches
+    of the request."""
+    import io
+    import threading
+    import urllib.error
+    import urllib.request
+
+    import torch
+
+    from panst3r_torch.apps.serve import SceneServer, make_server
+
+    cfg = _config("v1")
+    V, K = 8, 4
+    eng, images, portrait, cls_emb = _v1_engine(V, K)
+    want = eng.unpack_wire(eng.serve_device(images, portrait, cls_emb,
+                                            with_cameras=True), V,
+                           with_cameras=True)
+    srv = make_server(SceneServer(eng, cls_emb), "127.0.0.1", 0)
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    try:
+        with urllib.request.urlopen(f"{url}/healthz", timeout=60) as r:
+            health = r.read()
+        buf = io.BytesIO()
+        np.savez(buf, images=images, portrait=portrait)
+        body = buf.getvalue()
+        times = []
+        for i in range(2):
+            if i == 1:
+                _reset_counts()
+            t0 = time.perf_counter()
+            req = urllib.request.Request(f"{url}/reconstruct?cameras=1",
+                                         data=body, method="POST")
+            with urllib.request.urlopen(req, timeout=300) as r:
+                got = dict(np.load(io.BytesIO(r.read())))
+            times.append(time.perf_counter() - t0)
+        counts = _read_counts("serve_app")
+        try:
+            urllib.request.urlopen(urllib.request.Request(
+                f"{url}/slam/start", data=b"", method="POST"), timeout=60)
+            slam = None
+        except urllib.error.HTTPError as e:
+            slam = e.code
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        th.join(timeout=60)
+    checks = {
+        "healthz": health == b"ok",
+        "pan_equal": bool(np.array_equal(got["pan"], want["pan"])),
+        "cameras_max_abs_diff": max(float(np.abs(got[k] - want[k]).max())
+                                    for k in ("focals", "cam2world")),
+        "slam_status": slam,
+        "n_segments": int(want["selected"].sum())}
+    checks["ok"] = (checks["healthz"] and checks["pan_equal"]
+                    and checks["cameras_max_abs_diff"] <= 1e-5
+                    and slam == 400 and checks["n_segments"] > 0)
+    expected = expected_serve_launches(cfg, V, K, eng.n_tokens)
+    emit({"phase": "serve_app", "views": V, "request_s": times,
+          "request_bytes": len(body), "launches": counts,
+          "expected_launches": expected, "checks": checks})
+    if not checks["ok"] or counts != expected:
+        raise AssertionError(f"serve_app: {checks}, launches {counts}")
+    del eng
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_small_serve_many(preset: str):
+    """``serve_many_device(with_cameras=True)`` of S = 2 scenes (the
+    ``small`` views and a ``np.roll`` of them) at full width and depth 2,
+    f32, V=4 / K=3 at 384x512, on the card and on the CPU from the same
+    weights, each scene at ``phase_small_serve``'s limits (pan on >= 99.9%
+    of pixels, seg_ids, labels and selected equal, cameras within 1e-3
+    relative; segments in at least one scene, the class embeddings being
+    solved on the first); launches one scene's; v2 brings K4 (LoftUp)
+    in."""
+    import torch
+
+    from panst3r_torch.core.bucketing import Bucket
+    from panst3r_torch.engine.inference import InferenceEngine
+    from panst3r_torch.models.panst3r import build_model
+
+    cfg = _config(preset, depth=2)
+    V, K, S = 4, 3, 2
+    images, portrait, _ = _inputs(V)
+    scenes = np.stack([images, np.roll(images, 1, axis=0)])
+    ports = np.stack([portrait] * S)
+    cpu_model = build_model(cfg, device="cpu", seed=0)
+    gpu_model = build_model(cfg, device="cuda", seed=1)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    dec = {}
+    for name, model in (("cpu", cpu_model), ("cuda", gpu_model)):
+        eng = InferenceEngine(model, Bucket(384, 512), num_keyframes=K,
+                              chunk=4, amp=False, device=name)
+        if name == "cpu":
+            cls_emb = segment_classes(eng, images, portrait)
+        _reset_counts()
+        wires = eng.serve_many_device(scenes, ports, cls_emb,
+                                      with_cameras=True)
+        counts = _read_counts()
+        dec[name] = [eng.unpack_wire(w, V, with_cameras=True)
+                     for w in wires.cpu().numpy()]
+    want = expected_serve_launches(cfg, V, K, 768)
+    segments = sum(int(d["selected"].sum()) for d in dec["cpu"])
+    for s in range(S):
+        a, b = dec["cuda"][s], dec["cpu"][s]
+        row = {"phase": "small", "model": f"{preset}_serve_many",
+               "scene": s, "compare": "cuda_vs_cpu",
+               "pan_agree": float((a["pan"] == b["pan"]).mean()),
+               "n_segments": int(b["selected"].sum()), "launches": counts}
+        for k in ("seg_ids", "labels", "selected"):
+            row[k + "_equal"] = bool(np.array_equal(a[k], b[k]))
+        for k in ("focals", "cam2world"):
+            row[k + "_rel_err"] = float(np.abs(a[k] - b[k]).max()
+                                        / np.abs(b[k]).max())
+        emit(row)
+        if not (row["pan_agree"] >= 0.999 and segments > 0
+                and row["seg_ids_equal"] and row["labels_equal"]
+                and row["selected_equal"] and row["focals_rel_err"] <= 1e-3
+                and row["cam2world_rel_err"] <= 1e-3 and counts == want):
+            raise AssertionError(f"small {preset}_serve_many: card and CPU "
+                                 f"disagree {row} (launches want {want})")
+    del cpu_model, gpu_model
+    torch.cuda.empty_cache()
+
+
+def phase_small_refine():
+    """``build_memory(refine_iterations=1)`` at full v1 width and depth 2,
+    f32, over the K=3 keyframes of the ``small`` views, then the render of
+    all V=4 views against it, on the card and on the CPU from the same
+    weights: pointmaps and features within the ``small`` pointmap limit
+    (2e-4)."""
+    import torch
+
+    from panst3r_torch.core.bucketing import Bucket
+    from panst3r_torch.engine.inference import InferenceEngine
+    from panst3r_torch.models.panst3r import build_model
+
+    cfg = _config("v1", depth=2)
+    V, K = 4, 3
+    images = _inputs(V)[0]
+    cpu_model = build_model(cfg, device="cpu", seed=0)
+    gpu_model = build_model(cfg, device="cuda", seed=1)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    outs = {}
+    for name, model in (("cuda", gpu_model), ("cpu", cpu_model)):
+        eng = InferenceEngine(model, Bucket(384, 512), num_keyframes=K,
+                              chunk=4, amp=False, device=name)
+        with torch.inference_mode():
+            x, pos = eng.encode_batch(torch.as_tensor(images, device=eng.device))
+            mem = eng.build_memory(x[:K], pos[:K], refine_iterations=1)
+            outs[name] = [t.cpu().numpy()
+                          for t in eng.render_batch(x, pos, mem)]
+    row = {"phase": "small", "model": "v1_refine", "compare": "cuda_vs_cpu"}
+    for i, key in enumerate(("pointmaps_raw", "feats")):
+        diff = float(np.abs(outs["cuda"][i] - outs["cpu"][i]).max())
+        row[key] = {"max_abs_err": diff, "atol": 2e-4, "ok": diff <= 2e-4}
+    emit(row)
+    if not (row["pointmaps_raw"]["ok"] and row["feats"]["ok"]):
+        raise AssertionError(f"small v1_refine: card and CPU disagree {row}")
+    del cpu_model, gpu_model
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def _pinned_queries(calls: list, pin=None):
+    """Stand in for ``models/mask_transformer.py::select_queries``: each
+    call makes its own selection and records the scores (on the host) and
+    its indices in ``calls``; with ``pin`` (one selection per call, from
+    another run) the call returns ``pin[i]`` on the scores' device."""
+    from panst3r_torch.models import mask_transformer as mt
+
+    real = mt.select_queries
+
+    def select(score, k):
+        own = real(score, k)
+        calls.append({"score": score.detach().float().cpu(),
+                      "top": own.cpu()})
+        if pin is None:
+            return own
+        return pin[len(calls) - 1].to(own.device)
+
+    mt.select_queries = select
+    try:
+        yield
+    finally:
+        mt.select_queries = real
+
+
+def top_k_within(score, top, tol: float) -> bool:
+    """Whether ``top`` (B, k) is a top-k of ``score`` (B, N), highest first,
+    up to ``tol``: each selected score at least every other one less
+    ``tol``, and each at most the one before it plus ``tol``."""
+    import torch
+
+    sel = torch.gather(score, 1, top)
+    rest = score.scatter(1, top, -float("inf"))
+    return bool((sel.amin(1) >= rest.amax(1) - tol).all()
+                and (sel[:, 1:] <= sel[:, :-1] + tol).all())
+
+
+def phase_small_two_stage():
+    """A two-stage v1 config (``MaskTransformerConfig.two_stage``) at full
+    width and depth 2, f32, V=4 / K=3, ``run`` on the card and on the CPU
+    from the same weights, under ONE query selection: the card's own top
+    ``num_queries`` is recorded and held to be a top-k of its own scores
+    within 1e-4, then the CPU's indices stand in (``_pinned_queries``),
+    since tokens whose scores differ by less than the two devices' rounding
+    may swap places; logits and masks at the ``small`` v1 limits."""
+    import torch
+
+    from panst3r_torch.core.bucketing import Bucket
+    from panst3r_torch.engine.inference import InferenceEngine
+    from panst3r_torch.models.panst3r import build_model
+
+    rep = dataclasses.replace
+    cfg = _config("v1", depth=2)
+    cfg = rep(cfg, panoptic=rep(cfg.panoptic, mask_transformer=rep(
+        cfg.panoptic.mask_transformer, two_stage=True)))
+    V, K = 4, 3
+    images, portrait, cls_emb = _inputs(V)
+    cpu_model = build_model(cfg, device="cpu", seed=0)
+    gpu_model = build_model(cfg, device="cuda", seed=1)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    outs, calls = {}, {"cpu": [], "cuda": []}
+    for name, model in (("cpu", cpu_model), ("cuda", gpu_model)):
+        eng = InferenceEngine(model, Bucket(384, 512), num_keyframes=K,
+                              chunk=4, amp=False, device=name)
+        pin = None if name == "cpu" else [c["top"] for c in calls["cpu"]]
+        with _pinned_queries(calls[name], pin):
+            outs[name] = eng.run(images, portrait, cls_emb)
+    own = calls["cuda"][0]
+    row = {"phase": "small", "model": "v1_two_stage",
+           "compare": "cuda_vs_cpu", "selections": len(calls["cuda"]),
+           "card_top_equals_cpu": bool(torch.equal(
+               own["top"], calls["cpu"][0]["top"])),
+           "card_top_valid": top_k_within(own["score"], own["top"], 1e-4),
+           "cpu_top_valid_on_card_scores": top_k_within(
+               own["score"], calls["cpu"][0]["top"], 1e-4)}
+    a, b = outs["cuda"], outs["cpu"]
+    for key, atol, rtol in (("pred_logits", 2e-3, 0.0),
+                            ("pred_masks", 1e-2, 1e-2)):
+        diff = np.abs(a[key] - b[key])
+        row[key] = {"max_abs_err": float(diff.max()), "atol": atol,
+                    "rtol": rtol,
+                    "ok": bool(np.all(diff <= atol + rtol * np.abs(b[key])))}
+    emit(row)
+    if not (row["selections"] == 1 and row["card_top_valid"]
+            and row["cpu_top_valid_on_card_scores"]
+            and row["pred_logits"]["ok"] and row["pred_masks"]["ok"]):
+        raise AssertionError(f"small v1_two_stage: {row}")
+    del cpu_model, gpu_model
+    torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------------------ main --
 
 # ------------------------------------------------ mixed aspect, demo --
@@ -2597,6 +3285,10 @@ def main(argv=None) -> int:
         phase_small("v2")
         phase_small_train()
         phase_small_serve()
+        phase_small_serve_many("v1")
+        phase_small_serve_many("v2")
+        phase_small_refine()
+        phase_small_two_stage()
     launches = {p: phase_full(p) for p in ("v1", "v2") if p in phases}
     if "train_v2" in phases:
         launches["train_v2"] = phase_train_v2()
@@ -2610,6 +3302,12 @@ def main(argv=None) -> int:
         launches["multibucket"] = phase_multibucket()
     if "demo" in phases:
         launches["demo"] = phase_demo()
+    for name, phase in (("serve_many", phase_serve_many),
+                        ("refine", phase_refine),
+                        ("retrieval_head", phase_retrieval_head),
+                        ("serve_app", phase_serve_app)):
+        if name in phases:
+            launches[name] = phase()
 
     def count(entry, path):
         """An entry's launches on a path: its wrapper's launches in the

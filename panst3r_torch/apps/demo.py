@@ -2,7 +2,8 @@
 panst3r_tpu/apps/demo.py).
 
 Load images → landscape canonical → resize into one bucket → inference
-engine → panoptic fusion (standard v1 / v2 or QUBO) → focal and pose
+engine → panoptic fusion (QUBO for ``--fusion qubo``, the standard v2
+fusion for every other name, as the JAX demo does) → focal and pose
 recovery → export:
 
   - scene.ply          point cloud coloured by RGB blended with the
@@ -27,8 +28,7 @@ import torch
 
 from panst3r_torch.core.bucketing import (DEFAULT_BUCKETS, bucket_for_shape,
                                           transpose_to_landscape)
-from panst3r_torch.engine.fusion import (panoptic_fusion, panoptic_fusion_v1,
-                                         qubo_fusion)
+from panst3r_torch.engine.fusion import panoptic_fusion, qubo_fusion
 from panst3r_torch.engine.pose import recover_cameras
 from panst3r_torch.models.decoder import postprocess
 
@@ -39,8 +39,8 @@ SCANNET_CLASSES = [
     "refrigerator", "shower curtain", "toilet", "sink", "bathtub",
     "other furniture", "ceiling",
 ]
-FUSIONS = {"standard_v1": panoptic_fusion_v1,
-           "standard_v2": panoptic_fusion, "qubo": qubo_fusion}
+# the --fusion names: "qubo" runs qubo_fusion, every other panoptic_fusion
+FUSIONS = ("standard_v1", "standard_v2", "qubo")
 
 
 def load_images(paths: list[str], bucket=None):
@@ -110,9 +110,10 @@ def reconstruct_scene(engine, images, portrait, classes: list[str],
     out = engine.run_device(images, portrait, cls_emb,
                             num_keyframes=num_keyframes)
     H, W = images.shape[1:3]
+    fuse = qubo_fusion if fusion == "qubo" else panoptic_fusion
     with torch.inference_mode():
-        pan = FUSIONS[fusion](out["pred_logits"][None].float(),
-                              out["pred_masks"][None].float(), (H, W))[0]
+        pan = fuse(out["pred_logits"][None].float(),
+                   out["pred_masks"][None].float(), (H, W))[0]
         pointmaps = postprocess(out["pointmaps_raw"].float())
         focals, cams2world = recover_cameras(pointmaps, (H, W))
     for seg in pan["segments_info"]:
@@ -214,7 +215,7 @@ def main(argv=None):
                          "weights_only restriction (runs code the file "
                          "names; only for files you trust)")
     ap.add_argument("--num-keyframes", type=int, default=16)
-    ap.add_argument("--fusion", default="standard_v2", choices=list(FUSIONS))
+    ap.add_argument("--fusion", default="standard_v2", choices=FUSIONS)
     ap.add_argument("--device", default=None,
                     help="default: the CUDA card; 'cpu' for the CPU")
     args = ap.parse_args(argv)

@@ -5,8 +5,11 @@ panst3r_tpu/engine/inference.py, the staged ``run_device`` / ``run`` /
 
 Pipeline:
   1. encode all views (encoder and DINO in chunks of ``chunk`` views);
-  2. linspace keyframes, keyframes first; memory over the keyframes on the
-     [2, 1, 1, ...] schedule;
+  2. linspace keyframes, keyframes first (or retrieval: pooled cosine, or
+     the trained ``retrieval_head`` with ASMK); memory over the keyframes
+     on the [2, 1, 1, ...] schedule, rebuilt ``refine_iterations`` times
+     with the decoder's feedback of the keyframes rendered against the
+     previous memory (``build_memory``);
   3. render all views against the frozen memory (``chunk`` views per
      decoder call, as one (1, chunk·N) query set);
   4. the panoptic head on the keyframes (joint mask-transformer decode),
@@ -29,10 +32,12 @@ retrieval keyframes, and packs one uint8/uint16 wire buffer that
 ``unpack_wire`` decodes on the host.  ``serve_latency_device`` and
 ``serve_latency_overlap`` upload in chunks (packed YUV420 decoded per
 chunk) and run the towers per chunk; ``serve_stream`` pipelines scenes
-with a fetcher thread.  Every input may be packed YUV420
-(``ops/image.py``).  ``serve_many_device`` waits for a later slice and
-raises.  ``stage_flops`` / ``pipeline_flops`` count a scene's matmul work
-for MFU (``ops/flops.py``).
+with a fetcher thread; ``serve_many_device`` runs S scenes as one batch
+(the JAX engine's ``vmap``): the towers once over S·V views, and the
+memory build, the render and each head call at batch S, so each kernel
+launches as often as for one scene; one wire per scene.  Every input may
+be packed YUV420 (``ops/image.py``).  ``stage_flops`` / ``pipeline_flops``
+count a scene's matmul work for MFU (``ops/flops.py``).
 
 ``MultiBucketEngine`` runs a scene whose views lie in different resolution
 buckets (mixed aspect ratios): one ``InferenceEngine`` per bucket over one
@@ -72,6 +77,9 @@ class InferenceEngine:
     chunk: int = 4
     amp: bool = True
     device: Optional[object] = None
+    # the trained retrieval head (``engine/retrieval.py::RetrievalHead``)
+    # for ``run_device(use_retrieval=True)``; None: pooled cosine
+    retrieval_head: object = None
 
     def __post_init__(self):
         c = self.model.config
@@ -108,31 +116,56 @@ class InferenceEngine:
             outs.append(self.model.encode_dino(img[None])[0])
         return torch.cat(outs)
 
-    def build_memory(self, x_kf, pos_kf):
-        """Incremental memory over keyframes: [init, +1, +1, ...]."""
+    def build_memory(self, x_kf, pos_kf, refine_iterations: int = 0):
+        """Incremental memory over keyframes: [init, +1, +1, ...].  x_kf
+        (K, N, C) and pos_kf (K, N, 2), or (S, K, …) for S scenes in one
+        batch (a memory of batch S).  Each of ``refine_iterations`` passes
+        renders the keyframes against the previous memory (``chunk`` views
+        a call) and builds a fresh memory whose updates feed those
+        features back (``PanSt3R.decoder_update_feedback``); the first
+        build has no feedback."""
         c = self.model.config
-        K = x_kf.shape[0]
-        mem = memlib.init_memory(c.decoder.depth, 1, K * self.n_tokens,
-                                 c.decoder.dim, dtype=self.dtype,
-                                 device=self.device)
-        start = 0
-        for nb in c.mem_batches(K):
-            mem = self.model.decoder_update(x_kf[None, start:start + nb],
-                                            pos_kf[None, start:start + nb],
-                                            mem, self.grid)[0]
-            start += nb
+        if x_kf.dim() == 3:
+            x_kf, pos_kf = x_kf[None], pos_kf[None]
+        S, K = x_kf.shape[:2]
+
+        def one_build(feedback):
+            mem = memlib.init_memory(c.decoder.depth, S, K * self.n_tokens,
+                                     c.decoder.dim, dtype=self.dtype,
+                                     device=self.device)
+            start = 0
+            for nb in c.mem_batches(K):
+                part = slice(start, start + nb)
+                if feedback is None:
+                    mem = self.model.decoder_update(
+                        x_kf[:, part], pos_kf[:, part], mem, self.grid)[0]
+                else:
+                    mem = self.model.decoder_update_feedback(
+                        x_kf[:, part], pos_kf[:, part], mem, self.grid,
+                        feedback[:, part])[0]
+                start += nb
+            return mem
+
+        mem = one_build(None)
+        for _ in range(refine_iterations):
+            mem = one_build(self.render_batch(x_kf, pos_kf, mem)[1])
         return mem
 
     def render_batch(self, x, pos, mem):
-        """Render all views against the frozen memory, ``chunk`` per call."""
+        """Render all views against the frozen memory, ``chunk`` per call:
+        x (V, N, C), or (S, V, N, C) against a memory of batch S."""
+        batched = x.dim() == 4
+        if not batched:
+            x, pos = x[None], pos[None]
         pms, ys = [], []
-        for s, n in self._chunks(x.shape[0]):
-            pm, y = self.model.decoder_render(x[None, s:s + n],
-                                              pos[None, s:s + n], mem,
+        for s, n in self._chunks(x.shape[1]):
+            pm, y = self.model.decoder_render(x[:, s:s + n],
+                                              pos[:, s:s + n], mem,
                                               self.grid)
-            pms.append(pm[0])
-            ys.append(y[0])
-        return torch.cat(pms), torch.cat(ys)
+            pms.append(pm)
+            ys.append(y)
+        pm, y = torch.cat(pms, 1), torch.cat(ys, 1)
+        return (pm, y) if batched else (pm[0], y[0])
 
     @torch.inference_mode()
     def run_device(self, images, portrait, cls_embeddings,
@@ -145,8 +178,9 @@ class InferenceEngine:
         (Q, ncls), pred_masks (V, Q, Hm, Wm), out_queries, keyframes}.
         ``stage_times``: a dict to receive per-stage seconds (the device is
         synchronized at each stage boundary only when it is given).
-        ``use_retrieval``: keyframes by pooled-cosine retrieval on the host
-        instead of linspace."""
+        ``use_retrieval``: keyframes by retrieval on the host instead of
+        linspace (ASMK through ``retrieval_head`` when it has a codebook,
+        else the pooled cosine)."""
         dev = self.device
         V = images.shape[0]
         K = min(num_keyframes or self.num_keyframes, V)
@@ -159,7 +193,8 @@ class InferenceEngine:
         x, pos = self.encode_batch(images)
         t = self._tick(stage_times, "encoder", t)
         if use_retrieval and V > K:
-            keyframes = select_keyframes_retrieval(x.float(), K)
+            keyframes = select_keyframes_retrieval(
+                x.float(), K, head=self.retrieval_head)
         else:
             keyframes = select_keyframes_linspace(V, K)
         not_keyframes = sorted(set(range(V)) - set(keyframes))
@@ -172,31 +207,36 @@ class InferenceEngine:
         t = self._tick(stage_times, "dino", t)
 
         nk = torch.as_tensor(not_keyframes, dtype=torch.int64, device=dev)
-        out = self._heads(image_cast(images, self.amp), x, y_all, dino_all,
-                          pos, portrait, cls_emb, kf, nk)
+        out = self._heads(image_cast(images, self.amp)[None], x[None],
+                          y_all[None], dino_all[None], pos[None],
+                          portrait[None], cls_emb, kf[None], nk[None])
         self._tick(stage_times, "panoptic", t)
-        return {"pointmaps_raw": pm_all, **out, "keyframes": list(keyframes)}
+        return {"pointmaps_raw": pm_all, **{k: v[0] for k, v in out.items()},
+                "keyframes": list(keyframes)}
 
     def _heads(self, img, x, y, dino, pos, portrait, cls_emb, kf, nk) -> dict:
         """The keyframe head call (joint mask-transformer decode), then the
         other views' call with the frozen keyframe queries (two calls, as
-        in the JAX engine); masks back to input order.  ``img``: the cast
-        images; ``kf`` / ``nk``: index tensors."""
+        in the JAX engine); masks back to input order.  Every tensor has a
+        leading scene axis, and each call runs all S scenes as one batch:
+        ``img`` the cast images (S, V, H, W, 3); ``kf`` / ``nk`` index
+        tensors (S, K) and (S, V − K)."""
         def head(idx, queries=None):
             return self.model.panoptic(
-                (x[idx][None], y[idx][None], dino[idx][None]), img[idx][None],
-                pos[idx][None], portrait[idx][None], cls_emb, self.grid,
-                memory_queries=queries,
-                deep_supervision=False if queries is None else None)
+                (_pick(x, idx), _pick(y, idx), _pick(dino, idx)),
+                _pick(img, idx), _pick(pos, idx), _pick(portrait, idx),
+                cls_emb, self.grid, memory_queries=queries,
+                deep_supervision=False if queries is None else None,
+                per_scene=True)
 
         panout_kf = head(kf)
-        masks = [panout_kf["pred_masks"][0]]
-        if nk.numel():
-            masks.append(head(nk, panout_kf["out_queries"])["pred_masks"][0])
-        inv = torch.argsort(torch.cat([kf, nk]))
-        return {"pred_logits": panout_kf["pred_logits"][0],
-                "pred_masks": torch.cat(masks)[inv],
-                "out_queries": panout_kf["out_queries"][0]}
+        masks = [panout_kf["pred_masks"]]
+        if nk.shape[-1]:
+            masks.append(head(nk, panout_kf["out_queries"])["pred_masks"])
+        inv = torch.argsort(torch.cat([kf, nk], -1), dim=-1)
+        return {"pred_logits": panout_kf["pred_logits"],
+                "pred_masks": _pick(torch.cat(masks, 1), inv),
+                "out_queries": panout_kf["out_queries"]}
 
     def run(self, images, portrait, cls_embeddings,
             num_keyframes: Optional[int] = None,
@@ -268,35 +308,46 @@ class InferenceEngine:
 
     def _pipeline_tail(self, img, x, pos, dino, portrait, cls_emb, K: int,
                        keyframe_mode: str = "linspace") -> dict:
-        """After the towers: keyframes → memory → ONE render of all views →
-        the keyframe head call → the non-keyframe call with the frozen
-        queries; masks back to input order."""
-        V = x.shape[0]
+        """After the towers, for S scenes at once (every tensor with a
+        leading scene axis, (S, V, …)): keyframes → memory (batch S) → ONE
+        render of all views (batch S) → the keyframe head call → the
+        non-keyframe call with the frozen queries; masks back to input
+        order.  The outputs keep the scene axis."""
+        S, V = x.shape[:2]
         dev = x.device
         if keyframe_mode == "retrieval":
-            kf = select_keyframes_retrieval_device(x, K)
-            is_kf = torch.zeros(V, dtype=torch.int32, device=dev) \
-                .index_fill(0, kf, 1)
-            nk = torch.argsort(is_kf, stable=True)[:V - K]
+            kf = torch.stack([select_keyframes_retrieval_device(x[s], K)
+                              for s in range(S)])
+            is_kf = torch.zeros(S, V, dtype=torch.int32, device=dev) \
+                .scatter_(1, kf, 1)
+            nk = torch.argsort(is_kf, dim=-1, stable=True)[:, :V - K]
         elif keyframe_mode == "linspace":
             keyframes = select_keyframes_linspace(V, K)
-            kf = torch.as_tensor(keyframes, device=dev)
+            kf = torch.as_tensor(keyframes, device=dev).expand(S, K)
             nk = torch.as_tensor(sorted(set(range(V)) - set(keyframes)),
-                                 dtype=torch.int64, device=dev)
+                                 dtype=torch.int64, device=dev) \
+                .expand(S, V - K)
         else:
             raise ValueError(f"keyframe_mode {keyframe_mode!r}")
-        mem = self.build_memory(x[kf], pos[kf])
-        pm, y = self.model.decoder_render(x[None], pos[None], mem, self.grid)
-        return {"pointmaps_raw": pm[0],           # already input order
-                **self._heads(img, x, y[0], dino, pos, portrait, cls_emb, kf,
+        mem = self.build_memory(_pick(x, kf), _pick(pos, kf))
+        pm, y = self.model.decoder_render(x, pos, mem, self.grid)
+        return {"pointmaps_raw": pm,              # already input order
+                **self._heads(img, x, y, dino, pos, portrait, cls_emb, kf,
                               nk),
                 "keyframes_dev": kf}
+
+    def _tail_one(self, img, x, pos, dino, portrait, cls_emb, K: int,
+                  keyframe_mode: str = "linspace") -> dict:
+        """``_pipeline_tail`` of one scene (no scene axis in or out)."""
+        out = self._pipeline_tail(img[None], x[None], pos[None], dino[None],
+                                  portrait[None], cls_emb, K, keyframe_mode)
+        return {k: v[0] for k, v in out.items()}
 
     def _fused(self, images, portrait, cls_emb, K: int,
                keyframe_mode: str = "linspace") -> dict:
         img, x, pos, dino = self._towers(images)
-        return self._pipeline_tail(img, x, pos, dino, portrait, cls_emb, K,
-                                   keyframe_mode)
+        return self._tail_one(img, x, pos, dino, portrait, cls_emb, K,
+                              keyframe_mode)
 
     @torch.inference_mode()
     def run_fused(self, images, portrait, cls_embeddings,
@@ -424,9 +475,9 @@ class InferenceEngine:
         imgs, xs, poss, dinos = self._tower_chunks(images, list(range(V)),
                                                    chunk)
         img = image_cast(torch.cat(imgs), self.amp)
-        out = self._pipeline_tail(img, torch.cat(xs), torch.cat(poss),
-                                  torch.cat(dinos), portrait, cls_emb, K,
-                                  keyframe_mode)
+        out = self._tail_one(img, torch.cat(xs), torch.cat(poss),
+                             torch.cat(dinos), portrait, cls_emb, K,
+                             keyframe_mode)
         return self._pack_wire(out, cls_emb, V, label_mode, niters,
                                fusion_res, with_cameras, keyframe_mode)
 
@@ -491,11 +542,32 @@ class InferenceEngine:
         return self._pack_wire(out, cls_emb, V, label_mode, niters,
                                fusion_res, with_cameras, "linspace")
 
-    def serve_many_device(self, *args, **kwargs):
-        """One program over S scenes (JAX ``vmap``): not ported yet."""
-        raise NotImplementedError(
-            "serve_many_device waits for a later slice of the port; use "
-            "serve_device per scene or serve_stream")
+    @torch.inference_mode()
+    def serve_many_device(self, scenes, portrait, cls_embeddings,
+                          num_keyframes: Optional[int] = None,
+                          label_mode: str = "sigmoid", niters: int = 2,
+                          fusion_res: str = "full",
+                          with_cameras: bool = False) -> torch.Tensor:
+        """S scenes as one batch: ``scenes`` (S, V, H, W, 3) uint8 or
+        packed YUV420 (S, V, H·3/2, W), ``portrait`` (S, V); linspace
+        keyframes shared by every scene.  The towers run once over all S·V
+        views; the memory build, the render and each head call run at
+        batch S (the stages a single scene leaves at batch 1), so each
+        kernel launches as often as for one scene.  Fusion and packing run
+        per scene.  Returns the (S, L) device wires, row s equal to
+        ``serve_device`` of scene s."""
+        S, V = scenes.shape[:2]
+        K = min(num_keyframes or self.num_keyframes, V)
+        portrait, cls_emb = self._scene_args(portrait, cls_embeddings)
+        images = self._upload(scenes)
+        towers = self._towers(images.reshape(S * V, *images.shape[2:]))
+        out = self._pipeline_tail(
+            *(t.reshape(S, V, *t.shape[1:]) for t in towers),
+            portrait.reshape(S, V), cls_emb, K)
+        return torch.stack([
+            self._pack_wire({k: v[s] for k, v in out.items()}, cls_emb, V,
+                            label_mode, niters, fusion_res, with_cameras,
+                            "linspace") for s in range(S)])
 
     def stage_flops(self, V: int, num_keyframes: Optional[int] = None
                     ) -> dict:
@@ -863,6 +935,11 @@ class MultiBucketEngine:
                 torch.as_tensor(out["pred_logits"], device=dev),
                 [torch.as_tensor(m, device=dev) for m in out["pred_masks"]],
                 list(true_shapes or out["true_shapes"]), **fusion_kw)
+
+
+def _pick(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Rows ``idx`` (S, n) of each scene of ``t`` (S, V, …) → (S, n, …)."""
+    return t[torch.arange(t.shape[0], device=t.device)[:, None], idx]
 
 
 def fetch_wire(wire) -> np.ndarray:

@@ -8,9 +8,11 @@ of panst3r_tpu/models/decoder.py).
 - **render** (``render=True``): the same compute against a frozen memory.
 
 Self-attention runs K1 (d=64 heads), the memory cross-attention K2 with the
-validity bias.  The ``single_mlp`` feedback parameters exist (checkpoints
-carry them) but are unused at 0 refinement iterations.  The flax scan stack
-``layers/*`` becomes ``layers.<i>``.
+validity bias.  With ``feedback_feats`` (a refinement pass, feedback type
+``single_mlp``) the embedded tokens gain ``feedback_mlp`` of the features a
+previous pass rendered; without them the MLP is not run (checkpoints carry
+its parameters either way).  The flax scan stack ``layers/*`` becomes
+``layers.<i>``.
 """
 from __future__ import annotations
 
@@ -88,16 +90,19 @@ class MemoryDecoder(nn.Module):
         self.head = nn.Linear(c.dim, c.patch_size ** 2 * c.head_channels)
 
     def forward(self, x_enc, pos, mem: TokenMemory, render: bool,
-                grid: tuple[int, int]):
-        """x_enc (B, V, N, enc_dim); pos (B, V, N, 2).  Returns (mem,
-        pointmaps_raw (B, V, H, W, 7), feats (B, V, N, dim)); in update
-        mode ``mem`` is filled in place."""
+                grid: tuple[int, int], feedback_feats=None):
+        """x_enc (B, V, N, enc_dim); pos (B, V, N, 2); feedback_feats
+        (B, V, N, dim) or None.  Returns (mem, pointmaps_raw (B, V, H, W,
+        7), feats (B, V, N, dim)); in update mode ``mem`` is filled in
+        place."""
         c = self.config
         B, V, N, _ = x_enc.shape
         gh, gw = grid
         assert gh * gw == N, (grid, N)
         x = self.decoder_embed(x_enc)
-        if c.feedback == "single_mlp":
+        if c.feedback == "single_mlp" and feedback_feats is not None:
+            x = x + self.feedback_mlp(feedback_feats)
+        elif c.feedback == "single_mlp":
             # the JAX decoder calls feedback_mlp on one zero token to create
             # its flax parameters (decoder.py:143); XLA drops the call and
             # the JAX FLOP counter counts it: two Dense layers of

@@ -11,8 +11,12 @@ features (``attn_feats``), sigmoid < 0.5 → blocked, with the fully-blocked
 row → unblock fixup (applied after the buckets' key axes are
 concatenated).  The mask products run in the wider of the two
 dtypes, as jnp.einsum promotes: under amp the v2 head's LoftUp mask
-features are f32 while the queries are bf16.  Two-stage query selection
-waits for a later slice.
+features are f32 while the queries are bf16.
+
+``two_stage``: no learned queries; the decoder starts from the
+``num_queries`` tokens (over every level and bucket) whose largest class
+logit is highest (``select_queries``), with their position embeddings as
+the query PE, and the queries are detached after the first prediction.
 """
 from __future__ import annotations
 
@@ -113,6 +117,7 @@ class MaskTransformerConfig:
     dec_layers: int = 6
     lang_dim: int = 768
     fpn_dims: tuple = (768,)
+    two_stage: bool = False
 
     @property
     def num_feature_levels(self) -> int:
@@ -138,8 +143,9 @@ class MaskTransformer(nn.Module):
         for i, fd in enumerate(c.fpn_dims):
             if fd != d:
                 setattr(self, f"input_proj_{i}", nn.Conv2d(fd, d, 1))
-        self.query_feat = nn.Parameter(torch.empty(c.num_queries, d))
-        self.query_embed = nn.Parameter(torch.empty(c.num_queries, d))
+        if not c.two_stage:
+            self.query_feat = nn.Parameter(torch.empty(c.num_queries, d))
+            self.query_embed = nn.Parameter(torch.empty(c.num_queries, d))
         for i in range(c.dec_layers):
             setattr(self, f"cross_attn_{i}", MHA(d, c.num_heads))
             setattr(self, f"cross_norm_{i}", nn.LayerNorm(d, eps=MT_LN_EPS))
@@ -235,11 +241,17 @@ class MaskTransformer(nn.Module):
             src.append(torch.cat(src_parts, 1))
             pos.append(torch.cat(pos_parts, 1))
 
-        output = self.query_feat[None].expand(B, -1, -1)
-        query_embed = self.query_embed[None].expand(B, -1, -1)
+        if c.two_stage:
+            output, query_embed = self._query_selection(src, pos,
+                                                        cls_embeddings)
+        else:
+            output = self.query_feat[None].expand(B, -1, -1)
+            query_embed = self.query_embed[None].expand(B, -1, -1)
         ocls, omask, blocked = self.prediction_heads(
             output, mask_feats, cls_embeddings, attn_feats,
             need_mask=deep_supervision)
+        if c.two_stage:
+            output = output.detach()
         pred_cls, pred_masks = [ocls], [omask]
         for i in range(c.dec_layers):
             lvl = i % c.num_feature_levels
@@ -269,3 +281,19 @@ class MaskTransformer(nn.Module):
                                   for a, b in zip(pred_cls[:-1],
                                                   pred_masks[:-1])]
         return out
+
+    def _query_selection(self, src, pos, cls_embeddings):
+        """Two-stage proposals: the tokens of every level with the highest
+        largest class logit, and their position embeddings."""
+        feats = torch.cat(src, 1)                          # (B, N, C)
+        pos_all = torch.cat(pos, 1)
+        score = self._class_logits(self.decoder_norm(feats), cls_embeddings)
+        top = select_queries(score.amax(-1), self.config.num_queries)
+        idx = top[..., None].expand(-1, -1, feats.shape[-1])
+        return torch.gather(feats, 1, idx), torch.gather(pos_all, 1, idx)
+
+
+def select_queries(score: torch.Tensor, k: int) -> torch.Tensor:
+    """(B, N) scores → (B, k) indices of the k highest, highest first (as
+    ``jax.lax.top_k``; the two differ only on exact ties)."""
+    return torch.topk(score, k, dim=-1, sorted=True).indices

@@ -55,9 +55,11 @@ class PanopticDecoder(nn.Module):
         if c.label_mode == "softmax":
             self.nocls_token = nn.Parameter(torch.empty(c.text_embed_dim))
 
-    def features(self, in_feats, images, pos, grid):
+    def features(self, in_feats, images, pos, grid, per_scene=False):
         """Concat → mixer → upscaler, per view.  in_feats: (B, V, N, C_i)
-        each; images (B, V, H, W, 3); pos (B, V, N, 2)."""
+        each; images (B, V, H, W, 3); pos (B, V, N, 2).  LoftUp's min-max
+        spans all B·V views, or with ``per_scene`` each batch element's V
+        views."""
         cat = torch.cat(list(in_feats), dim=-1)
         B, V, N, C = cat.shape
         flat = cat.reshape(B * V, N, C)
@@ -65,7 +67,8 @@ class PanopticDecoder(nn.Module):
             flat = self.input_mixer(flat, pos.reshape(B * V, N, 2))
         if self.loftup:
             fpn, mask_f = self.upscaler(
-                flat, images.reshape(B * V, *images.shape[2:]), grid)
+                flat, images.reshape(B * V, *images.shape[2:]), grid,
+                groups=B if per_scene else 1)
         else:
             fpn, mask_f = self.upscaler(flat, grid)
         fpn = [f.reshape(B, V, *f.shape[1:]) for f in fpn]
@@ -77,12 +80,13 @@ class PanopticDecoder(nn.Module):
         return cls_embeddings
 
     def forward(self, in_feats, images, pos, portrait, cls_embeddings, grid,
-                memory_queries=None, deep_supervision=None):
+                memory_queries=None, deep_supervision=None, per_scene=False):
         """in_feats: (x_must3r, y_must3r, x_dino) each (B, V, N, C_i);
         images (B, V, H, W, 3) normalized; pos (B, V, N, 2); portrait
         (B, V) bool; cls_embeddings (num_classes, lang_dim).  For a
         multi-bucket scene each of in_feats' members, images, pos,
-        portrait and grid is a list over the buckets."""
+        portrait and grid is a list over the buckets.  ``per_scene``:
+        each batch element is a scene of its own (``features``)."""
         single = not isinstance(images, (list, tuple))
         if single:
             in_feats = [[x] for x in in_feats]
@@ -92,7 +96,8 @@ class PanopticDecoder(nn.Module):
         fpn_b, mask_f = [], []
         for feats_b, img_b, pos_b, grid_b in zip(zip(*in_feats), images, pos,
                                                  grid):
-            fpn_i, mf_i = self.features(feats_b, img_b, pos_b, grid_b)
+            fpn_i, mf_i = self.features(feats_b, img_b, pos_b, grid_b,
+                                        per_scene)
             fpn_b.append(fpn_i)
             mask_f.append(mf_i)
         fpn = [[f[lvl] for f in fpn_b] for lvl in range(len(fpn_b[0]))]

@@ -91,17 +91,26 @@ class PanSt3R(nn.Module):
     def decoder_update(self, x, pos, mem, grid):
         return self.must3r_decoder(x, pos, mem, render=False, grid=grid)
 
+    def decoder_update_feedback(self, x, pos, mem, grid, feedback_feats):
+        """A memory update of a refinement pass: the tokens gain the
+        decoder's feedback MLP of ``feedback_feats``, the features a
+        previous pass rendered for the same views."""
+        return self.must3r_decoder(x, pos, mem, render=False, grid=grid,
+                                   feedback_feats=feedback_feats)
+
     def decoder_render(self, x, pos, mem, grid):
         _, pointmaps, feats = self.must3r_decoder(x, pos, mem, render=True,
                                                   grid=grid)
         return pointmaps, feats
 
     def panoptic(self, in_feats, images, pos, portrait, cls_embeddings, grid,
-                 memory_queries=None, deep_supervision=None):
+                 memory_queries=None, deep_supervision=None,
+                 per_scene=False):
         return self.panoptic_decoder(in_feats, images, pos, portrait,
                                      cls_embeddings, grid,
                                      memory_queries=memory_queries,
-                                     deep_supervision=deep_supervision)
+                                     deep_supervision=deep_supervision,
+                                     per_scene=per_scene)
 
     # ---- training forward ----
 

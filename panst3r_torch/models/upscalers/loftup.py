@@ -66,12 +66,15 @@ def _linspace(start: float, stop: float, num: int, nd) -> np.ndarray:
 
 class MinMaxScaler(nn.Module):
     """Per-channel min-max scaling to [-0.5, 0.5] over batch, H and W: a
-    view's output depends on the views that share its call."""
+    view's output depends on the views that share its call, or with
+    ``groups`` on those of its group (equal runs of the batch)."""
 
-    def forward(self, x):
-        mn = x.amin(dim=(0, 1, 2), keepdim=True)
-        mx = x.amax(dim=(0, 1, 2), keepdim=True)
-        return (x - mn) / torch.clamp(mx - mn, min=1e-4) - 0.5
+    def forward(self, x, groups: int = 1):
+        g = x.reshape(groups, -1, *x.shape[1:])
+        mn = g.amin(dim=(1, 2, 3), keepdim=True)
+        mx = g.amax(dim=(1, 2, 3), keepdim=True)
+        return ((g - mn) / torch.clamp(mx - mn, min=1e-4) - 0.5).reshape(
+            x.shape)
 
 
 class ImplicitFeaturizer(nn.Module):
@@ -186,10 +189,11 @@ class LoftUpUpscaler(nn.Module):
                     CrossonlyDecoderBlock(c.dim, c.num_heads, mlp_ratio=1.0))
         self.ca_norm = nn.LayerNorm(c.dim, eps=TORCH_LN_EPS)
 
-    def forward(self, feats, images, grid):
+    def forward(self, feats, images, grid, groups: int = 1):
         """feats (B, N, C) patch tokens; images (B, H, W, 3) guidance;
-        grid (gh, gw).  Returns ([patch feats (B, gh, gw, C)], mask feats
-        (B, H/stride, W/stride, dim))."""
+        grid (gh, gw); ``groups``: the image min-max spans each of that
+        many equal runs of the batch (one scene each).  Returns ([patch
+        feats (B, gh, gw, C)], mask feats (B, H/stride, W/stride, dim))."""
         c = self.config
         B, N, C = feats.shape
         gh, gw = grid
@@ -198,7 +202,7 @@ class LoftUpUpscaler(nn.Module):
 
         H, W = images.shape[1:3]
         hout, wout = H // c.output_stride, W // c.output_stride
-        x = self.minmax(resize_bilinear(images, hout, wout))
+        x = self.minmax(resize_bilinear(images, hout, wout), groups)
         x = self.fourier(x)
         dt = x.dtype
         x = call_promoted(self.gn0, dt, x)

@@ -11,12 +11,16 @@ maps it onto the flax-named parameter tree of panst3r_tpu (numpy only), and
 ``load_reference_state_dict`` fills a port model from that tree through
 ``weights.load_jax_params``.  Unmapped keys are reported, as
 ``ported_keys`` / ``total_keys`` / ``ignored`` / ``unmapped``.
+``port_retrieval_checkpoint`` maps a must3r / PanSt3R retrieval checkpoint
+onto ``engine/retrieval.py::RetrievalHead``'s fields.
 
 RoPE layout: croco rotates within each y/x half of the head dim
 (rotate-half per half), as ``ops/rope.py`` does, so q/k rows are taken as
 they are.
 """
 from __future__ import annotations
+
+import re
 
 import numpy as np
 import torch
@@ -453,3 +457,55 @@ def load_reference_state_dict(model: nn.Module, sd: dict) -> dict:
     tree, report = port_checkpoint(sd)
     load_jax_params(model, tree)
     return report
+
+
+def port_retrieval_checkpoint(ckpt: dict) -> dict:
+    """A retrieval checkpoint → ``RetrievalHead(**out)`` keyword arguments
+    (numpy arrays and scalars).  ``ckpt['model']``: the retrieval model's
+    state_dict (the ``backbone.*`` keys are skipped): the ``prewhiten`` and
+    ``postwhiten`` affines, the projector's Linears at ``projector.{i}``
+    (activations hold no parameters, so the indices may be sparse);
+    ``ckpt['args'].residual``; ``ckpt['asmk_codebook']``: the centroids;
+    ``ckpt['asmk_params']``: ``alpha`` and ``similarity_threshold``
+    (under ``similarity`` or at the top).  Any other model key raises."""
+    def arr(v):
+        return v.detach().cpu().numpy() if torch.is_tensor(v) \
+            else np.asarray(v)
+
+    args = ckpt.get("args")
+    sd = {k: arr(v) for k, v in ckpt["model"].items()
+          if not k.startswith("backbone")}
+    out: dict = {}
+
+    def affine(prefix):
+        if f"{prefix}.weight" not in sd:
+            return None
+        W = t(sd.pop(f"{prefix}.weight"))
+        b = sd.pop(f"{prefix}.bias", np.zeros(W.shape[1], np.float32))
+        return (W, np.asarray(b))
+
+    pw = affine("prewhiten")
+    if pw is not None:
+        out["prewhiten"] = pw
+    idx = sorted({int(re.match(r"projector\.(\d+)\.", k).group(1))
+                  for k in sd if k.startswith("projector.")})
+    out["projector"] = tuple((t(sd.pop(f"projector.{i}.weight")),
+                              sd.pop(f"projector.{i}.bias")) for i in idx)
+    pw = affine("postwhiten")
+    if pw is not None:
+        out["postwhiten"] = pw
+    if args is not None:
+        out["residual"] = bool(getattr(args, "residual", False))
+    if sd:
+        raise ValueError(f"unmapped retrieval model keys: {sorted(sd)}")
+
+    cb = ckpt.get("asmk_codebook")
+    if cb is not None:
+        cent = cb.get("centroids") if isinstance(cb, dict) else cb
+        out["codebook"] = np.asarray(arr(cent), np.float32)
+    params = ckpt.get("asmk_params") or {}
+    sim = params.get("similarity", params) if isinstance(params, dict) \
+        else {}
+    out["alpha"] = float(sim.get("alpha", 3.0))
+    out["similarity_threshold"] = float(sim.get("similarity_threshold", 0.0))
+    return out

@@ -8,7 +8,9 @@ ranges), whose bits are also held to a recorded digest; K1, K2, K3,
 K4, K5 and K6 routed by dtype; the int8 gate's
 launches; gradients through K1-K4 on the card against the plain versions';
 a small v2 train step and small v1 serve wires on the card against the
-CPU; FLOP counts on the card equal to the CPU's.  Needs a CUDA card; skips without one.  On the card (no JAX there, so
+CPU; FLOP counts on the card equal to the CPU's; K2 and K3 at
+``serve_many_device``'s batch of two scenes, and ``serve_many_device``
+against ``serve_device`` per scene at depth 2.  Needs a CUDA card; skips without one.  On the card (no JAX there, so
 without the repo's conftest):
 
     python -m pytest --noconftest -o addopts="" -p no:cacheprovider \
@@ -917,3 +919,91 @@ def test_stage_flops_card_equal_cpu(dev, preset):
                               amp=True, device=d).stage_flops(3, 2)
               for d in ("cuda", "cpu")]
     assert counts[0] == counts[1]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k2_k3_at_serve_many_batch(dev, dtype):
+    """K2 and K3 at ``serve_many_device``'s batch of two scenes (a memory
+    update, 768 queries against 3072 slots with 1536 valid plus the view's
+    own 768 keys; the render, 6144 x 3072; the mask transformer, 8 heads
+    of 96, 200 x 3072) against their plain versions, and each scene's rows
+    bit-equal to the same call for that scene alone (the wire of one scene
+    must not depend on the batch)."""
+    g = torch.Generator(device=dev).manual_seed(17)
+    C = 768
+    valid = torch.ones(2, 3840, dtype=torch.bool, device=dev)
+    valid[:, 1536:3072] = False
+    for Nq, Nk, val in ((768, 3840, valid),
+                        (6144, 3072, torch.ones(2, 3072, dtype=torch.bool,
+                                                device=dev))):
+        q = _rnd(g, dev, dtype, 2, Nq, C, s=QK_STD)
+        k = _rnd(g, dev, dtype, 2, Nk, C, s=QK_STD)
+        v = _rnd(g, dev, dtype, 2, Nk, C)
+        qtab, ktab = (rope2d_tables(torch.randint(0, 32, (2, n, 2),
+                                                  generator=g, device=dev),
+                                    64) for n in (Nq, Nk))
+        kb = torch.where(val, 0.0, NEG)
+        out = ta.tower_cross_attention(q, k, v, qtab, ktab, kb)
+        _close(out, ta.tower_cross_attention_ref, q, k, v, qtab, ktab, kb)
+        for b in range(2):
+            sl = slice(b, b + 1)
+            part = ta.tower_cross_attention(
+                q[sl].contiguous(), k[sl].contiguous(), v[sl].contiguous(),
+                tuple(t[sl].contiguous() for t in qtab),
+                tuple(t[sl].contiguous() for t in ktab), kb[sl].contiguous())
+            assert torch.equal(part, out[sl]), (Nq, Nk, b)
+
+    H, Nq, Nk, D = 8, 200, 3072, 96
+    q = _rnd(g, dev, dtype, 2, H, Nq, D, s=QK_STD)
+    k = _rnd(g, dev, dtype, 2, H, Nk, D, s=QK_STD)
+    v = _rnd(g, dev, dtype, 2, H, Nk, D)
+    blocked = torch.rand(2, Nq, Nk, generator=g, device=dev) > 0.05
+    blocked[0, :, :1500] = True
+    blocked[1, 100:] = True
+    out = ma.masked_mha(q, k, v, blocked)
+    _close(out, ma.masked_mha_ref, q, k, v, blocked)
+    for b in range(2):
+        sl = slice(b, b + 1)
+        part = ma.masked_mha(q[sl].contiguous(), k[sl].contiguous(),
+                             v[sl].contiguous(), blocked[sl].contiguous())
+        assert torch.equal(part, out[sl]), b
+
+
+def test_serve_many_card_matches_serve_device(dev):
+    """``serve_many_device`` of two scenes of v1 at full width and depth 2
+    (V=4 at 64x96, f32, hybrid wire with cameras) launches each kernel as
+    often as one ``serve_device`` scene, and each scene's wire holds to
+    that scene's ``serve_device`` wire by the small ``v1_serve`` rule (pan
+    on >= 99.9% of pixels, seg_ids, labels and selected equal, cameras
+    within 1e-3 relative)."""
+    from panst3r_torch.core.bucketing import Bucket
+    from panst3r_torch.engine.inference import InferenceEngine
+    from panst3r_torch.models.panst3r import build_model
+
+    V, K, H, W = 4, 3, 64, 96
+    images, portrait, _ = chip_smoke._inputs(V, H, W)
+    scenes = np.stack([images, np.roll(images, 1, axis=0)])
+    cfg = chip_smoke._config("v1", depth=2)
+    eng = InferenceEngine(build_model(cfg, device="cuda", seed=0),
+                          Bucket(H, W), num_keyframes=K, chunk=2, amp=False,
+                          device="cuda")
+    cls_emb = chip_smoke.segment_classes(eng, images, portrait)
+    ports = np.stack([portrait, portrait])
+    kw = dict(fusion_res="hybrid", with_cameras=True)
+    chip_smoke._reset_counts()
+    wires = eng.serve_many_device(scenes, ports, cls_emb, **kw).cpu().numpy()
+    many = chip_smoke._read_counts()
+    segments = 0
+    for s in range(2):
+        chip_smoke._reset_counts()
+        single = eng.serve_device(scenes[s], portrait, cls_emb, **kw)
+        assert chip_smoke._read_counts() == many
+        a, b = (eng.unpack_wire(w, V, with_cameras=True)
+                for w in (wires[s], single.cpu().numpy()))
+        for k in ("seg_ids", "labels", "selected"):
+            np.testing.assert_array_equal(a[k], b[k])
+        assert (a["pan"] == b["pan"]).mean() >= 0.999
+        for k in ("focals", "cam2world"):
+            assert np.abs(a[k] - b[k]).max() <= 1e-3 * np.abs(b[k]).max()
+        segments += int(b["selected"].sum())
+    assert segments > 0

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from panst3r_torch.apps import demo as tdemo
 from panst3r_torch.apps.common import build_engine
 from panst3r_torch.core.bucketing import Bucket as TBucket
@@ -418,6 +419,38 @@ def test_reconstruct_scene_matches_jax(tmp_path):
         assert other["pan"].shape == (4, H, W)
         tdemo.export_scene(tmp_path / fusion, images, other, overlays=False)
         assert not list((tmp_path / fusion).glob("*.png"))
+
+
+def test_reconstruct_scene_standard_v1_matches_jax(tmp_path):
+    """``fusion="standard_v1"`` fuses as the JAX demo does for every name
+    but "qubo" (the standard v2 fusion): segments, pan, conf and cameras
+    against the JAX demo's on the same engine outputs, under the checks of
+    ``test_reconstruct_scene_matches_jax``."""
+    rng = np.random.default_rng(0)
+    images, portrait, bucket = tdemo.load_images(
+        _write_views(tmp_path, rng), TBucket(H, W))
+    sd = reference_state_dict(tpresets.tiny_config(), seed=1)
+    torch.save({"weights": {k: torch.from_numpy(v) for k, v in sd.items()}},
+               tmp_path / "ref.pth")
+    teng, classes, cls_emb = build_engine(
+        "tiny", bucket, checkpoint=str(tmp_path / "ref.pth"),
+        num_keyframes=3, amp=False, classes=tdemo.SCANNET_CLASSES,
+        device="cpu")
+    # class embeddings under which a few queries pass fusion's class
+    # threshold, so that the fusions have segments to disagree on
+    cls_emb = chip_smoke.segment_classes(teng, images, portrait,
+                                         ncls=len(classes))
+    want = jdemo.reconstruct_scene(_SharedRun(teng), images, portrait,
+                                   classes, cls_emb, fusion="standard_v1")
+    got = tdemo.reconstruct_scene(teng, images, portrait, classes, cls_emb,
+                                  fusion="standard_v1")
+    assert want["segments_info"]
+    assert got["segments_info"] == want["segments_info"]
+    assert np.mean(got["pan"] == want["pan"]) >= 0.995
+    np.testing.assert_allclose(got["conf"], want["conf"], atol=1e-2)
+    np.testing.assert_allclose(got["focals"], want["focals"], rtol=1e-3)
+    np.testing.assert_allclose(got["cams2world"], want["cams2world"],
+                               atol=1e-3)
 
 
 def test_main_writes_the_scene(tmp_path):

@@ -27,6 +27,7 @@ for name in names:
 import chip_smoke  # import only: main() is not run
 
 import numpy as np
+import torch
 from panst3r_torch.core.bucketing import Bucket
 from panst3r_torch.engine.inference import InferenceEngine
 from panst3r_torch.models.panst3r import build_model
@@ -49,6 +50,20 @@ wire = eng.serve_device(rgb_to_yuv420(images), np.zeros(3, bool),
                         keyframe_mode="retrieval")
 dec = eng.unpack_wire(wire, 3, with_cameras=True, with_keyframes=2)
 assert dec["pan"].shape == (3, 32, 48) and dec["focals"].shape == (3,)
+wires = eng.serve_many_device(np.stack([images, images[::-1].copy()]),
+                              np.zeros((2, 3), bool),
+                              rng.standard_normal((4, 24)).astype(np.float32))
+assert wires.shape[0] == 2
+from panst3r_torch.engine.retrieval import RetrievalHead
+head = RetrievalHead(codebook=rng.standard_normal((8, 64)).astype(np.float32))
+eng.retrieval_head = head
+out = eng.run_device(images, np.zeros(3, bool),
+                     rng.standard_normal((4, 24)).astype(np.float32),
+                     use_retrieval=True)
+assert len(set(out["keyframes"])) == 2
+mem = eng.build_memory(*eng.encode_batch(torch.as_tensor(images[:2])),
+                       refine_iterations=1)
+assert mem.count == 2 * eng.n_tokens
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in FORBIDDEN)
 assert not loaded, loaded
 print("modules", len(names))

@@ -374,12 +374,29 @@ def test_retrieval_wire_matches_staged_retrieval(engines):
 
 
 def test_later_slices_raise(engines):
+    """An unknown ``fusion_res`` raises; the daemon's ``/slam/*`` paths,
+    which wait for the SLAM port, answer 400 and name what they wait
+    for."""
+    import threading
+    import urllib.error
+    import urllib.request
+
+    from panst3r_torch.apps.serve import SceneServer, make_server
+
     teng = engines[1]
     images, portrait, cls_emb = _scene()
-    with pytest.raises(NotImplementedError, match="later slice"):
-        teng.serve_many_device(images[None], portrait[None], cls_emb)
-    with pytest.raises(NotImplementedError, match="retrieval head"):
-        tret.select_keyframes_retrieval(torch.zeros(3, 4, 8), 2,
-                                        head=object())
     with pytest.raises(ValueError, match="fusion_res"):
         teng.serve_device(images, portrait, cls_emb, fusion_res="half")
+    srv = make_server(SceneServer(teng, cls_emb), "127.0.0.1", 0)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    try:
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{srv.server_address[1]}/slam/start",
+            data=b"", method="POST")
+        with pytest.raises(urllib.error.HTTPError) as e:
+            urllib.request.urlopen(req)
+        assert e.value.code == 400
+        assert b"engine/slam.py" in e.value.read()
+    finally:
+        srv.shutdown()
+        srv.server_close()
