@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # every phase; needs one card
     python3 chip_smoke.py --phases kernels
     python3 chip_smoke.py --phases train_v2
+    python3 chip_smoke.py --phases text,train_app
 
 Run from the root of a checkout.  It builds the CUDA kernels of
 ``panst3r_torch/csrc`` with nvcc (into the git-ignored
@@ -97,6 +98,19 @@ Run from the root of a checkout.  It builds the CUDA kernels of
    127.0.0.1 with the engine on the card: ``/healthz``, one
    ``/reconstruct?cameras=1`` equal to the unpacked ``serve_device`` wire,
    ``/slam/start`` refused;
+14. ``text``: the SigLIP text tower at full width over the demo's class
+   prompts (K4 f32, 12 launches a call, with a finfo.min key row whose
+   pad tiles are dead; the ``kernels`` phase holds K4 at that call,
+   ``text_siglip``) and the CLIP tower (no launch), each card against
+   CPU, and ``TextEncoder``'s tables from the card towers;
+15. ``train_app``: the training entry point (``apps/train.py::train``)
+   at full v2 width and depth with configs/train_v2.yaml's recipe (five
+   buckets, four spawned loader workers) on a ScanNet++-layout dataset
+   the phase writes: two epochs straight, and one epoch plus a resumed
+   run, compared; launches as ``expected_train_launches`` sums over the
+   buckets drawn; micro-step seconds per bucket, loader seconds per
+   batch, the idle share of one traced epoch; the ``final`` checkpoint
+   through ``build_engine`` into one ``run_device`` scene;
 
 then one ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``.  Any failed phase raises, and the script exits non-zero without
@@ -152,7 +166,7 @@ REPLACES = {
 }
 PHASES = ("kernels", "small", "v1", "v2", "train_v2", "serve", "serve_long",
           "ab_packed", "multibucket", "demo", "serve_many", "refine",
-          "retrieval_head", "serve_app")
+          "retrieval_head", "serve_app", "text", "train_app")
 # every kernel runs a Hopper engine in both dtypes: bf16 the wgmma engine
 # (K2-int8 its s8 scores); of the f32 paths (entries ``*_f32`` of the
 # kernels line) K2, K2-int8 and K3 run the 3xTF32 engine in the same
@@ -229,6 +243,48 @@ MB_SHAPES = ((384, 512), (384, 512), (336, 512), (336, 512), (160, 512),
              (336, 512), (384, 512), (160, 512))
 MB_PORTRAIT = (5,)
 MB_KEYFRAME_GRIDS = (24, 21, 10, 10)
+# The text towers' limit, card against CPU on the pooled output (f32; the
+# tower's GEMMs in f32 with TF32 off, K4 on the card)
+TEXT_TOL = 1e-4
+# The train app's resumed run against its straight run (phase train_app):
+# the card's scatter and sampling backwards may add with atomics, so two
+# runs need not agree bit for bit.  Losses within RESUME_LOSS_RTOL
+# (relative); final weights within 2 * lr * updates: an Adam step moves a
+# parameter by at most about lr (|m_hat / sqrt(v_hat)| <= 1 for
+# betas (0.9, 0.95) over the first updates), so two runs part by at most
+# twice that per update
+RESUME_LOSS_RTOL = 1e-4
+
+
+class WordPieces:
+    """A stand-in for a SigLIP sentencepiece model (none is in the
+    repository): one id per word, from its letters, within the
+    vocabulary and clear of the special ids."""
+
+    def __init__(self, vocab_size: int = 32000):
+        self.vocab_size = vocab_size
+
+    def encode(self, text: str) -> list[int]:
+        return [2 + sum((i + 1) * ord(c) for i, c in enumerate(w))
+                % (self.vocab_size - 2) for w in text.split()]
+
+
+def text_prompts(model: str = "siglip") -> list[str]:
+    """The demo's class names in ``model``'s prompt template (the prompts
+    ``TextEncoder`` sends its tower)."""
+    from panst3r_torch.apps.demo import SCANNET_CLASSES
+    from panst3r_torch.models.text_encoder import MODEL_CONFIGS
+
+    return [MODEL_CONFIGS[model]["template"].format(c)
+            for c in SCANNET_CLASSES]
+
+
+def text_prompt_mask() -> np.ndarray:
+    """(C, 64) attention mask of ``text_prompts`` as the SigLIP tower takes
+    them (``tokenize_siglip`` with ``WordPieces``)."""
+    from panst3r_torch.models.siglip_text import tokenize_siglip
+
+    return tokenize_siglip(text_prompts(), WordPieces())[1]
 
 
 def emit(obj) -> None:
@@ -430,6 +486,8 @@ def kernel_cases(dtype, dev):
     k2("render_many", 2, 6144, 3072,
        torch.ones(2, 3072, dtype=torch.bool, device=dev))
     _k3_case(cases, "mask_transformer_many", 3072, rnd, g, es, dev, B=2)
+    # the SigLIP text tower's attention (phase text), drawn last
+    cases += _k4_cases(rnd, g, es, dtype, dev, None, text=True)
     return cases
 
 
@@ -652,12 +710,13 @@ def _sliced(fn, n: int, *ts):
     return torch.cat(parts)
 
 
-def _k4_cases(rnd, g, es, dtype, dev, blocked, full=False):
+def _k4_cases(rnd, g, es, dtype, dev, blocked, full=False, text=False):
     """K4 at the v2 LoftUp shape (split-heads views of the projections, as
     the block passes them), with ragged dead keys, with the dense
     mask-transformer bias, with RoPE tables and with the LSE; with
     ``full``, only at train_v2's LoftUp batch (its plain version per slice
-    of PLAIN_SLICE views)."""
+    of PLAIN_SLICE views); with ``text``, only at the SigLIP text tower's
+    call over the demo's class prompts (phase text)."""
     import torch
     import torch.nn.functional as F
 
@@ -703,6 +762,19 @@ def _k4_cases(rnd, g, es, dtype, dev, blocked, full=False):
         """(B, H, N, D) view of a (B, N, H*D) projection."""
         return rnd(B, N, H * D, s=s).view(B, N, H, D).transpose(1, 2)
 
+    if text:
+        # 12 heads of 64 over the 64 padded positions of each prompt; the
+        # (C, 1, 1, 64) finfo.min bias on the pad keys travels as a key
+        # row, and every prompt is shorter than 32 tokens: whole dead key
+        # tiles
+        mask = torch.as_tensor(text_prompt_mask(), device=dev)
+        B, N = mask.shape
+        H, D = 12, 64
+        bias = torch.where(mask > 0, 0.0, NEG_INF)[:, None, None, :]
+        return [case("text_siglip", heads(B, N, H, D, QK_STD),
+                     heads(B, N, H, D, QK_STD), heads(B, N, H, D),
+                     bias=bias, live_keys=int(mask.sum()),
+                     lib_mask=(mask > 0)[:, None, None, :])]
     if full:        # f32 only: the f32 plain version is the reference
         B, H, Nq, Nk, D = LOFTUP_TRAIN_FULL
         return [case("loftup_train_full", heads(B, Nq, H, D, QK_STD),
@@ -3237,6 +3309,474 @@ def phase_demo():
     return counts
 
 
+# --------------------------------------------------------- text towers --
+
+def _hf_text_state(width, layers, mlp, vocab, positions, seed, head):
+    """An HF-named text-model state_dict (SigLIP with ``head``, else CLIP)
+    of seeded weights: embeddings N(0, 0.02), linear weights N(0, 1/fan_in)
+    with N(0, 0.02) biases, LayerNorm weights near 1 and biases near 0."""
+    rng = np.random.default_rng(seed)
+
+    def normal(*shape, s=1.0):
+        return (rng.standard_normal(shape, dtype=np.float32) * s)
+
+    def linear(name, n_in, n_out):
+        sd[f"{name}.weight"] = normal(n_out, n_in, s=n_in ** -0.5)
+        sd[f"{name}.bias"] = normal(n_out, s=0.02)
+
+    def norm(name):
+        sd[f"{name}.weight"] = 1.0 + normal(width, s=0.1)
+        sd[f"{name}.bias"] = normal(width, s=0.1)
+
+    p = "text_model"
+    sd = {f"{p}.embeddings.token_embedding.weight":
+          normal(vocab, width, s=0.02),
+          f"{p}.embeddings.position_embedding.weight":
+          normal(positions, width, s=0.02)}
+    for i in range(layers):
+        L = f"{p}.encoder.layers.{i}"
+        norm(f"{L}.layer_norm1")
+        for n in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            linear(f"{L}.self_attn.{n}", width, width)
+        norm(f"{L}.layer_norm2")
+        linear(f"{L}.mlp.fc1", width, mlp)
+        linear(f"{L}.mlp.fc2", mlp, width)
+    norm(f"{p}.final_layer_norm")
+    if head:
+        linear(f"{p}.head", width, width)
+    else:
+        sd[f"{p}.embeddings.position_ids"] = np.arange(positions)[None]
+    return sd
+
+
+def _clip_files(directory: str, words, vocab_size: int) -> tuple:
+    """vocab.json and merges.txt of a CLIP byte-BPE in the released
+    layout: the byte characters and their word ends, the merges that
+    build ``words``, unused tokens up to ``vocab_size`` - 2, then
+    <|startoftext|> and <|endoftext|> as the last two ids."""
+    from panst3r_torch.models.clip_text import _bytes_to_unicode
+
+    chars = sorted(set(_bytes_to_unicode().values()))
+    vocab = {c: i for i, c in enumerate(chars)}
+    for c in chars:
+        vocab[c + "</w>"] = len(vocab)
+    merges = []
+    for w in words:
+        parts = list(w[:-1]) + [w[-1] + "</w>"]
+        while len(parts) > 1:
+            if f"{parts[0]} {parts[1]}" not in merges:
+                merges.append(f"{parts[0]} {parts[1]}")
+            merged = parts[0] + parts[1]
+            vocab.setdefault(merged, len(vocab))
+            parts = [merged] + parts[2:]
+    for i in range(len(vocab), vocab_size - 2):
+        vocab[f"<unused{i}>"] = i
+    vocab["<|startoftext|>"] = vocab_size - 2
+    vocab["<|endoftext|>"] = vocab_size - 1
+    vp, mp = f"{directory}/vocab.json", f"{directory}/merges.txt"
+    with open(vp, "w") as f:
+        json.dump(vocab, f)
+    with open(mp, "w") as f:
+        f.write("#version: 0.2\n" + "\n".join(merges) + "\n")
+    return vp, mp
+
+
+def _delta(before: dict) -> dict:
+    """Launches per kernel since ``before`` (a ``_read_counts()``)."""
+    return {k: n - before[k] for k, n in _read_counts().items()}
+
+
+def phase_text():
+    """The text towers at full width on the demo's class prompts: SigLIP
+    (768, 12 layers, 12 heads, vocab 32000) through ``NativeTextTower``
+    with ``WordPieces`` (K4 f32 once per layer: 12 launches a call) and
+    CLIP (512, 12, 8, vocab 49408) through ``NativeClipTower`` on a
+    vocabulary the phase writes (plain attention: no launch); seeded
+    weights synthesized in HF naming and mapped by ``port_siglip_text`` /
+    ``port_clip_text``; each card tower against the CPU's within TEXT_TOL;
+    ``TextEncoder`` tables equal to the card tower's normalized output;
+    then each card call timed.  Returns the launches of the path (the two
+    tower calls and the two ``set_vocab`` calls)."""
+    import tempfile
+
+    import torch
+
+    from panst3r_torch import port_checkpoint as pc
+    from panst3r_torch.apps.demo import SCANNET_CLASSES
+    from panst3r_torch.models import clip_text, siglip_text
+    from panst3r_torch.models.text_encoder import (TextEncoder,
+                                                   TextEncoderConfig)
+
+    prompts = {name: text_prompts(name) for name in ("siglip", "clip")}
+    towers, rows = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        c = siglip_text.SiglipTextConfig()
+        ctx = pc.Port(_hf_text_state(c.width, c.layers, c.mlp_dim,
+                                     c.vocab_size, c.max_positions, 0, True))
+        tree = pc.port_siglip_text(ctx, c.layers)
+        assert not ctx.unmapped(), ctx.unmapped()[:5]
+        towers["siglip"] = [siglip_text.NativeTextTower(
+            tree, WordPieces(c.vocab_size), c, device=d)
+            for d in ("cpu", "cuda")]
+        c = clip_text.ClipTextConfig()
+        ctx = pc.Port(_hf_text_state(c.width, c.layers, c.mlp_dim,
+                                     c.vocab_size, c.max_positions, 1,
+                                     False))
+        tree = pc.port_clip_text(ctx, c.layers)
+        assert not ctx.unmapped(), ctx.unmapped()[:5]
+        words = sorted({w for p in prompts["clip"] for w in p.split()})
+        vp, mp = _clip_files(tmp, words, c.vocab_size)
+        towers["clip"] = [clip_text.NativeClipTower(tree, vp, mp, c,
+                                                    device=d)
+                          for d in ("cpu", "cuda")]
+        del tree, ctx
+        _reset_counts()
+        for name, (cpu, card) in towers.items():
+            want = cpu(prompts[name])
+            before = _read_counts()
+            got = card(prompts[name])
+            torch.cuda.synchronize()
+            counts = _delta(before)
+            expect = dict.fromkeys(counts, 0)
+            if name == "siglip":
+                expect["flash_fwd"] = card.model.config.layers
+            # TextEncoder with the card tower: its table is the tower's
+            # output, L2-normalized
+            enc = TextEncoder(TextEncoderConfig(model_name=name),
+                              tower_fn=card)
+            enc.set_vocab(SCANNET_CLASSES)
+            table = enc(SCANNET_CLASSES)
+            ref = got / np.linalg.norm(got, axis=-1, keepdims=True)
+            rows[name] = {
+                "phase": "text", "tower": name,
+                "prompts": len(prompts[name]), "shape": list(got.shape),
+                "max_abs_err_vs_cpu": float(np.abs(got - want).max()),
+                "limit": TEXT_TOL,
+                "pooled_max_abs": float(np.abs(want).max()),
+                "launches": counts, "expected_launches": expect,
+                "encoder_table_max_abs_diff": float(
+                    np.abs(table - ref).max()),
+                "finite": bool(np.isfinite(got).all())}
+        torch.cuda.synchronize()
+        counts = _read_counts("text")
+        rows["siglip"]["tokens_per_prompt"] = sorted(
+            set(text_prompt_mask().sum(1).tolist()))
+        for name, (_, card) in towers.items():
+            row = rows[name]
+            row["ms_per_call"] = time_ms(lambda: card(prompts[name]),
+                                         reps=10)
+            emit(row)
+            if not (row["finite"] and row["max_abs_err_vs_cpu"] <= TEXT_TOL
+                    and row["launches"] == row["expected_launches"]
+                    and row["encoder_table_max_abs_diff"] <= 1e-6):
+                raise AssertionError(f"text {name}: {row}")
+    want = dict.fromkeys(counts, 0)
+    want["flash_fwd"] = 2 * towers["siglip"][1].model.config.layers
+    if counts != want:
+        raise AssertionError(f"text: launches {counts} != {want}")
+    del towers
+    torch.cuda.empty_cache()
+    return counts
+
+
+# ------------------------------------------------------------ train app --
+
+TRAIN_APP_HW = (432, 576)          # the phase's ScanNet++ frames (H, W)
+# configs/train_v2.yaml's buckets, (W, H)
+TRAIN_V2_RESOLUTIONS = ((512, 384), (512, 336), (512, 288), (512, 256),
+                        (512, 160))
+
+
+def write_scannetpp(root: str, classes, n_views: int = 5,
+                    hw=TRAIN_APP_HW, seed: int = 0) -> None:
+    """A ScanNet++-layout dataset (the layout ``data/scannetpp.py`` reads)
+    of one scene: ``n_views`` jpg frames of ``hw`` with depth pngs and
+    panoptic pngs of up to 12 instances of ``classes``, pinhole
+    intrinsics, identity poses and a chain of covisible pairs
+    (``n_views`` - 1 tuples)."""
+    import os
+
+    import cv2
+
+    from panst3r_torch.data.utils import id2rgb
+
+    H, W = hw
+    rng = np.random.default_rng(seed)
+    scene = "scene0000"
+    for sub in ("images", "depth", "panoptic"):
+        os.makedirs(f"{root}/{scene}/{sub}", exist_ok=True)
+    inst_cls = rng.integers(0, len(classes), 13)
+    yy, xx = np.mgrid[0:H, 0:W]
+    names = []
+    for v in range(n_views):
+        name = f"frame{v:03d}"
+        names.append(name)
+        base = np.stack([(xx * (v + 1) // 4) % 256, (yy * 3 // 2) % 256,
+                         ((xx + yy) // 3 + 40 * v) % 256], -1)
+        img = np.clip(base + rng.integers(-20, 21, (H, W, 3)), 0, 255)
+        cv2.imwrite(f"{root}/{scene}/images/{name}.jpg",
+                    img.astype(np.uint8))
+        cv2.imwrite(f"{root}/{scene}/depth/{name}.png",
+                    rng.integers(500, 6000, (H, W)).astype(np.uint16))
+        pan = np.zeros((H, W), np.int64)
+        for i in range(1, 13):
+            if rng.random() < 0.25:
+                continue                      # not seen in this view
+            h, w = rng.integers(H // 8, H // 2), rng.integers(W // 8, W // 2)
+            y, x = rng.integers(0, H - h), rng.integers(0, W - w)
+            pan[y:y + h, x:x + w] = i * 256 + inst_cls[i]
+        cv2.imwrite(f"{root}/{scene}/panoptic/{name}.png",
+                    cv2.cvtColor(id2rgb(pan), cv2.COLOR_RGB2BGR))
+    K = [[500.0, 0, W / 2], [0, 500.0, H / 2], [0, 0, 1]]
+    np.savez(f"{root}/all_metadata.npz", scenes=np.asarray([scene]),
+             sceneids=np.zeros(n_views, int), images=np.asarray(names),
+             intrinsics=np.asarray([K] * n_views, np.float32),
+             trajectories=np.asarray([np.eye(4)] * n_views, np.float32),
+             pairs=np.asarray([[v, v + 1, 0.8] for v in range(n_views - 1)]),
+             cls_sep=256)
+    with open(f"{root}/categories.json", "w") as f:
+        json.dump([{"id": i, "name": c} for i, c in enumerate(classes)], f)
+
+
+def every_bucket_seed(n_tuples: int, batch_size: int, n_buckets: int) -> int:
+    """The least seed whose epoch 0 of ``data/loader.py::epoch_batches``
+    over ``n_tuples`` draws each of ``n_buckets`` buckets once (its draws
+    replayed: the permutation, then one bucket per batch)."""
+    assert n_tuples // batch_size == n_buckets
+    for seed in range(10_000):
+        rng = np.random.default_rng(seed)
+        rng.permutation(n_tuples)
+        if sorted(int(rng.integers(n_buckets)) for _ in range(n_buckets)) \
+                == list(range(n_buckets)):
+            return seed
+    raise AssertionError("no seed draws every bucket")
+
+
+@contextlib.contextmanager
+def _train_app_probes(rec: dict, trace_epoch=None):
+    """Instrument ``apps/train.py`` for the block: each micro-step timed
+    (the card synchronized before and after) with its bucket; the wait for
+    each batch at the consumer (after prefetch) and its making in the
+    loader; with ``trace_epoch``, that epoch traced (``profile_by_kernel``:
+    the card's idle share)."""
+    import torch
+
+    from panst3r_torch.apps import train as tapp
+    from panst3r_torch.core.profiling import profile_by_kernel
+
+    real = {k: getattr(tapp, k) for k in ("make_train_step", "epoch_batches",
+                                          "prefetch", "train_one_epoch")}
+
+    def make_train_step(model, opt, loss, grid, amp=None):
+        step = real["make_train_step"](model, opt, loss, grid, amp=amp)
+
+        def timed(batch, cls, gen):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(batch, cls, gen)
+            torch.cuda.synchronize()
+            rec["steps"].append({"hw": list(batch["images"].shape[2:4]),
+                                 "s": time.perf_counter() - t0})
+            return out
+        return timed
+
+    def timed_iter(it, key):
+        while True:
+            t0 = time.perf_counter()
+            try:
+                item = next(it)
+            except StopIteration:
+                return
+            rec[key].append(time.perf_counter() - t0)
+            yield item
+
+    def train_one_epoch(state, steps, batches, *a, **kw):
+        epoch = a[1]
+        if epoch != trace_epoch:
+            return real["train_one_epoch"](state, steps, batches, *a, **kw)
+        res = {}
+        prof = profile_by_kernel(lambda: res.setdefault("r", real[
+            "train_one_epoch"](state, steps, batches, *a, **kw)), top=12)
+        rec["trace"] = prof
+        return res["r"]
+
+    tapp.make_train_step = make_train_step
+    tapp.epoch_batches = lambda *a, **kw: timed_iter(
+        real["epoch_batches"](*a, **kw), "load_s")
+    tapp.prefetch = lambda it, depth: timed_iter(
+        real["prefetch"](it, depth), "wait_s")
+    tapp.train_one_epoch = train_one_epoch
+    try:
+        yield
+    finally:
+        for k, v in real.items():
+            setattr(tapp, k, v)
+
+
+def _step_log(out_dir) -> list:
+    with open(f"{out_dir}/log.txt") as f:
+        return [json.loads(ln) for ln in f if '"train/loss"' in ln]
+
+
+def phase_train_app():
+    """The training entry point (``apps/train.py::train``) at full v2
+    width and depth with configs/train_v2.yaml's recipe: the five buckets,
+    V=5, B=2, accum_iter 2, ColorJitter, memory cores of 2-5 views, four
+    spawned loader workers, random class embeddings, no warmup, on a
+    ScanNet++-layout dataset the phase writes (4 tuples: 2 micro-steps an
+    epoch, their buckets drawn per batch).  Two epochs in one run; one
+    epoch, then a run that resumes at epoch 1: its losses and final
+    weights against the straight run's; one epoch of 10 resampled tuples
+    whose 5 batches draw every bucket (``every_bucket_seed``); each run's
+    launches against ``expected_train_launches`` summed over the buckets
+    its batches drew;
+    log.txt and the last, 0 and final checkpoints; then ``final`` through
+    ``build_engine`` and one v2 ``run_device`` scene with the launches
+    of ``expected_launches``.  Returns the launches of the three runs."""
+    import dataclasses as dc
+    import os
+    import tempfile
+
+    import torch
+
+    from panst3r_torch.apps import train as tapp
+    from panst3r_torch.apps.common import build_engine
+    from panst3r_torch.apps.demo import SCANNET_CLASSES
+    from panst3r_torch.core.bucketing import Bucket
+    from panst3r_torch.core.checkpoint import load_checkpoint
+
+    cfg = _config("v2")
+    V = 5
+    with tempfile.TemporaryDirectory() as tmp:
+        data = f"{tmp}/scannetpp"
+        t0 = time.perf_counter()
+        write_scannetpp(data, SCANNET_CLASSES, n_views=V)
+        write_s = time.perf_counter() - t0
+        base = tapp.ExperimentConfig(
+            model_preset="v2", data_root=data,
+            resolution=TRAIN_V2_RESOLUTIONS, num_views=V, aug_crop=16,
+            transform="ColorJitter", min_memory_num_views=2,
+            max_memory_num_views=5, train=train_config(epochs=2),
+            keep_freq=10, print_freq=1, logger="tensorboard",
+            loader_workers=4, loader_workers_mode="process",
+            loader_prefetch=2, text_encoder="random")
+        # the runs above draw 2 batches an epoch and need not reach every
+        # bucket: one more epoch over 10 resampled tuples (5 batches) with
+        # the first seed whose draws take each bucket once
+        seed = every_bucket_seed(10, 2, len(TRAIN_V2_RESOLUTIONS))
+        buckets = dc.replace(
+            base, datasets=(tapp.DatasetSpec(root=data, ds_size=10),),
+            keep_freq=0, train=dc.replace(base.train, seed=seed))
+        recs = {}
+        _reset_counts()
+        for label, out, epochs, trace, b in (
+                ("straight", "a", 2, 1, base), ("first", "b", 1, None, base),
+                ("resumed", "b", 2, None, base),
+                ("every_bucket", "c", 1, None, buckets)):
+            exp = dc.replace(b, output_dir=f"{tmp}/{out}",
+                             train=dc.replace(b.train, epochs=epochs))
+            rec = recs[label] = {"steps": [], "load_s": [], "wait_s": []}
+            before = _read_counts()
+            t0 = time.perf_counter()
+            with _train_app_probes(rec, trace):
+                res = tapp.train(exp)
+            seconds = time.perf_counter() - t0
+            counts = _delta(before)
+            want = dict.fromkeys(counts, 0)
+            by_bucket = {}
+            for st in rec["steps"]:
+                h, w = st["hw"]
+                for k, n in expected_train_launches(
+                        cfg, V, (h // 16, w // 16)).items():
+                    want[k] += n
+                by_bucket.setdefault(f"{h}x{w}", []).append(st["s"])
+            row = {"phase": "train_app", "run": label,
+                   "start_epoch": res["start_epoch"], "epochs": epochs,
+                   "seconds": seconds, "stats": res["stats"],
+                   "micro_step_s_by_bucket": by_bucket,
+                   "loader_make_s_per_batch": rec["load_s"],
+                   "loader_wait_s_per_batch": rec["wait_s"],
+                   "launches": counts, "expected_launches": want}
+            if "trace" in rec:
+                tr = rec["trace"]
+                row["traced_epoch"] = {
+                    "epoch": trace, "wall_ms": tr["wall_ms"],
+                    "device_busy_ms": tr["device_busy_ms"],
+                    "device_idle_share": tr["device_idle_share"],
+                    "top": tr["top"][:8]}
+            emit(row)
+            rec["start_epoch"] = res["start_epoch"]
+            if counts != want or not rec["steps"]:
+                raise AssertionError(f"train_app {label}: launches {counts}"
+                                     f" != {want}")
+            torch.cuda.empty_cache()
+        total = _read_counts("train_app")
+        a, b = f"{tmp}/a", f"{tmp}/b"
+        files = {d: sorted(os.listdir(d)) for d in (a, b)}
+        la, lb = _step_log(a), _step_log(b)
+        loss_rel = max(abs(x["train/loss"] - y["train/loss"])
+                       / abs(y["train/loss"]) for x, y in zip(la, lb))
+        wa, _, _ = load_checkpoint(a, "final")
+        wb, _, _ = load_checkpoint(b, "final")
+        diffs = [(wa[k].float() - wb[k].float()).abs() for k in wa]
+        w_max = max(float(d.max()) for d in diffs)
+        updates = len(la) // base.train.accum_iter
+        w_limit = 2 * base.train.lr * updates
+        hw = {k: [s["hw"] for s in r["steps"]] for k, r in recs.items()}
+        checks = {
+            "every_bucket": sorted(map(tuple, hw["every_bucket"])) == sorted(
+                (h, w) for w, h in TRAIN_V2_RESOLUTIONS),
+            "resumed_at_epoch_1": recs["first"]["start_epoch"] == 0
+            and recs["resumed"]["start_epoch"] == 1,
+            "files": all({"log.txt", "last", "0", "final"} <= set(f)
+                         for f in files.values()),
+            "steps_logged": len(la) == len(lb) == 4,
+            "same_batches": hw["straight"] == hw["first"] + hw["resumed"],
+            "losses": loss_rel <= RESUME_LOSS_RTOL,
+            "weights": wa.keys() == wb.keys() and w_max <= w_limit,
+            "optimizer_state_in_last": os.path.exists(
+                f"{b}/last/optimizer.pt")
+            and not os.path.exists(f"{b}/final/optimizer.pt"),
+        }
+        row = {"phase": "train_app", "compare": "resumed_vs_straight",
+               "files": files, "buckets_drawn": hw["straight"],
+               "losses": [x["train/loss"] for x in la],
+               "loss_max_rel_diff": loss_rel, "loss_limit": RESUME_LOSS_RTOL,
+               "weights_max_abs_diff": w_max, "weights_limit": w_limit,
+               "weights_bit_equal": w_max == 0.0,
+               "params_differing": int(sum(int((d > 0).sum())
+                                           for d in diffs)),
+               "dataset_write_s": write_s}
+        del wa, wb, diffs
+        # the final checkpoint serves a scene
+        t0 = time.perf_counter()
+        eng, classes, emb = build_engine("v2", Bucket(384, 512),
+                                         checkpoint=f"{b}/final",
+                                         num_keyframes=4)
+        load_s = time.perf_counter() - t0
+        images, portrait, _ = _inputs(8)
+        _reset_counts()
+        out = eng.run_device(images, portrait, emb)
+        torch.cuda.synchronize()
+        counts = _read_counts()
+        want = expected_launches(cfg, 8, 4, eng.chunk)
+        finite = all(bool(torch.isfinite(v).all()) for v in out.values()
+                     if isinstance(v, torch.Tensor) and v.is_floating_point())
+        checks["final_serves"] = (classes == sorted(SCANNET_CLASSES)
+                                  and emb.shape == (
+                                      len(classes),
+                                      cfg.panoptic.mask_transformer.lang_dim)
+                                  and finite and counts == want)
+        row.update(final_to_engine_s=load_s, final_scene_launches=counts,
+                   final_scene_finite=finite, checks=checks)
+        emit(row)
+        if not all(checks.values()):
+            raise AssertionError(f"train_app: {checks}")
+        del eng, out
+    torch.cuda.empty_cache()
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES))
@@ -3305,7 +3845,9 @@ def main(argv=None) -> int:
     for name, phase in (("serve_many", phase_serve_many),
                         ("refine", phase_refine),
                         ("retrieval_head", phase_retrieval_head),
-                        ("serve_app", phase_serve_app)):
+                        ("serve_app", phase_serve_app),
+                        ("text", phase_text),
+                        ("train_app", phase_train_app)):
         if name in phases:
             launches[name] = phase()
 

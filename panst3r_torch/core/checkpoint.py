@@ -8,7 +8,11 @@ A checkpoint is a directory ``directory/name`` holding:
 - ``config.json``: the model config as ``core/config.py::to_dict`` writes
   it (the config is rebuilt from that dict, never from code);
 - ``meta_arrays.npz``: the array-valued meta entries (say the
-  class-embedding table), and ``meta.json``: the other meta entries.
+  class-embedding table), and ``meta.json``: the other meta entries;
+- ``optimizer.pt`` (training checkpoints only): the optimizer's
+  ``state_dict`` (``engine/train.py::Optimizer``), tensors on the CPU.
+  With ``state.pt`` it is the JAX package's whole ``TrainState``; the
+  ``final`` checkpoint of a run holds the weights only.
 
 ``latest_checkpoint`` is the auto-resume hook: ``"last"`` when it exists.
 """
@@ -24,15 +28,28 @@ import torch
 from panst3r_torch.core import config as cfg
 
 
+def _to_cpu(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu()
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    return tree
+
+
 def save_checkpoint(directory: str | Path, name: str, model: torch.nn.Module,
                     model_config: Any = None,
-                    meta: Optional[dict] = None) -> Path:
+                    meta: Optional[dict] = None,
+                    optimizer: Optional[dict] = None) -> Path:
     """Save ``model``'s state_dict with its config and meta under
-    ``directory/name``; returns that path."""
+    ``directory/name``, and ``optimizer`` (an optimizer's state_dict) when
+    given; returns that path."""
     path = Path(directory).absolute() / name
     path.mkdir(parents=True, exist_ok=True)
-    torch.save({k: v.detach().cpu() for k, v in model.state_dict().items()},
-               path / "state.pt")
+    torch.save(_to_cpu(model.state_dict()), path / "state.pt")
+    if optimizer is not None:
+        torch.save(_to_cpu(optimizer), path / "optimizer.pt")
+    else:                       # a weights-only save replaces the state
+        (path / "optimizer.pt").unlink(missing_ok=True)
     if model_config is not None:
         (path / "config.json").write_text(
             json.dumps(cfg.to_dict(model_config), indent=2))
@@ -63,6 +80,16 @@ def load_checkpoint(directory: str | Path, name: str,
         with np.load(arr_file) as z:
             meta.update({k: z[k] for k in z.files})
     return state, model_config, meta
+
+
+def load_optimizer_state(directory: str | Path, name: str,
+                         map_location="cpu") -> Optional[dict]:
+    """The optimizer state_dict saved with checkpoint ``name``, or None
+    when it holds none."""
+    path = Path(directory).absolute() / name / "optimizer.pt"
+    if not path.exists():
+        return None
+    return torch.load(path, map_location=map_location, weights_only=True)
 
 
 def latest_checkpoint(directory: str | Path) -> Optional[str]:

@@ -14,11 +14,13 @@
 - ``make_train_step``: forward, panoptic loss, backward, optimizer step;
   frozen parameters get no gradient and are never written.
 - ``train_one_epoch``: the host loop with the NaN abort, fetching the loss
-  every ``sync_every`` steps.
+  every ``sync_every`` steps, one step function per resolution bucket,
+  and the ``train/*`` log every ``print_freq`` steps.
 
-The model's parameters are updated in place.  The data-parallel mesh of
-the JAX package waits for the multi-GPU slice; so do checkpoints, logging
-and the training app.
+The model's parameters are updated in place; the optimizer (its moments,
+accumulator and counters, ``Optimizer.state_dict``) is the rest of the
+training state, which ``apps/train.py`` checkpoints and resumes.  The
+data-parallel mesh of the JAX package waits for the multi-GPU slice.
 """
 from __future__ import annotations
 
@@ -128,6 +130,41 @@ class Optimizer:
         self.acc = {n: z.clone() for n, z in zeros.items()}
         self.mini_step = 0
         self.updates = 0            # Adam's and the schedule's count
+
+    @property
+    def micro_steps(self) -> int:
+        """Micro-steps taken (the JAX ``TrainState.step``)."""
+        return self.updates * self.k + self.mini_step
+
+    def log_schedule(self, micro_step: int) -> float:
+        """The learning rate of the update that ``micro_step`` belongs to
+        (the JAX ``build_optimizer``'s logging schedule)."""
+        return self.schedule(micro_step // self.k)
+
+    def state_dict(self) -> dict:
+        """The moments, the accumulator (by parameter name) and the
+        counters: with the parameters, all a resumed run needs."""
+        return {"mu": dict(self.mu), "nu": dict(self.nu),
+                "acc": dict(self.acc), "mini_step": self.mini_step,
+                "updates": self.updates}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        """Install a ``state_dict`` (its tensors go to each parameter's
+        device); raises on a parameter set or shape that differs."""
+        for key in ("mu", "nu", "acc"):
+            own = getattr(self, key)
+            if set(state[key]) != set(own):
+                raise KeyError(f"optimizer {key}: parameters differ: "
+                               f"{sorted(set(state[key]) ^ set(own))[:5]}")
+            for n, t in state[key].items():
+                if tuple(t.shape) != tuple(own[n].shape):
+                    raise ValueError(f"optimizer {key}.{n}: shape "
+                                     f"{tuple(t.shape)}, expected "
+                                     f"{tuple(own[n].shape)}")
+                own[n] = t.to(device=own[n].device, dtype=torch.float32)
+        self.mini_step = int(state["mini_step"])
+        self.updates = int(state["updates"])
 
     @torch.no_grad()
     def step(self) -> bool:
@@ -248,13 +285,22 @@ def make_train_step(model: torch.nn.Module, optimizer: Optimizer,
     return step
 
 
-def train_one_epoch(step_fn, data_iter, cls_embeddings, epoch: int,
-                    seed: int, device, sync_every: int = 1) -> dict:
-    """Host epoch loop.  ``data_iter`` yields collated numpy batches;
-    each step draws from its own generator (``core/rng.py``).  The loss is
-    fetched every ``sync_every`` steps (each fetch waits for the card); a
-    non-finite loss raises FloatingPointError, at most ``sync_every`` − 1
-    steps late.  Returns the mean loss."""
+def train_one_epoch(state: Optimizer, step_fn, data_iter, cls_embeddings,
+                    epoch: int, seed: int, device, log_writer=None,
+                    print_freq: int = 20, steps_per_epoch: int = 0,
+                    sync_every: int = 1):
+    """Host epoch loop.  ``state``: the optimizer the steps update;
+    ``step_fn``: one step, or a dict of steps keyed by the batch's image
+    (H, W), one per resolution bucket; ``data_iter`` yields collated numpy
+    batches; each step draws from its own generator (``core/rng.py``).
+    The loss is fetched every ``sync_every`` steps (each fetch waits for
+    the card); a non-finite loss raises FloatingPointError, at most
+    ``sync_every`` − 1 steps late.  Every ``print_freq`` steps
+    ``log_writer`` gets ``train/loss`` (the mean since the last record),
+    ``train/iter`` (the fractional epoch of ``steps_per_epoch``),
+    ``train/lr`` (``Optimizer.log_schedule`` at the micro-step count) and
+    each scalar loss of the last step.  Returns (state, {"loss": the
+    epoch's mean loss})."""
     losses: list = []
     pending: list = []
 
@@ -267,10 +313,23 @@ def train_one_epoch(step_fn, data_iter, cls_embeddings, epoch: int,
         pending.clear()
 
     for it, batch in enumerate(data_iter):
+        fn = step_fn
+        if isinstance(step_fn, dict):
+            fn = step_fn[tuple(batch["images"].shape[2:4])]
         gen = rng.generator(seed, epoch, it, device=device)
-        loss, _ = step_fn(batch_to(batch, device), cls_embeddings, gen)
+        loss, details = fn(batch_to(batch, device), cls_embeddings, gen)
         pending.append(loss)
         if len(pending) >= max(sync_every, 1):
             drain()
+        if log_writer is not None and (it + 1) % print_freq == 0:
+            drain()
+            epoch_f = epoch + it / max(steps_per_epoch, 1)
+            vals = {"train/loss": float(np.mean(losses[-print_freq:])),
+                    "train/iter": epoch_f,
+                    "train/lr": state.log_schedule(state.micro_steps)}
+            for k, v in details.items():
+                if v.ndim == 0:         # not the assignments
+                    vals[f"train/{k}"] = float(v)
+            log_writer.log(vals, epoch_f)
     drain()
-    return {"loss": float(np.mean(losses)) if losses else 0.0}
+    return state, {"loss": float(np.mean(losses)) if losses else 0.0}

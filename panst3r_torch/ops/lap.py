@@ -14,11 +14,15 @@ that is done keeps its state; here too a finished member is not updated
 again, so the host tests the loop condition only every ``check_every``
 iterations (one device sync each) with the same result.  Ties break as in
 JAX: ``lax.top_k`` and ``argmax`` take the lowest index, and a contested
-object goes to the highest bidder index.  The exact host solver
-(``exact_lap``) waits for the eval slice.
+object goes to the highest bidder index.
+
+``exact_lap`` is the exact solver on the host (``native/lap.cpp``, built at
+first use; scipy's ``linear_sum_assignment`` where no compiler is there),
+for evaluation and for measuring the auction's gap.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -117,3 +121,17 @@ def assignment_cost(cost: torch.Tensor, row_for_col: torch.Tensor):
     """Total cost of an assignment (one problem)."""
     C = cost.shape[1]
     return cost[row_for_col, torch.arange(C, device=cost.device)].sum()
+
+
+def exact_lap(cost) -> tuple[np.ndarray, np.ndarray]:
+    """Exact min-cost assignment on the host: (row_ind, col_ind) int64,
+    scipy's surface.  The native solver, or scipy's without a compiler."""
+    from panst3r_torch.native import lap_jv
+
+    res = lap_jv(np.asarray(cost))
+    if res is not None:
+        return res
+    from scipy.optimize import linear_sum_assignment
+
+    rows, cols = linear_sum_assignment(np.asarray(cost))
+    return rows.astype(np.int64), cols.astype(np.int64)

@@ -256,6 +256,45 @@ def port_dino(ctx: Port, depth: int = 24,
     return out
 
 
+def _text_tower(ctx: Port, layers: int, prefix: str) -> dict:
+    """The blocks shared by HF SigLIP and CLIP text models: embeddings,
+    ``encoder.layers.i.{layer_norm1, self_attn.q|k|v|out_proj,
+    layer_norm2, mlp.fc1|fc2}``, ``final_layer_norm``."""
+    out: dict = {}
+    _set(out, ("token_embedding",),
+         ctx.get(f"{prefix}.embeddings.token_embedding.weight"))
+    _set(out, ("position_embedding",),
+         ctx.get(f"{prefix}.embeddings.position_embedding.weight"))
+    for i in range(layers):
+        L = f"{prefix}.encoder.layers.{i}"
+        blk = (f"layer_{i}",)
+        _ln(ctx, out, blk + ("layer_norm1",), f"{L}.layer_norm1")
+        for n in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            _linear(ctx, out, blk + (n,), f"{L}.self_attn.{n}")
+        _ln(ctx, out, blk + ("layer_norm2",), f"{L}.layer_norm2")
+        _linear(ctx, out, blk + ("fc1",), f"{L}.mlp.fc1")
+        _linear(ctx, out, blk + ("fc2",), f"{L}.mlp.fc2")
+    _ln(ctx, out, ("final_layer_norm",), f"{prefix}.final_layer_norm")
+    return out
+
+
+def port_siglip_text(ctx: Port, layers: int = 12,
+                     prefix: str = "text_model") -> dict:
+    """HF SiglipTextModel → ``models/siglip_text.py::SiglipTextTower``
+    (the blocks, then the pooling ``head``)."""
+    out = _text_tower(ctx, layers, prefix)
+    _linear(ctx, out, ("head",), f"{prefix}.head")
+    return out
+
+
+def port_clip_text(ctx: Port, layers: int = 12,
+                   prefix: str = "text_model") -> dict:
+    """HF CLIPTextModel → ``models/clip_text.py::ClipTextTower`` (no
+    pooling head: CLIP pools at the EOS position)."""
+    ctx.ignore(f"{prefix}.embeddings.position_ids")
+    return _text_tower(ctx, layers, prefix)
+
+
 def port_input_mixer(ctx: Port, num_layers: int = 3,
                      prefix: str = "panoptic_decoder.input_mixer") -> dict:
     """The reference InputMixer (``in_proj``, ``mixer_blk.i``, ``mixer_norm``)."""

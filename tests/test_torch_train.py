@@ -350,10 +350,10 @@ def test_train_one_epoch_sync_every_and_nan_abort():
             loss, det = step(*a)
             return loss * float("nan"), det
 
-        stats = t_train.train_one_epoch(nan_step if nan else step,
-                                        [batch] * 4, _t(cls), epoch=0,
-                                        seed=0, device="cpu",
-                                        sync_every=sync_every)
+        state, stats = t_train.train_one_epoch(
+            opt, nan_step if nan else step, [batch] * 4, _t(cls), epoch=0,
+            seed=0, device="cpu", sync_every=sync_every)
+        assert state is opt and opt.micro_steps == 4
         return stats, [p.detach().clone() for p in tm.parameters()]
 
     s1, p1 = run(1)
