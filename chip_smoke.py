@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phases kernels
     python3 chip_smoke.py --phases train_v2
     python3 chip_smoke.py --phases text,train_app
+    python3 chip_smoke.py --phases slam,slam_app,eval
 
 Run from the root of a checkout.  It builds the CUDA kernels of
 ``panst3r_torch/csrc`` with nvcc (into the git-ignored
@@ -51,7 +52,9 @@ Run from the root of a checkout.  It builds the CUDA kernels of
    B=2 x V=5 at 384x512), step and stage times, peak memory, gradients on
    every trainable leaf, frozen parameters unchanged, launch counts, the
    shapes of K4's and K5's launches (K5's held to ``LOFTUP_TRAIN_FULL``),
-   a profile by kernel, and one micro-step's FLOPs and MFU;
+   a profile by kernel, one micro-step's FLOPs and MFU, and the
+   micro-step repeated on the same weights and batch with every gradient
+   bit-equal (``train_repeat``);
 5. ``serve``: the v1 serving wire at full width and depth (V=8 / K=4):
    every ``fusion_res``, cameras, packed YUV420 input, both latency paths
    and ``serve_stream``, held to the checks of tests/test_serve.py, with
@@ -97,7 +100,7 @@ Run from the root of a checkout.  It builds the CUDA kernels of
 13. ``serve_app``: the serving daemon (``apps/serve.py``) in a thread on
    127.0.0.1 with the engine on the card: ``/healthz``, one
    ``/reconstruct?cameras=1`` equal to the unpacked ``serve_device`` wire,
-   ``/slam/start`` refused;
+   a ``/slam/frame`` before ``/slam/start`` refused;
 14. ``text``: the SigLIP text tower at full width over the demo's class
    prompts (K4 f32, 12 launches a call, with a finfo.min key row whose
    pad tiles are dead; the ``kernels`` phase holds K4 at that call,
@@ -107,14 +110,27 @@ Run from the root of a checkout.  It builds the CUDA kernels of
    at full v2 width and depth with configs/train_v2.yaml's recipe (five
    buckets, four spawned loader workers) on a ScanNet++-layout dataset
    the phase writes: two epochs straight, and one epoch plus a resumed
-   run, compared; launches as ``expected_train_launches`` sums over the
+   run, compared (the final weights bit-equal); launches as ``expected_train_launches`` sums over the
    buckets drawn; micro-step seconds per bucket, loader seconds per
    batch, the idle share of one traced epoch; the ``final`` checkpoint
    through ``build_engine`` into one ``run_device`` scene;
+16. ``slam``: ``apps/slam.py::run_slam`` at full v1 width (bf16, chunk 1)
+   on 40 drifting uint8 frames with the pose graph and BA, launches held
+   to ``expected_slam_launches``, frames/s and ms per frame; a 60-frame
+   session with at most 6 keyframes, ``stream`` against ``process``
+   through the evictions; both backends twice, bit for bit; depth 2, f32,
+   card against CPU (the ``kernels`` phase holds K2 at the frontend's
+   memory with an evicted window, ``slam_memory``);
+17. ``slam_app``: the daemon's ``/slam/start``, six ``/slam/frame`` and
+   ``/slam/finish`` over HTTP, the poses against ``run_slam``'s;
+18. ``eval``: ``apps/eval.py::main`` at v1 on a ScanNet++ scene (standard
+   v2 fusion, QUBO) and at v2 on a rendered-test scene (K4 f32), the
+   train app with ``eval_every=1``, depth 2 f32 card against CPU;
 
 then one ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
-{...}}``.  Any failed phase raises, and the script exits non-zero without
-the last line.  Without a CUDA device, or outside a checkout, it exits 2.
+{...}}``.  Any failed phase raises, and the script exits non-zero
+without the last line.  Without a CUDA device, or outside a checkout, it
+exits 2.
 """
 from __future__ import annotations
 
@@ -166,7 +182,8 @@ REPLACES = {
 }
 PHASES = ("kernels", "small", "v1", "v2", "train_v2", "serve", "serve_long",
           "ab_packed", "multibucket", "demo", "serve_many", "refine",
-          "retrieval_head", "serve_app", "text", "train_app")
+          "retrieval_head", "serve_app", "text", "train_app", "slam",
+          "slam_app", "eval")
 # every kernel runs a Hopper engine in both dtypes: bf16 the wgmma engine
 # (K2-int8 its s8 scores); of the f32 paths (entries ``*_f32`` of the
 # kernels line) K2, K2-int8 and K3 run the 3xTF32 engine in the same
@@ -246,9 +263,9 @@ MB_KEYFRAME_GRIDS = (24, 21, 10, 10)
 # The text towers' limit, card against CPU on the pooled output (f32; the
 # tower's GEMMs in f32 with TF32 off, K4 on the card)
 TEXT_TOL = 1e-4
-# The train app's resumed run against its straight run (phase train_app):
-# the card's scatter and sampling backwards may add with atomics, so two
-# runs need not agree bit for bit.  Losses within RESUME_LOSS_RTOL
+# The train app's resumed run against its straight run (phase train_app).
+# The final weights must be bit-equal: the micro-step repeats run to run
+# (train_v2's ``train_repeat``).  Losses within RESUME_LOSS_RTOL
 # (relative); final weights within 2 * lr * updates: an Adam step moves a
 # parameter by at most about lr (|m_hat / sqrt(v_hat)| <= 1 for
 # betas (0.9, 0.95) over the first updates), so two runs part by at most
@@ -488,6 +505,17 @@ def kernel_cases(dtype, dev):
     _k3_case(cases, "mask_transformer_many", 3072, rnd, g, es, dev, B=2)
     # the SigLIP text tower's attention (phase text), drawn last
     cases += _k4_cases(rnd, g, es, dtype, dev, None, text=True)
+    # the SLAM frontend's render (phase slam), drawn last: one frame's 768
+    # queries against a memory sized for 64 keyframes of 768 tokens in
+    # which six windows were filled and the second then evicted (a dead
+    # window inside the live range; windows 7-64 never filled), grid
+    # positions as the frontend banks them
+    valid = torch.zeros(1, 64 * 768, dtype=torch.bool, device=dev)
+    valid[:, :768] = True
+    valid[:, 2 * 768:6 * 768] = True
+    k2("slam_memory", 1, 768, 64 * 768, valid,
+       qpos=_grid_pos(1, 24, 32, dev),
+       kpos=_grid_pos(1, 24, 32, dev).repeat(1, 64, 1))
     return cases
 
 
@@ -1784,6 +1812,60 @@ def phase_small_train(shape=SMALL_TRAIN_SHAPE, depth: int = 2):
     torch.cuda.empty_cache()
 
 
+class _GradProbe:
+    """An optimizer stand-in for ``make_train_step``: it keeps each
+    micro-step's gradients and clears them without an update, so every
+    call starts from the same weights."""
+
+    def __init__(self, params: dict):
+        self.params = params
+        self.grads = None
+
+    def step(self):
+        self.grads = {n: p.grad.detach().clone()
+                      for n, p in self.params.items() if p.grad is not None}
+        for p in self.params.values():
+            p.grad = None
+
+
+def train_repeat(model, mask: dict, tcfg, grid, batch, cls_emb,
+                 reps: int = 3) -> dict:
+    """The micro-step (forward, loss, backward) ``reps`` times on the same
+    weights, batch and draws: every trainable parameter's gradient against
+    the first call's, the losses, and the warm calls' seconds.  As shipped
+    no gradient differs: the mask loss's border pad
+    (``criterion.replicate_pad1``) and LoftUp's 1x1 ``patch_embed``
+    (``loftup.Conv1x1``) add in a fixed order, where ``F.pad(mode=
+    "replicate")``'s backward and cuDNN's filter gradient did not."""
+    import torch
+
+    from panst3r_torch.core import rng as prng
+    from panst3r_torch.engine import train as tr
+
+    probe = _GradProbe({n: p for n, p in model.named_parameters()
+                        if mask[n]})
+    step = tr.make_train_step(model, probe, tcfg.loss, grid)
+    grads, secs, losses = [], [], []
+    for _ in range(reps):
+        gen = prng.generator(tcfg.seed, 0, 0, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = step(batch, cls_emb, gen)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+        grads.append(probe.grads)
+    differ = [n for n in probe.params
+              if any(not torch.equal(g[n], grads[0][n]) for g in grads[1:])]
+    return {"reps": reps, "step_s": secs,
+            "losses_equal": len(set(losses)) == 1,
+            "params_whose_grad_differs": len(differ),
+            "differing": differ[:12],
+            "max_abs_grad_diff": max(
+                (float((g[n] - grads[0][n]).abs().max())
+                 for g in grads[1:] for n in differ), default=0.0)}
+
+
 @contextlib.contextmanager
 def _flash_shapes():
     """[B, H, Nq, Nk, D] of every K4 and K5 kernel launch made inside."""
@@ -1876,6 +1958,8 @@ def phase_train_v2():
     # tools/train_step_bench.py:196-205): forward, criterion and backward
     flops = count_flops(step, batches[0], cls_emb,
                         prng.generator(tcfg.seed, 0, 6, device="cuda"))
+    repeat = train_repeat(model, mask, tcfg, (H // 16, W // 16), batches[0],
+                          cls_emb)
     secs = sorted(s["seconds"] for s in steps[1:])
     median = secs[len(secs) // 2]
     emit({"phase": "train_v2", "batch": B, "views": V, "hw": [H, W],
@@ -1894,7 +1978,7 @@ def phase_train_v2():
           "frozen_bit_identical": frozen_same,
           "launches": counts_all, "expected_launches": want,
           # the kernels phase's loftup_train_full cases take this shape
-          "flash_shapes_step_1": flash_shapes})
+          "flash_shapes_step_1": flash_shapes, "repeat": repeat})
     emit({"phase": "train_v2_profile", **profile})
     if not all(math.isfinite(s["loss"]) for s in steps):
         raise AssertionError(f"train_v2: non-finite loss {steps}")
@@ -1905,6 +1989,9 @@ def phase_train_v2():
             f"unchanged: {frozen_same}")
     if any(c != want for c in counts_all):
         raise AssertionError(f"train_v2: launches {counts_all} != {want}")
+    if repeat["params_whose_grad_differs"] or not repeat["losses_equal"]:
+        raise AssertionError(f"train_v2: the micro-step does not repeat "
+                             f"run to run: {repeat}")
     if any(sh != list(LOFTUP_TRAIN_FULL) for sh in flash_shapes["flash_bwd"]):
         raise AssertionError(f"train_v2: K5 ran at {flash_shapes}, the "
                              f"kernels phase at {LOFTUP_TRAIN_FULL}")
@@ -2768,8 +2855,8 @@ def phase_serve_app():
     in a thread, with the v1 engine on the card (bf16, V = 8, K = 4):
     ``GET /healthz`` answers ok; one ``POST /reconstruct?cameras=1`` of the
     scene equals ``unpack_wire(serve_device(...))`` (pan equal, cameras
-    within 1e-5); ``POST /slam/start`` answers 400.  Returns the launches
-    of the request."""
+    within 1e-5); a ``POST /slam/frame`` before ``/slam/start`` answers
+    400.  Returns the launches of the request."""
     import io
     import threading
     import urllib.error
@@ -2806,9 +2893,12 @@ def phase_serve_app():
                 got = dict(np.load(io.BytesIO(r.read())))
             times.append(time.perf_counter() - t0)
         counts = _read_counts("serve_app")
+        buf = io.BytesIO()
+        np.savez(buf, image=images[0])
         try:
             urllib.request.urlopen(urllib.request.Request(
-                f"{url}/slam/start", data=b"", method="POST"), timeout=60)
+                f"{url}/slam/frame", data=buf.getvalue(), method="POST"),
+                timeout=60)
             slam = None
         except urllib.error.HTTPError as e:
             slam = e.code
@@ -3734,6 +3824,7 @@ def phase_train_app():
             "same_batches": hw["straight"] == hw["first"] + hw["resumed"],
             "losses": loss_rel <= RESUME_LOSS_RTOL,
             "weights": wa.keys() == wb.keys() and w_max <= w_limit,
+            "weights_bit_equal": w_max == 0.0,
             "optimizer_state_in_last": os.path.exists(
                 f"{b}/last/optimizer.pt")
             and not os.path.exists(f"{b}/final/optimizer.pt"),
@@ -3773,6 +3864,520 @@ def phase_train_app():
         if not all(checks.values()):
             raise AssertionError(f"train_app: {checks}")
         del eng, out
+    torch.cuda.empty_cache()
+    return total
+
+
+# ------------------------------------------------------------------ SLAM --
+
+SLAM_HW = (384, 512)
+# the card-against-CPU frontend check: raw pointmaps within small's
+# run_device limit
+SLAM_PM_ATOL = 2e-4
+# stream against process on the card
+SLAM_STREAM_ATOL = 1e-5
+# the eval app's card-against-CPU check: IoU sums per class, and the
+# share of pixels whose fused segment differs
+EVAL_IOU_ATOL = 1e-3
+EVAL_PIXEL_TOL = 1e-3
+
+
+def expected_slam_launches(cfg, n_frames: int, n_keyframes: int):
+    """Launches per kernel of ``apps/slam.py::run_slam`` over ``n_frames``
+    frames of which ``n_keyframes`` became keyframes: the encoder once per
+    frame and once more for frame 0's render at the end; a render per
+    frame after the first and frame 0's; a memory update for the first
+    pair and for every later keyframe.  Each render and update runs the
+    decoder (K1 and K2 per layer); no DINO, no head."""
+    dec = cfg.decoder.depth
+    calls = n_frames + n_keyframes - 1            # renders + updates
+    return {"tower_self": cfg.encoder.depth * (n_frames + 1) + dec * calls,
+            "tower_cross": dec * calls, "tower_cross_int8": 0,
+            "masked_attn": 0, "flash_fwd": 0, "flash_bwd": 0,
+            "packed_flash": 0}
+
+
+def slam_frames(n: int, seed: int = 0) -> np.ndarray:
+    """n uint8 frames of ``SLAM_HW`` of a camera panning over one seeded
+    image: frame i is the image rolled 16·i pixels along its width (the
+    drift of tests/test_slam.py's long sessions)."""
+    base = np.random.default_rng(seed).integers(0, 256, (*SLAM_HW, 3),
+                                                dtype=np.uint8)
+    return np.stack([np.roll(base, 16 * i, axis=1) for i in range(n)])
+
+
+@contextlib.contextmanager
+def _frame_probe(rec: list):
+    """Each ``IncrementalFrontend.process`` call timed, the card
+    synchronized before and after: (seconds, is_keyframe)."""
+    import torch
+
+    from panst3r_torch.engine import slam
+
+    real = slam.IncrementalFrontend.process
+
+    def timed(self, image, frame_id):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(self, image, frame_id)
+        torch.cuda.synchronize()
+        rec.append((time.perf_counter() - t0, out["is_keyframe"]))
+        return out
+    slam.IncrementalFrontend.process = timed
+    try:
+        yield
+    finally:
+        slam.IncrementalFrontend.process = real
+
+
+def _slam_engine(cfg, device="cuda", amp=True, seed=0):
+    from panst3r_torch.core.bucketing import Bucket
+    from panst3r_torch.engine.inference import InferenceEngine
+    from panst3r_torch.models.panst3r import build_model
+
+    return InferenceEngine(build_model(cfg, device=device, seed=seed),
+                           Bucket(*SLAM_HW), chunk=1, amp=amp,
+                           device=device)
+
+
+def phase_slam():
+    """The SLAM app at full v1 width (bf16, 384x512, chunk 1, the app's
+    settings): ``run_slam`` on 40 drifting uint8 frames with the pose
+    graph and BA, launches against ``expected_slam_launches``, frames/s,
+    ms per plain and per keyframe frame, the backends' seconds and costs,
+    the peak memory.  Then a 60-frame session with at most 6 keyframes
+    (interval only): ``stream`` against ``process`` frame by frame, the
+    protected keyframes kept, the slots a permutation, ``valid`` counting
+    the occupied tokens.  Then both backends twice on the same pointmaps:
+    the same bits.  Then depth 2 in f32, card against CPU: 8 always-novel
+    frames, at most 4 keyframes.  Returns the launches of ``run_slam``."""
+    import torch
+
+    from panst3r_torch.apps.slam import run_slam
+    from panst3r_torch.engine import ba as balib
+    from panst3r_torch.engine import slam
+
+    cfg = _config("v1")
+    eng = _slam_engine(cfg)
+    frames = slam_frames(40)
+    run_slam(eng, frames[:3], ba=True)                        # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rec, backend = [], {}
+    real = {"refine_scene_poses": slam.refine_scene_poses,
+            "refine_scene_ba": balib.refine_scene_ba}
+
+    def timer(mod, name):
+        def fn(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real[name](*a, **kw)
+            torch.cuda.synchronize()
+            backend[name] = time.perf_counter() - t0
+            return out
+        setattr(mod, name, fn)
+    timer(slam, "refine_scene_poses")
+    timer(balib, "refine_scene_ba")
+    _reset_counts()
+    try:
+        with _frame_probe(rec):
+            t0 = time.perf_counter()
+            res = run_slam(eng, frames, ba=True)
+            torch.cuda.synchronize()
+            total = time.perf_counter() - t0
+    finally:
+        slam.refine_scene_poses = real["refine_scene_poses"]
+        balib.refine_scene_ba = real["refine_scene_ba"]
+    counts = _read_counts("slam")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    kf = res["keyframes"]
+    want = expected_slam_launches(cfg, len(frames), len(kf))
+    plain = [s for s, k in rec[2:] if not k]
+    key = [s for s, k in rec[2:] if k]
+    frame_s = sum(s for s, _ in rec)
+    finite = all(bool(np.isfinite(v).all())
+                 for v in (*res["pointmaps"].values(), res["poses"]))
+    row = {"phase": "slam", "frames": len(frames), "keyframes": kf,
+           "seconds": total, "frames_per_s": len(frames) / frame_s,
+           "ms_plain_frame": 1e3 * float(np.median(plain)) if plain
+           else None,
+           "ms_keyframe_frame": 1e3 * float(np.median(key)) if key
+           else None,
+           "ms_first_pair": [1e3 * s for s, _ in rec[:2]],
+           "backend_s": backend, "gn_costs": res["gn_costs"],
+           "ba_costs": res["ba_costs"], "peak_gib": peak,
+           "memory_slots": 64 * eng.n_tokens, "finite": finite,
+           "launches": counts, "expected_launches": want}
+    emit(row)
+    if counts != want or not finite or len(kf) < 3:
+        raise AssertionError(f"slam: launches {counts} != {want}, "
+                             f"finite={finite}, keyframes {kf}")
+
+    # eviction: stream against process over 60 frames, 6 keyframes
+    ev = slam_frames(60, seed=1)
+    fronts, outs = {}, {}
+    for mode in ("process", "stream"):
+        fe = fronts[mode] = slam.IncrementalFrontend(
+            eng, sim_threshold=-1.0, max_interval=5, max_keyframes=6)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if mode == "process":
+            outs[mode] = [fe.process(f, i) for i, f in enumerate(ev)]
+        else:
+            outs[mode] = list(fe.stream(ev))
+        torch.cuda.synchronize()
+        outs[mode + "_s"] = time.perf_counter() - t0
+    a, b = outs["process"], outs["stream"]
+    st = fronts["stream"].state
+    pm_err = max(float(np.abs(x["pointmaps_raw"] - y["pointmaps_raw"])
+                       .max()) for x, y in zip(a[1:], b[1:]))
+    checks = {
+        "same_keyframes": [o["is_keyframe"] for o in a]
+        == [o["is_keyframe"] for o in b]
+        and st.keyframe_ids == fronts["process"].state.keyframe_ids,
+        "pointmaps_max_abs_diff": pm_err,
+        "evictions": sum(o["is_keyframe"] for o in a) - 6,
+        "protected_kept": st.keyframe_ids[:2] == [0, 1],
+        "slots_permutation": sorted(st.slots) == list(range(6)),
+        "valid_equals_occupied": int(st.mem.valid.sum())
+        == st.mem.count == 6 * eng.n_tokens,
+    }
+    checks["ok"] = (checks["same_keyframes"] and pm_err <= SLAM_STREAM_ATOL
+                    and checks["evictions"] > 0 and checks["protected_kept"]
+                    and checks["slots_permutation"]
+                    and checks["valid_equals_occupied"])
+    emit({"phase": "slam", "run": "eviction", "frames": len(ev),
+          "keyframe_ids": st.keyframe_ids, "slots": st.slots,
+          "process_s": outs["process_s"], "stream_s": outs["stream_s"],
+          "checks": checks})
+    if not checks["ok"]:
+        raise AssertionError(f"slam eviction: {checks}")
+    del fronts, outs
+
+    # the backends repeat bit for bit on the card
+    pm = res["pointmaps"]
+    g1, g2 = (slam.refine_scene_poses(pm, device="cuda") for _ in range(2))
+    b1, b2 = (balib.refine_scene_ba(pm, res["poses_init"], device="cuda")
+              for _ in range(2))
+    rep = {"pose_graph_equal": all(torch.equal(x, y)
+                                   for x, y in zip(g1, g2)),
+           "ba_equal": all(np.array_equal(x, y) for x, y in zip(b1, b2)),
+           # run_slam's call on the same pointmaps
+           "init_equal_run": bool(np.array_equal(g1[1].cpu().numpy(),
+                                                 res["poses_init"]))}
+    emit({"phase": "slam", "run": "backends_twice", **rep})
+    if not all(rep.values()):
+        raise AssertionError(f"slam backends differ run to run: {rep}")
+    del eng
+    torch.cuda.empty_cache()
+
+    # depth 2, f32: card against CPU
+    small = _config("v1", depth=2)
+    engs = {d: _slam_engine(small, d, amp=False, seed=0)
+            for d in ("cpu", "cuda")}
+    engs["cuda"].model.load_state_dict(engs["cpu"].model.state_dict())
+    few = slam_frames(8, seed=2)
+    got = {}
+    for d, e in engs.items():
+        fe = slam.IncrementalFrontend(e, sim_threshold=1.1, max_interval=2,
+                                      max_keyframes=4)
+        got[d] = ([fe.process(f, i) for i, f in enumerate(few)],
+                  list(fe.state.keyframe_ids), list(fe.state.slots))
+    err = max(float(np.abs(x["pointmaps_raw"] - y["pointmaps_raw"]).max())
+              for x, y in zip(got["cuda"][0][1:], got["cpu"][0][1:]))
+    row = {"phase": "slam", "compare": "cuda_vs_cpu", "depth": 2,
+           "frames": len(few), "keyframe_ids": got["cuda"][1],
+           "slots": got["cuda"][2], "pointmaps_max_abs_err": err,
+           "atol": SLAM_PM_ATOL}
+    row["ok"] = (got["cuda"][1:] == got["cpu"][1:] and err <= SLAM_PM_ATOL)
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError(f"slam card vs CPU: {row}")
+    del engs
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_slam_app():
+    """The daemon's SLAM session over HTTP on 127.0.0.1 at full v1 width
+    (bf16): ``/slam/start``, six ``/slam/frame`` and ``/slam/finish``; the
+    finish's poses for all six frames against ``run_slam`` on the same
+    frames without BA (the app's thresholds); seconds per request;
+    launches against ``expected_slam_launches``.  Returns the launches of
+    the session."""
+    import io
+    import threading
+    import urllib.request
+
+    import torch
+
+    from panst3r_torch.apps.serve import SceneServer, make_server
+    from panst3r_torch.apps.slam import run_slam
+
+    cfg = _config("v1")
+    eng = _slam_engine(cfg)
+    frames = slam_frames(6, seed=3)
+    want = run_slam(eng, frames)                        # also the warm-up
+    srv = make_server(SceneServer(eng, np.zeros((4, 768), np.float32)),
+                      "127.0.0.1", 0)
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+
+    def post(path, body=b""):
+        t0 = time.perf_counter()
+        req = urllib.request.Request(url + path, data=body, method="POST")
+        with urllib.request.urlopen(req, timeout=300) as r:
+            out = r.read()
+        times.setdefault(path, []).append(time.perf_counter() - t0)
+        return np.load(io.BytesIO(out)) if out[:2] == b"PK" else out
+
+    times = {}
+    try:
+        _reset_counts()
+        started = post("/slam/start")
+        kf = []
+        for i, f in enumerate(frames):
+            buf = io.BytesIO()
+            np.savez(buf, image=f)
+            if bool(post("/slam/frame", buf.getvalue())["is_keyframe"]):
+                kf.append(i)
+        fin = dict(post("/slam/finish"))
+        counts = _read_counts("slam_app")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        th.join(timeout=60)
+    expected = expected_slam_launches(cfg, len(frames), len(kf))
+    checks = {"started": started == b"ok",
+              "frame_ids": fin["frame_ids"].tolist() == list(range(6)),
+              "keyframes": fin["keyframe_ids"].tolist() == kf
+              == want["keyframes"],
+              "poses_max_abs_diff": float(np.abs(fin["poses"]
+                                                 - want["poses"]).max())}
+    checks["ok"] = (checks["started"] and checks["frame_ids"]
+                    and checks["keyframes"] and fin["poses"].shape
+                    == (6, 4, 4) and checks["poses_max_abs_diff"] <= 1e-5)
+    emit({"phase": "slam_app", "frames": len(frames), "request_s": times,
+          "launches": counts, "expected_launches": expected,
+          "checks": checks})
+    if not checks["ok"] or counts != expected:
+        raise AssertionError(f"slam_app: {checks}, launches {counts}")
+    del eng
+    torch.cuda.empty_cache()
+    return counts
+
+
+def write_benchmark_scene(root: str, classes, n_views: int = 4,
+                          hw=TRAIN_APP_HW, seed: int = 0) -> None:
+    """One scene in the rendered-test layout ``data/benchmarks.py`` reads:
+    ``categories.json``, ``scene00/color/*.jpg`` and combined
+    ``scene00/panoptic/*.png`` maps (id2rgb of instance·256 + class): 12
+    rectangles over a background segment of class 1, no void pixel (so
+    that every predicted segment is scored)."""
+    import os
+
+    import cv2
+
+    from panst3r_torch.data.utils import id2rgb
+
+    H, W = hw
+    rng = np.random.default_rng(seed)
+    for sub in ("color", "panoptic"):
+        os.makedirs(f"{root}/scene00/{sub}", exist_ok=True)
+    inst_cls = rng.integers(1, len(classes), 13)
+    yy, xx = np.mgrid[0:H, 0:W]
+    for v in range(n_views):
+        base = np.stack([(xx * (v + 2) // 5) % 256, (yy * 2) % 256,
+                         ((xx + 2 * yy) // 3 + 30 * v) % 256], -1)
+        img = np.clip(base + rng.integers(-20, 21, (H, W, 3)), 0, 255)
+        cv2.imwrite(f"{root}/scene00/color/{v:04d}.jpg",
+                    img.astype(np.uint8))
+        pan = np.full((H, W), 13 * 256 + 1, np.int64)
+        for i in range(1, 13):
+            h, w = rng.integers(H // 8, H // 2), rng.integers(W // 8, W // 2)
+            y, x = rng.integers(0, H - h), rng.integers(0, W - w)
+            pan[y:y + h, x:x + w] = i * 256 + inst_cls[i]
+        cv2.imwrite(f"{root}/scene00/panoptic/{v:04d}.png",
+                    cv2.cvtColor(id2rgb(pan), cv2.COLOR_RGB2BGR))
+    with open(f"{root}/categories.json", "w") as f:
+        json.dump([{"id": i, "name": c} for i, c in enumerate(classes)], f)
+
+
+def eval_agreement(engs: dict, views, classes, emb, evaluate_scene,
+                   hw=(384, 512)) -> dict:
+    """The eval path on the engines ``engs["cuda"]`` and ``engs["cpu"]``
+    (the same weights) over one scene: the fused segments (ids and
+    classes) equal and at most ``EVAL_PIXEL_TOL`` of the fused maps'
+    pixels differing; scored against the CPU's fused output taken as
+    ground truth, every CPU segment a TP and the card's TP / FP / FN per
+    class equal to the CPU's, IoU sums within ``EVAL_IOU_ATOL``; and
+    ``evaluate_scene`` against the scene's written ground truth equal the
+    same way."""
+    import dataclasses as dc
+    from collections import defaultdict
+
+    from panst3r_torch.data.loader import canonicalize_views
+    from panst3r_torch.engine.eval import PQStat, scene_pq
+
+    def differing(a, b):
+        return {c: (dc.astuple(a[c]), dc.astuple(b[c]))
+                for c in sorted(set(a) | set(b))
+                if dc.astuple(a[c])[1:] != dc.astuple(b[c])[1:]
+                or abs(a[c].iou_sum - b[c].iou_sum) > EVAL_IOU_ATOL}
+
+    written = {d: evaluate_scene(e, views, classes, emb)
+               for d, e in engs.items()}
+    canon = canonicalize_views(views)
+    fused = {d: e.fuse(e.run_device(canon["images"].astype(np.float32),
+                                     canon["portrait"], emb), hw)[0]
+             for d, e in engs.items()}
+    segs = {d: [(s["id"], s["category_id"]) for s in f["segments_info"]]
+            for d, f in fused.items()}
+    pans = {d: np.asarray(f["pan"], np.int64) for d, f in fused.items()}
+    gt = [{"id": i, "category_id": c, "iscrowd": 0} for i, c in segs["cpu"]]
+    vs_cpu = {}
+    for d in fused:
+        vs_cpu[d] = defaultdict(PQStat)
+        scene_pq(pans[d], fused[d]["segments_info"], pans["cpu"], gt,
+                 vs_cpu[d])
+    a, b = vs_cpu["cuda"], vs_cpu["cpu"]
+    row = {"segments_cpu": segs["cpu"],
+           "segments_equal": segs["cuda"] == segs["cpu"],
+           "pan_pixels_differing": float((pans["cuda"] != pans["cpu"])
+                                         .mean()),
+           "pan_pixel_limit": EVAL_PIXEL_TOL,
+           "vs_cpu_fused": {c: dc.astuple(a[c]) for c in sorted(a)},
+           "tp_cpu": sum(st.tp for st in b.values()),
+           "differing_vs_cpu_fused": differing(a, b),
+           "cpu_vs_written": {c: dc.astuple(st) for c, st in
+                              sorted(written["cpu"].items())},
+           "differing_vs_written": differing(written["cuda"],
+                                             written["cpu"]),
+           "atol": EVAL_IOU_ATOL}
+    row["ok"] = bool(row["segments_equal"] and row["tp_cpu"]
+                     and row["tp_cpu"] == len(segs["cpu"])
+                     and not row["differing_vs_cpu_fused"]
+                     and not row["differing_vs_written"]
+                     and row["pan_pixels_differing"] <= EVAL_PIXEL_TOL)
+    return row
+
+
+def phase_eval():
+    """The PQ evaluation: ``apps/eval.py::main`` at full v1 width on a
+    ScanNet++-layout scene (``write_scannetpp``, 4 views a sample, K = 4)
+    with standard v2 fusion and with QUBO, then at full v2 width on a
+    rendered-test-layout scene (``--benchmark scannet``, LoftUp's f32 K4);
+    the PQ dict, seconds per scene and launches (``expected_launches``) of
+    each.  Then the train app with ``eval_every=1``: one epoch of two v2
+    micro-steps with the train_v2 recipe, the PQ of two samples in its
+    stats (the engine in f32).  Then at depth 2 in f32, card against CPU
+    on the benchmark scene, class embeddings under which four queries
+    pass fusion's threshold (``segment_classes``), held by
+    ``eval_agreement``.  Returns the launches of the three ``main`` runs."""
+    import tempfile
+
+    import torch
+
+    from panst3r_torch.apps import eval as eval_app
+    from panst3r_torch.apps import train as tapp
+    from panst3r_torch.apps.demo import SCANNET_CLASSES
+    from panst3r_torch.core.bucketing import Bucket
+    from panst3r_torch.data.benchmarks import BenchmarkScenes
+    from panst3r_torch.data.loader import canonicalize_views
+    from panst3r_torch.engine.inference import InferenceEngine
+    from panst3r_torch.models.panst3r import build_model
+
+    real = eval_app.evaluate_scene
+    scene_s = []
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(*a, **kw)
+        torch.cuda.synchronize()
+        scene_s.append(time.perf_counter() - t0)
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        spp, bench = f"{tmp}/scannetpp", f"{tmp}/bench"
+        write_scannetpp(spp, SCANNET_CLASSES, n_views=5)
+        write_benchmark_scene(bench, ["void"] + SCANNET_CLASSES)
+        eval_app.evaluate_scene = timed
+        _reset_counts()
+        try:
+            for preset, root, bm, fusion in (
+                    ("v1", spp, "scannetpp", "standard_v2"),
+                    ("v1", spp, "scannetpp", "qubo"),
+                    ("v2", bench, "scannet", "standard_v2")):
+                scene_s.clear()
+                before = _read_counts()
+                t0 = time.perf_counter()
+                res = eval_app.main([
+                    "--data-root", root, "--preset", preset,
+                    "--benchmark", bm, "--fusion", fusion,
+                    "--num-scenes", "1", "--num-views", "4",
+                    "--num-keyframes", "4", "--resolution", "512", "384"])
+                seconds = time.perf_counter() - t0
+                counts = _delta(before)
+                want = expected_launches(_config(preset), 4, 4, 4)
+                emit({"phase": "eval", "preset": preset, "benchmark": bm,
+                      "fusion": fusion, "pq": res, "main_s": seconds,
+                      "scene_s": list(scene_s), "launches": counts,
+                      "expected_launches": want})
+                if counts != want or not np.isfinite(res["PQ"]):
+                    raise AssertionError(f"eval {preset} {fusion}: launches"
+                                         f" {counts} != {want}, {res}")
+        finally:
+            eval_app.evaluate_scene = real
+        total = _read_counts("eval")
+
+        # the train app with the evaluation every epoch
+        exp = tapp.ExperimentConfig(
+            model_preset="v2", data_root=spp,
+            resolution=TRAIN_V2_RESOLUTIONS, num_views=5, aug_crop=16,
+            transform="ColorJitter", min_memory_num_views=2,
+            max_memory_num_views=5, train=train_config(epochs=1),
+            keep_freq=0, print_freq=1, logger="jsonl", loader_workers=4,
+            loader_workers_mode="process", loader_prefetch=2,
+            text_encoder="random", eval_every=1, eval_scenes=2,
+            eval_keyframes=4, output_dir=f"{tmp}/train")
+        before = _read_counts()
+        t0 = time.perf_counter()
+        out = tapp.train(exp)
+        seconds = time.perf_counter() - t0
+        counts = _delta(before)
+        stats = out["stats"]
+        row = {"phase": "eval", "run": "train_app_eval_every_1",
+               "seconds": seconds, "stats": stats, "launches": counts}
+        emit(row)
+        if "eval_PQ" not in stats or not np.isfinite(stats["eval_PQ"]) \
+                or not counts["flash_fwd"]:
+            raise AssertionError(f"eval in the train app: {row}")
+        torch.cuda.empty_cache()
+
+        # depth 2, f32: card against CPU on the benchmark scene
+        cfg = _config("v1", depth=2)
+        ds = BenchmarkScenes(bench, "scannet", resolution=(512, 384),
+                             num_views=4)
+        classes = ds.classes
+        views = ds[0]
+        canon = canonicalize_views(views)
+        cpu_model = build_model(cfg, device="cpu", seed=0)
+        gpu_model = build_model(cfg, device="cuda", seed=1)
+        gpu_model.load_state_dict(cpu_model.state_dict())
+        engs = {d: InferenceEngine(m, Bucket(384, 512), num_keyframes=4,
+                                   chunk=4, amp=False, device=d)
+                for d, m in (("cuda", gpu_model), ("cpu", cpu_model))}
+        emb = segment_classes(engs["cpu"], canon["images"],
+                              canon["portrait"], ncls=len(classes))
+
+        row = {"phase": "eval", "compare": "cuda_vs_cpu", "depth": 2,
+               **eval_agreement(engs, views, classes, emb, real)}
+        emit(row)
+        if not row["ok"]:
+            raise AssertionError(f"eval card vs CPU: {row}")
+    del engs, cpu_model, gpu_model
     torch.cuda.empty_cache()
     return total
 
@@ -3847,7 +4452,9 @@ def main(argv=None) -> int:
                         ("retrieval_head", phase_retrieval_head),
                         ("serve_app", phase_serve_app),
                         ("text", phase_text),
-                        ("train_app", phase_train_app)):
+                        ("train_app", phase_train_app),
+                        ("slam", phase_slam), ("slam_app", phase_slam_app),
+                        ("eval", phase_eval)):
         if name in phases:
             launches[name] = phase()
 

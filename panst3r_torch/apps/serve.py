@@ -14,10 +14,21 @@ Protocol (binary npz both ways):
 
   GET /healthz        → 200 "ok".
 
-A malformed request gets 400 with the reason, and the server stays up.
-The streaming SLAM session (``/slam/start``, ``/slam/frame``,
-``/slam/finish``) needs ``engine/slam.py``, which panst3r_torch does not
-have yet: those paths answer 400 and serve nothing.
+A streaming SLAM session (``engine/slam.py::IncrementalFrontend`` over
+HTTP: one encoder pass and one render per frame against the growing
+keyframe memory):
+
+  POST /slam/start    query: ?sim_threshold=0.9&max_interval=5
+  POST /slam/frame    body: npz{image (H,W,3) uint8}
+                      → npz{is_keyframe [, pts3d, pts3d_local, conf] f16}
+  POST /slam/finish   → npz{poses (N,4,4), poses_init, frame_ids,
+                        keyframe_ids} (the pose-graph refinement; frame 0
+                        is rendered against the final memory, as
+                        ``apps/slam.py::run_slam`` does) and ends the
+                        session.
+
+A malformed request, a frame before ``/slam/start`` and a finish with
+fewer than two frames get 400 with the reason, and the server stays up.
 
 Requests are served on threads; only ``SceneServer`` touches the card, and
 only under its lock.
@@ -35,8 +46,6 @@ import threading
 from urllib.parse import parse_qs, urlparse
 
 import numpy as np
-
-SLAM_PATHS = ("/slam/start", "/slam/frame", "/slam/finish")
 
 
 class SceneServer:
@@ -63,6 +72,81 @@ class SceneServer:
         return self.engine.unpack_wire(
             wire, V, with_cameras=with_cameras,
             with_keyframes=K if keyframe_mode == "retrieval" else 0)
+
+    # ------------------------------------------------- streaming SLAM ----
+
+    def slam_start(self, sim_threshold: float = 0.9, max_interval: int = 5):
+        from panst3r_torch.engine.slam import IncrementalFrontend
+
+        with self.lock:
+            self._slam = IncrementalFrontend(
+                self.engine, sim_threshold=sim_threshold,
+                max_interval=max_interval)
+            self._slam_maps = {}                  # frame id -> pointmaps
+            self._slam_kf = []
+            self._slam_n = 0
+            self._slam_frame0 = None
+
+    def slam_frame(self, image: np.ndarray) -> dict:
+        with self.lock:
+            if getattr(self, "_slam", None) is None:
+                raise ValueError("no SLAM session (POST /slam/start first)")
+            fid = self._slam_n
+            self._slam_n += 1
+            out = self._slam.process(image, fid)
+            res = {"is_keyframe": np.asarray(out["is_keyframe"])}
+            if out["is_keyframe"]:
+                self._slam_kf.append(fid)
+            if out["pointmaps_raw"] is not None:
+                post = _postprocess(out["pointmaps_raw"])
+                self._slam_maps[fid] = post
+                for k, v in post.items():
+                    res[k] = v.astype(np.float16)
+            else:
+                # the first frame: rendered at /slam/finish against the
+                # final memory
+                self._slam_frame0 = np.asarray(image)
+            return res
+
+    def slam_finish(self) -> dict:
+        from panst3r_torch.engine.slam import refine_scene_poses
+
+        with self.lock:
+            if getattr(self, "_slam", None) is None:
+                raise ValueError("no SLAM session")
+            try:
+                st = self._slam.state
+                if self._slam_frame0 is not None and st is not None \
+                        and st.mem is not None:
+                    self._slam_maps[0] = _postprocess(
+                        self._slam.render(self._slam_frame0))
+                if not self._slam_maps:
+                    raise ValueError(
+                        "SLAM session has no decodable frames yet "
+                        "(need >= 2 frames)")
+                order = sorted(self._slam_maps)
+                maps = {k: np.stack([self._slam_maps[i][k] for i in order])
+                        for k in self._slam_maps[order[0]]}
+                refined, init, _ = refine_scene_poses(
+                    maps, device=self.engine.device)
+                return {"poses": refined.cpu().numpy(),
+                        "poses_init": init.cpu().numpy(),
+                        "frame_ids": np.asarray(order, np.int32),
+                        "keyframe_ids": np.asarray(self._slam_kf,
+                                                   np.int32)}
+            finally:
+                self._slam = None
+
+
+def _postprocess(raw: np.ndarray) -> dict:
+    """Raw (H, W, 7) pointmaps → {pts3d, pts3d_local, conf} as f32
+    numpy."""
+    import torch
+
+    from panst3r_torch.models.decoder import postprocess
+
+    post = postprocess(torch.as_tensor(raw, dtype=torch.float32))
+    return {k: v.numpy() for k, v in post.items()}
 
 
 class _Handler(http.server.BaseHTTPRequestHandler):
@@ -94,22 +178,30 @@ class _Handler(http.server.BaseHTTPRequestHandler):
             url = urlparse(self.path)
             q = parse_qs(url.query)
             body = self.rfile.read(int(self.headers.get("Content-Length", 0)))
-            if url.path in SLAM_PATHS:
-                raise ValueError(
-                    f"{url.path}: the SLAM session needs engine/slam.py, "
-                    f"which panst3r_torch does not have yet")
-            if url.path != "/reconstruct":
+            srv = self.scene_server
+            if url.path == "/reconstruct":
+                data = np.load(io.BytesIO(body))
+                images = data["images"]
+                portrait = (data["portrait"] if "portrait" in data
+                            else np.zeros(images.shape[0], bool))
+                out = srv.reconstruct(
+                    images, portrait,
+                    with_cameras=q.get("cameras", ["0"])[0] == "1",
+                    keyframe_mode=q.get("keyframes", ["linspace"])[0],
+                    fusion_res=q.get("fusion", ["full"])[0])
+            elif url.path == "/slam/start":
+                srv.slam_start(
+                    sim_threshold=float(q.get("sim_threshold", ["0.9"])[0]),
+                    max_interval=int(q.get("max_interval", ["5"])[0]))
+                self._send(200, b"ok", "text/plain")
+                return
+            elif url.path == "/slam/frame":
+                out = srv.slam_frame(np.load(io.BytesIO(body))["image"])
+            elif url.path == "/slam/finish":
+                out = srv.slam_finish()
+            else:
                 self._send(404, b"not found", "text/plain")
                 return
-            data = np.load(io.BytesIO(body))
-            images = data["images"]
-            portrait = (data["portrait"] if "portrait" in data
-                        else np.zeros(images.shape[0], bool))
-            out = self.scene_server.reconstruct(
-                images, portrait,
-                with_cameras=q.get("cameras", ["0"])[0] == "1",
-                keyframe_mode=q.get("keyframes", ["linspace"])[0],
-                fusion_res=q.get("fusion", ["full"])[0])
             buf = io.BytesIO()
             np.savez_compressed(buf, **out)
             self._send(200, buf.getvalue())

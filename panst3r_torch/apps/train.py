@@ -12,8 +12,15 @@ the class vocabulary, the freeze policy, the optimizer, auto-resume from
 rest, on the card unless ``device="cpu"``.  The experiment files of the
 JAX package load unchanged: the XLA-only fields (``precompile``,
 ``compilation_cache``) are kept and not read.  The port trains on one
-card: a mesh over more than one device (``mesh_*``) and the in-training
-evaluation (``eval_every``) raise ``NotImplementedError``.
+card: a mesh over more than one device (``mesh_*``) raises
+``NotImplementedError``.
+
+With ``eval_every`` > 0, every ``eval_every``-th epoch ends with the PQ
+evaluation (``apps/eval.py::evaluate_scene``, standard v2 fusion) of the
+last ``eval_scenes`` samples at the first bucket, on an f32 copy of the
+weights (``amp=False``, as the JAX package evaluates): the model being
+trained, its optimizer and the loader's draws are left as they were.  The
+stats gain ``eval_*`` entries and the logger ``eval/*``.
 """
 from __future__ import annotations
 
@@ -92,7 +99,7 @@ class ExperimentConfig:
     loader_workers_mode: str = "process"
     loader_prefetch: int = 2
     text_encoder: str = "siglip"           # siglip | siglip2 | clip | random
-    # PQ evaluation during training (waits for the eval slice)
+    # PQ evaluation every N epochs (0: none)
     eval_every: int = 0
     eval_scenes: int = 8
     eval_keyframes: int = 4
@@ -169,11 +176,35 @@ def _check_supported(exp: ExperimentConfig) -> None:
             "the port trains on one card: a mesh over more devices "
             f"(mesh_data={exp.mesh_data}, mesh_mem={exp.mesh_mem}, "
             f"mesh_model={exp.mesh_model}) waits for the multi-GPU port "
-            "(ROADMAP queue 1 item 10)")
-    if exp.eval_every > 0:
-        raise NotImplementedError(
-            "eval_every > 0: the PQ evaluation waits for the eval port "
-            "(ROADMAP queue 1 item 9)")
+            "(ROADMAP queue 1 item 3)")
+
+
+def evaluate(model, dataset, classes: list[str], cls_emb: np.ndarray,
+             hw: tuple[int, int], n_scenes: int, keyframes: int) -> dict:
+    """PQ of the last ``n_scenes`` samples of ``dataset`` (at its first
+    bucket) with the weights of ``model``, through an engine over an f32
+    copy of them (frozen towers stored in bf16 compute in f32, the JAX
+    package's promotion), so that ``model`` itself is not touched."""
+    from collections import defaultdict
+
+    from panst3r_torch.apps.eval import evaluate_scene
+    from panst3r_torch.core.bucketing import Bucket
+    from panst3r_torch.engine.eval import PQStat, summarize
+    from panst3r_torch.engine.inference import InferenceEngine
+
+    dev = next(model.parameters()).device
+    with torch.device("meta"):
+        f32 = panst3r_model.PanSt3R(model.config)
+    f32 = f32.to_empty(device=dev)
+    f32.load_state_dict(model.state_dict())
+    engine = InferenceEngine(f32.eval(), Bucket(*hw),
+                             num_keyframes=keyframes, amp=False, device=dev)
+    per_class = defaultdict(PQStat)
+    for i in range(len(dataset) - min(n_scenes, len(dataset)),
+                   len(dataset)):
+        evaluate_scene(engine, dataset[i], classes, cls_emb,
+                       per_class=per_class)
+    return summarize(per_class)
 
 
 def train(exp: ExperimentConfig, device=None) -> dict:
@@ -247,6 +278,14 @@ def train(exp: ExperimentConfig, device=None) -> dict:
             opt, step_fns, batches, cls_t, epoch, exp.train.seed, dev,
             log_writer, exp.print_freq, steps_per_epoch,
             sync_every=exp.sync_every)
+        if exp.eval_every and epoch % exp.eval_every == 0:
+            (w, h) = exp.resolution[0]
+            pq = evaluate(model, dataset, classes, cls_emb, (h, w),
+                          exp.eval_scenes, exp.eval_keyframes)
+            print(f"[eval epoch {epoch}] {pq}")
+            log_writer.log({f"eval/{k}": v for k, v in pq.items()
+                            if isinstance(v, (int, float))}, epoch)
+            stats = {**stats, **{f"eval_{k}": v for k, v in pq.items()}}
 
         meta = {"epoch": epoch, "stats": stats, "classes": classes,
                 # serving pairs the trained weights with THIS table

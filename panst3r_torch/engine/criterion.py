@@ -195,6 +195,16 @@ def _loss_labels_softmax(pred_logits, targets: Targets, assign, num_masks,
     return (nll * w).sum() / w.sum()
 
 
+def replicate_pad1(m: torch.Tensor) -> torch.Tensor:
+    """(N, h, w) → (N, h + 2, w + 2), the edge rows and columns repeated
+    (``F.pad(mode="replicate")``'s values).  Built by concatenation, so
+    that its backward adds each border pixel's copies in autograd's fixed
+    order: on the card ``F.pad``'s replicate backward adds them with
+    atomics, which made the train step's gradients differ run to run."""
+    m = torch.cat([m[:, :1], m, m[:, -1:]], 1)
+    return torch.cat([m[:, :, :1], m, m[:, :, -1:]], 2)
+
+
 def _loss_masks(pred_masks, targets: Targets, assign, num_masks,
                 c: PanopticLossConfig, draw=None, generator=None):
     """Mask CE + dice per (target, view) row.  ``draw``: the grid jitter
@@ -220,7 +230,7 @@ def _loss_masks(pred_masks, targets: Targets, assign, num_masks,
             h, w = m.shape[-2:]
             scale = torch.tensor([gh / h, gw / w], dtype=torch.float32,
                                  device=dev)
-            m = F.pad(m[:, None], (1, 1, 1, 1), mode="replicate")[:, 0]
+            m = replicate_pad1(m)
             return scale_and_translate_linear(
                 m, (m.shape[0], gh, gw), (1, 2), scale, jit - scale) \
                 .reshape(-1, gh * gw)

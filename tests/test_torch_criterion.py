@@ -368,3 +368,21 @@ def test_small_train_check_pins_one_assignment():
     assert torch.equal(got, pin) and torch.equal(pinned[0]["assign"], own)
     far = dict(calls[0], assign=pin)
     assert not chip_smoke.eps_optimal(far)["ok"]
+
+
+def test_replicate_pad1_matches_jnp_edge_pad():
+    """The mask loss's border pad (built by concatenation so that its
+    backward has no atomics on the card) gives ``jnp.pad(mode="edge")``'s
+    values, and its gradient sums each border pixel's copies as JAX's
+    does."""
+    rng = np.random.default_rng(0)
+    m = rng.standard_normal((3, 5, 7)).astype(np.float32)
+    g = rng.standard_normal((3, 7, 9)).astype(np.float32)
+    want, vjp = jax.vjp(lambda x: jnp.pad(x, ((0, 0), (1, 1), (1, 1)),
+                                          mode="edge"), jnp.asarray(m))
+    t = torch.tensor(m, requires_grad=True)
+    got = t_crit.replicate_pad1(t)
+    np.testing.assert_array_equal(got.detach().numpy(), np.asarray(want))
+    got.backward(torch.tensor(g))
+    np.testing.assert_allclose(t.grad.numpy(), np.asarray(vjp(g)[0]),
+                               rtol=1e-6, atol=1e-6)

@@ -64,6 +64,20 @@ assert len(set(out["keyframes"])) == 2
 mem = eng.build_memory(*eng.encode_batch(torch.as_tensor(images[:2])),
                        refine_iterations=1)
 assert mem.count == 2 * eng.n_tokens
+from panst3r_torch.apps.slam import run_slam
+frames = rng.integers(0, 256, (4, 32, 48, 3), dtype=np.uint8)
+slam = run_slam(eng, frames, sim_threshold=1.1, max_interval=2, ba=True,
+                ba_stride=2)
+assert slam["poses"].shape == (4, 4, 4) and len(slam["ba_costs"]) == 8
+from panst3r_torch.apps.eval import evaluate_scene
+inst = np.zeros((32, 48), np.int64)
+inst[4:20, 8:30] = 1
+views = [{"img": rng.random((32, 48, 3)).astype(np.float32) * 2 - 1,
+          "pan_inst_id": inst, "pan_cls_id": inst,
+          "class_set": "wall;chair"} for _ in range(2)]
+per_class = evaluate_scene(eng, views, ["chair", "wall"],
+                           rng.standard_normal((2, 24)).astype(np.float32))
+assert sum(s.tp + s.fn for s in per_class.values()) >= 1
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in FORBIDDEN)
 assert not loaded, loaded
 print("modules", len(names))

@@ -374,9 +374,9 @@ def test_retrieval_wire_matches_staged_retrieval(engines):
 
 
 def test_later_slices_raise(engines):
-    """An unknown ``fusion_res`` raises; the daemon's ``/slam/*`` paths,
-    which wait for the SLAM port, answer 400 and name what they wait
-    for."""
+    """An unknown ``fusion_res`` raises; the daemon's ``/slam/*`` paths
+    (engine/slam.py) serve: ``/slam/start`` answers ok, and a
+    ``/slam/finish`` before two frames answers 400 with the reason."""
     import threading
     import urllib.error
     import urllib.request
@@ -389,14 +389,17 @@ def test_later_slices_raise(engines):
         teng.serve_device(images, portrait, cls_emb, fusion_res="half")
     srv = make_server(SceneServer(teng, cls_emb), "127.0.0.1", 0)
     threading.Thread(target=srv.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
     try:
-        req = urllib.request.Request(
-            f"http://127.0.0.1:{srv.server_address[1]}/slam/start",
-            data=b"", method="POST")
+        with urllib.request.urlopen(urllib.request.Request(
+                f"{url}/slam/start", data=b"", method="POST")) as r:
+            assert r.read() == b"ok"
+        req = urllib.request.Request(f"{url}/slam/finish", data=b"",
+                                     method="POST")
         with pytest.raises(urllib.error.HTTPError) as e:
             urllib.request.urlopen(req)
         assert e.value.code == 400
-        assert b"engine/slam.py" in e.value.read()
+        assert b">= 2 frames" in e.value.read()
     finally:
         srv.shutdown()
         srv.server_close()

@@ -17,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from panst3r_torch.apps.serve import SLAM_PATHS, SceneServer, make_server
+from panst3r_torch.apps.serve import SceneServer, make_server
 from panst3r_torch.core.bucketing import Bucket as TBucket
 from panst3r_torch.engine.inference import InferenceEngine as TEngine
 from panst3r_torch.engine.inference import fetch_wire
@@ -148,9 +148,10 @@ def _post(port, path, body=b""):
 
 def test_serving_daemon_end_to_end(engines):
     """POST a scene to the daemon on the CPU engine: the answer equals
-    ``unpack_wire(serve_device(...))``; a malformed body and each
-    ``/slam/*`` path get a 400 that names the reason, and the server stays
-    up."""
+    ``unpack_wire(serve_device(...))``; a malformed body, a ``/slam/frame``
+    before ``/slam/start``, a ``/slam/finish`` after one frame and one
+    without a session get a 400 that names the reason; ``/slam/start``
+    and a ``/slam/frame`` answer; the server stays up."""
     teng = engines[1]
     scenes, portrait, cls_emb = _scenes(2)
     images = scenes[0]
@@ -182,13 +183,23 @@ def test_serving_daemon_end_to_end(engines):
         np.testing.assert_array_equal(out["keyframes"], ref["keyframes"])
         np.testing.assert_array_equal(out["pan"], ref["pan"])
 
-        for path, body in [("/reconstruct", b"junk")] + \
-                [(p, b"") for p in SLAM_PATHS]:
+        buf = io.BytesIO()
+        np.savez(buf, image=images[0])
+        frame = buf.getvalue()
+        for path, body, reason in (
+                ("/reconstruct", b"junk", b"error"),
+                ("/slam/frame", frame, b"POST /slam/start first"),
+                ("/slam/finish", b"", b"no SLAM session")):
             with pytest.raises(urllib.error.HTTPError) as e:
                 _post(port, path, body)
             assert e.value.code == 400
-            if path.startswith("/slam"):
-                assert b"engine/slam.py" in e.value.read()
+            assert reason in e.value.read()
+        assert _post(port, "/slam/start") == b"ok"
+        out = np.load(io.BytesIO(_post(port, "/slam/frame", frame)))
+        assert bool(out["is_keyframe"]) and "pts3d" not in out
+        with pytest.raises(urllib.error.HTTPError) as e:
+            _post(port, "/slam/finish")
+        assert e.value.code == 400 and b">= 2 frames" in e.value.read()
         with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz") as r:
             assert r.read() == b"ok"
     finally:

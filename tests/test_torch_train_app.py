@@ -215,7 +215,7 @@ def test_train_resumes_bit_equal(tmp_path):
 
 def test_unsupported_options_raise(tmp_path):
     exp = _experiment(tmp_path, tmp_path / "o", 1)
-    for change in (dict(eval_every=1), dict(mesh_data=2),
+    for change in (dict(mesh_data=2), dict(mesh_mem=2),
                    dict(mesh_model=2)):
         with pytest.raises(NotImplementedError):
             tapp.train(dataclasses.replace(exp, **change), device="cpu")
