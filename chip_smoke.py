@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phases train_v2
     python3 chip_smoke.py --phases text,train_app
     python3 chip_smoke.py --phases slam,slam_app,eval
+    python3 chip_smoke.py --phases multi_gpu
 
 Run from the root of a checkout.  It builds the CUDA kernels of
 ``panst3r_torch/csrc`` with nvcc (into the git-ignored
@@ -126,6 +127,21 @@ Run from the root of a checkout.  It builds the CUDA kernels of
 18. ``eval``: ``apps/eval.py::main`` at v1 on a ScanNet++ scene (standard
    v2 fusion, QUBO) and at v2 on a rendered-test scene (K4 f32), the
    train app with ``eval_every=1``, depth 2 f32 card against CPU;
+19. ``multi_gpu``: the multi-device layer rehearsed with two gloo ranks
+   on the one card (``core/dryrun.py``'s workers, each sharded path
+   against the same work on one rank): ``serve_device`` under
+   ``model`` = 2 at full v1 width and depth (V=4), in f32 (raw outputs
+   within 1e-4 relative) and in bf16 (decoded pan on > 99% of pixels and
+   conf within 0.05 where the segment agrees, both dtypes; launches
+   those of one rank's scene), ``serve_many_device`` of two V=8 scenes
+   over ``data`` = 2 and the memory split over ``mem`` = 2 (each rank
+   holding half of the bank; wires byte-equal), a v2 micro-step at depth
+   2 (f32) over ``data`` = 2 (loss within 1e-6 relative),
+   ``fusion_sharded`` at V=8 and full mask size (bit-exact) and
+   ``bundle_adjust_sharded`` at SLAM's sizes; then one NCCL rank runs the
+   collectives and the data-parallel step.  Any error of a rank fails the
+   phase, a collective gloo refuses on a CUDA tensor too (the error is
+   printed: that check was not rehearsed on the card);
 
 then one ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``.  Any failed phase raises, and the script exits non-zero
@@ -183,7 +199,7 @@ REPLACES = {
 PHASES = ("kernels", "small", "v1", "v2", "train_v2", "serve", "serve_long",
           "ab_packed", "multibucket", "demo", "serve_many", "refine",
           "retrieval_head", "serve_app", "text", "train_app", "slam",
-          "slam_app", "eval")
+          "slam_app", "eval", "multi_gpu")
 # every kernel runs a Hopper engine in both dtypes: bf16 the wgmma engine
 # (K2-int8 its s8 scores); of the f32 paths (entries ``*_f32`` of the
 # kernels line) K2, K2-int8 and K3 run the 3xTF32 engine in the same
@@ -1324,20 +1340,9 @@ def _inputs(V, H=384, W=512, ncls=32):
 
 
 def _counters():
-    from panst3r_torch.ops.flash_attention import flash_mha, flash_mha_bwd
-    from panst3r_torch.ops.masked_attention import masked_mha
-    from panst3r_torch.ops.packed_attention import packed_mha
-    from panst3r_torch.ops.tower_attention import (tower_cross_attention,
-                                                   tower_cross_int8,
-                                                   tower_self_attention)
+    from panst3r_torch.core.dryrun import kernel_wrappers
 
-    return {"tower_self": tower_self_attention,
-            "tower_cross": tower_cross_attention,
-            "tower_cross_int8": tower_cross_int8,
-            "masked_attn": masked_mha,
-            "flash_fwd": flash_mha,
-            "flash_bwd": flash_mha_bwd,
-            "packed_flash": packed_mha}
+    return kernel_wrappers()
 
 
 # the f32 engine's share of K1's and K2's launches on each main path, as
@@ -3657,8 +3662,8 @@ def _train_app_probes(rec: dict, trace_epoch=None):
     real = {k: getattr(tapp, k) for k in ("make_train_step", "epoch_batches",
                                           "prefetch", "train_one_epoch")}
 
-    def make_train_step(model, opt, loss, grid, amp=None):
-        step = real["make_train_step"](model, opt, loss, grid, amp=amp)
+    def make_train_step(model, opt, loss, grid, **kw):
+        step = real["make_train_step"](model, opt, loss, grid, **kw)
 
         def timed(batch, cls, gen):
             torch.cuda.synchronize()
@@ -4382,6 +4387,251 @@ def phase_eval():
     return total
 
 
+# ------------------------------------------------------------ multi_gpu --
+
+# two ranks on the one card: the TP scene (V, K), the DP / mem scenes
+# (V, K), the v2 depth-2 micro-step's batch (B, V, H, W), BA at SLAM's
+# sizes (keyframes, anchors; every 8th pixel of 384x512 observed)
+MULTI_GPU_HW = (384, 512)
+MULTI_GPU_TP = (4, 2)
+MULTI_GPU_DP = (8, 4)
+MULTI_GPU_TRAIN = (2, 3, 160, 512)
+MULTI_GPU_BA = (16, 8192)
+MULTI_GPU_LR = 1e-3
+# the limits of the data-parallel step against one rank on the whole
+# batch (``dryrun.step_agreement``): the loss (relative), the summed
+# gradients (over the largest), the weights where the gradient stands
+# above f32 noise (elsewhere Adam's first step moves a weight by +-lr
+# whatever the noise: ``weight_diff_noise`` is printed, not held)
+DP_STEP_LIMITS = {"loss": 1e-6, "grad_diff": 1e-4, "weight_diff": 1e-6}
+
+
+def _ba_problem(K, A, per_view, seed=0):
+    """A BA problem of K poses and A anchors, ``per_view`` observations a
+    view, noisy initial poses (pose 0 kept: the gauge)."""
+    import torch
+
+    from panst3r_torch.engine.slam import se3_exp, se3_inv
+
+    rng = np.random.default_rng(seed)
+    X = rng.standard_normal((A, 3)).astype(np.float32) * 2.0
+    gt = se3_exp(torch.as_tensor(rng.standard_normal((K, 6)) * 0.3,
+                                 dtype=torch.float32)).numpy()
+    ov = np.repeat(np.arange(K, dtype=np.int32), per_view)
+    oa = rng.integers(0, A, K * per_view).astype(np.int32)
+    inv = se3_inv(torch.as_tensor(gt)).numpy()
+    xl = (np.einsum("oij,oj->oi", inv[ov, :3, :3], X[oa])
+          + inv[ov, :3, 3]).astype(np.float32)
+    noise = (rng.standard_normal((K, 6)) * 0.05).astype(np.float32)
+    noise[0] = 0.0
+    poses0 = (se3_exp(torch.as_tensor(noise)).numpy() @ gt).astype(
+        np.float32)
+    anchors0 = (X + rng.standard_normal(X.shape).astype(np.float32)
+                * 0.02).astype(np.float32)
+    return poses0, anchors0, ov, oa, xl, np.ones(len(ov), np.float32)
+
+
+def phase_multi_gpu():
+    """The multi-device layer on this one card: two gloo ranks on cuda:0
+    run every check in one spawn (``dryrun.jobs_worker``; the kernels were
+    built before, so the ranks only load them), then one NCCL rank.
+    Each check is a sharded path against the same work on one rank, both
+    timed in the rank (a rehearsal of the schedules, not a multi-card
+    speed).  Returns rank 0's launches of the TP ``serve_device`` call."""
+    import torch
+
+    from panst3r_torch.core import distributed, dryrun
+    from panst3r_torch.core.bucketing import Bucket
+    from panst3r_torch.ops.tower_attention import supports_tower_attention
+
+    t_phase = time.perf_counter()
+    emit({"phase": "multi_gpu", "device_count": torch.cuda.device_count(),
+          "ranks": 2, "backend": "gloo", "device": "cuda:0"})
+    cfg, (Vt, Kt), (Vd, Kd) = _config("v1"), MULTI_GPU_TP, MULTI_GPU_DP
+    H, W = MULTI_GPU_HW
+    N = (H // 16) * (W // 16)
+    eng, images, portrait, cls8 = _v1_engine(Vd, Kd, H, W)
+    cls4 = segment_classes(eng, images[:Vt], portrait[:Vt])
+    del eng
+    torch.cuda.empty_cache()
+    v1 = dryrun.ModelFactory(cfg, seed=0)
+    bucket = Bucket(H, W)
+    B, Vb, Hb, Wb = MULTI_GPU_TRAIN
+    v2cfg = _config("v2", depth=2)
+    v2 = dryrun.ModelFactory(v2cfg, seed=0)
+    batch = dryrun.tiny_batch(
+        B, Vb, hw=(Hb, Wb), ncls=32,
+        lang_dim=v2cfg.panoptic.mask_transformer.lang_dim)
+    grid = (Hb // 16, Wb // 16)
+    mask_cls, mask_pred = dryrun.fusion_inputs(
+        0, 1, Vd, cfg.panoptic.mask_transformer.num_queries, H // 2, W // 2,
+        ncls=32, live=8)
+    Kb, Ab = MULTI_GPU_BA
+    ba = _ba_problem(Kb, Ab, (H // 8) * (W // 8))
+    jobs = {
+        "tp_serve_f32": (dryrun.serve_worker, (
+            v1, {"images": images[:Vt], "portrait": portrait[:Vt],
+                 "cls_emb": cls4}, bucket, Kt, 4, False, {}, ("tp",)),
+            {"raw": False}),
+        "tp_serve": (dryrun.serve_worker, (
+            v1, {"images": images[:Vt], "portrait": portrait[:Vt],
+                 "cls_emb": cls4}, bucket, Kt, 4, True, {}, ("tp",)),
+            {"raw": False}),
+        "dp_serve_many_and_mem_render": (dryrun.serve_worker, (
+            v1, {"images": images, "portrait": portrait, "cls_emb": cls8,
+                 "scenes": np.stack([images, np.roll(images, 1, axis=0)]),
+                 "portraits": np.stack([portrait] * 2)}, bucket, Kd, 4,
+            True, {"fusion_res": "hybrid", "with_cameras": True},
+            ("dp", "mem")), {}),
+        "dp_train_step": (dryrun.dp_step_worker, (
+            v2, batch, grid, MULTI_GPU_LR), {}),
+        "fusion_sharded": (dryrun.fusion_worker, (
+            mask_cls, mask_pred, (H, W), {}), {}),
+        "bundle_adjust_sharded": (dryrun.ba_worker, ba, {"iters": 8}),
+    }
+    t0 = time.perf_counter()
+    try:
+        ranks = distributed.launch(
+            dryrun.jobs_worker, 2, "gloo", "cuda",
+            [(dryrun.strict_f32, (), {})] + list(jobs.values()),
+            timeout=600)
+    except RuntimeError as e:
+        # any error fails the phase, a collective gloo refuses for a CUDA
+        # tensor too: that check would not be rehearsed on the card
+        emit({"phase": "multi_gpu", "error": str(e)[-4000:],
+              "gloo_in_error": "gloo" in str(e).lower()})
+        raise
+    spawn_s = time.perf_counter() - t0
+    results = {name: [r[i + 1] for r in ranks]
+               for i, name in enumerate(jobs)}
+    bad, rows = [], {}
+
+    def record(name, ok, r0, **extra):
+        rows[name] = {"ok": bool(ok), "seconds": r0.get("seconds"),
+                      "seconds_one_rank": r0.get("seconds_one_rank"),
+                      "job_seconds": per_rank[0].get("job_seconds"),
+                      **extra}
+        if not ok:
+            bad.append(name)
+
+    for name, per_rank in results.items():
+        r0 = per_rank[0]
+        if name == "tp_serve_f32":
+            # f32 at full depth: the Megatron split reassociates f32 sums
+            # only; the raw outputs within 1e-4 relative, the decoded
+            # wire as below
+            tp = [r["tp"] for r in per_rank]
+            want = expected_serve_launches(cfg, Vt, Kt, N)
+            close = all(t["raw_max_abs_diff"][k]
+                        <= 1e-4 * max(1.0, t["raw_max_abs"][k])
+                        for t in tp for k in t["raw_max_abs"])
+            ok = close and all(t["pan_agree"] > 0.99
+                               and t["conf_max_abs_diff_agreeing"] <= 0.05
+                               and t["launches"] == want for t in tp)
+            record(name, ok, tp[0], pan_agree=[t["pan_agree"] for t in tp],
+                   conf_max_abs_diff=[t["conf_max_abs_diff"] for t in tp],
+                   conf_max_abs_diff_agreeing=[
+                       t["conf_max_abs_diff_agreeing"] for t in tp],
+                   n_segments=tp[0]["n_segments"],
+                   raw_max_abs_diff=tp[0]["raw_max_abs_diff"],
+                   raw_max_abs=tp[0]["raw_max_abs"],
+                   launches_per_rank=[t["launches"] for t in tp],
+                   expected_launches=want)
+        elif name == "tp_serve":
+            # bf16 at full depth: the row-parallel sums are rounded once,
+            # as one rank's.  A pixel near a tie between two queries
+            # changes segment under any reassociation and then carries
+            # the other query's conf (in f32 too: one pixel of the scene,
+            # conf 0.149 apart, NVIDIA H100 80GB HBM3, 700 W), so conf is
+            # held where the two wires agree on the segment
+            tp = [r["tp"] for r in per_rank]
+            want = expected_serve_launches(cfg, Vt, Kt, N)
+            local = [(c.embed_dim // 2, c.num_heads // 2) for c in
+                     (cfg.encoder, cfg.dino)] + [(cfg.decoder.dim // 2,
+                                                  cfg.decoder.num_heads // 2)]
+            gates = all(supports_tower_attention(N, C, h)
+                        for C, h in local)
+            ok = (gates and all(t["pan_agree"] > 0.99
+                                and t["conf_max_abs_diff_agreeing"] <= 0.05
+                                and t["launches"] == want for t in tp)
+                  and tp[0]["n_segments"] > 0)
+            record(name, ok, tp[0], pan_agree=[t["pan_agree"] for t in tp],
+                   conf_max_abs_diff=[t["conf_max_abs_diff"] for t in tp],
+                   conf_max_abs_diff_agreeing=[
+                       t["conf_max_abs_diff_agreeing"] for t in tp],
+                   n_segments=tp[0]["n_segments"],
+                   raw_max_abs_diff=tp[0]["raw_max_abs_diff"],
+                   raw_max_abs=tp[0]["raw_max_abs"],
+                   launches_per_rank=[t["launches"] for t in tp],
+                   expected_launches=want, local_shapes_on_k1=gates)
+        elif name == "dp_serve_many_and_mem_render":
+            dp = [r["dp"] for r in per_rank]
+            mem = [r["mem"] for r in per_rank]
+            record("dp_serve_many", all(d["wires_equal"] for d in dp), dp[0],
+                   wire_bytes=int(dp[0]["wires"].nbytes))
+            # each rank holds half of the bank, which gathers whole
+            record("mem_render", all(
+                m["wire_equal"] and m["run_equal"] and m["bank_equal"]
+                and 2 * m["bank_bytes"] == m["bank_bytes_one_rank"]
+                for m in mem), mem[0],
+                **{k: mem[0][k] for k in ("bank_bytes", "bank_bytes_one_rank",
+                                          "peak_bytes",
+                                          "peak_bytes_one_rank")})
+        elif name == "dp_train_step":
+            lim = DP_STEP_LIMITS
+            agree = [{"loss": abs(r["loss"] - r["loss_one"])
+                      / abs(r["loss_one"]),
+                      **{k: r[k] for k in lim if k != "loss"}}
+                     for r in per_rank]
+            ok = (per_rank[0]["loss"] == per_rank[1]["loss"]
+                  and all(a[k] <= lim[k] for a in agree for k in lim))
+            record(name, ok, r0, loss=[r["loss"] for r in per_rank],
+                   loss_one=r0["loss_one"], agreement=agree, limits=lim,
+                   weight_diff_noise=[r["weight_diff_noise"]
+                                      for r in per_rank])
+        elif name == "fusion_sharded":
+            n_seg = int(np.asarray(r0["selected"]).sum())
+            record(name, n_seg > 0 and all(r["bit_equal"] for r in per_rank),
+                   r0, n_segments=n_seg)
+        elif name == "bundle_adjust_sharded":
+            pose_diff = max(float(np.abs(r["poses"] - r["poses_one"]).max())
+                            for r in per_rank)
+            cost_rel = max(float(np.abs(r["costs"] - r["costs_one"]).max()
+                                 / r["costs_one"][0]) for r in per_rank)
+            record(name, pose_diff <= 1e-4 and cost_rel <= 1e-3, r0,
+                   pose_max_abs_diff=pose_diff, cost_max_rel_diff=cost_rel,
+                   costs=[float(c) for c in r0["costs"]],
+                   observations=int(len(ba[2])), anchors=Ab, keyframes=Kb)
+    for name, row in rows.items():
+        emit({"phase": "multi_gpu", "check": name, **row})
+
+    # the production backend on one rank: NCCL's collectives and the
+    # data-parallel step with a group of one
+    t0 = time.perf_counter()
+    nccl = distributed.launch(
+        dryrun.jobs_worker, 1, "nccl", "cuda",
+        [(dryrun.strict_f32, (), {}),
+         (dryrun.nccl_worker, (v2, batch, grid, MULTI_GPU_LR), {})],
+        timeout=300)[0][1]
+    nccl_ok = (nccl["backend"] == "nccl" and nccl["all_reduce_ok"]
+               and nccl["all_gather_ok"] and nccl["bit_equal"])
+    emit({"phase": "multi_gpu", "check": "nccl_one_rank", "ok": nccl_ok,
+          "spawn_seconds": time.perf_counter() - t0,
+          **{k: nccl[k] for k in ("backend", "world", "all_reduce_ok",
+                                  "all_gather_ok", "bit_equal", "loss",
+                                  "loss_one", "seconds",
+                                  "seconds_one_rank")}})
+    if not nccl_ok:
+        bad.append("nccl_one_rank")
+    launches = (rows.get("tp_serve", {}).get("launches_per_rank")
+                or [{}])[0]
+    emit({"phase": "multi_gpu", "seconds": time.perf_counter() - t_phase,
+          "spawn_seconds": spawn_s, "launches_rank0": launches})
+    if bad:
+        raise AssertionError(f"multi_gpu: failed checks {bad}")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES))
@@ -4454,7 +4704,7 @@ def main(argv=None) -> int:
                         ("text", phase_text),
                         ("train_app", phase_train_app),
                         ("slam", phase_slam), ("slam_app", phase_slam_app),
-                        ("eval", phase_eval)):
+                        ("eval", phase_eval), ("multi_gpu", phase_multi_gpu)):
         if name in phases:
             launches[name] = phase()
 

@@ -11,9 +11,20 @@ the class vocabulary, the freeze policy, the optimizer, auto-resume from
 ``config.yaml`` (PyYAML is imported there only); ``train(exp)`` does the
 rest, on the card unless ``device="cpu"``.  The experiment files of the
 JAX package load unchanged: the XLA-only fields (``precompile``,
-``compilation_cache``) are kept and not read.  The port trains on one
-card: a mesh over more than one device (``mesh_*``) raises
-``NotImplementedError``.
+``compilation_cache``) are kept and not read.
+
+Several ranks (one process per card; ``core/distributed.py``'s env
+contract, ``COORDINATOR_ADDRESS`` / ``NUM_PROCESSES`` / ``PROCESS_ID``):
+``train`` joins the process group and lays the ranks out as the
+``mesh_data`` × ``mesh_mem`` × ``mesh_model`` mesh (a mesh that does not
+cover them raises ``ValueError``).  The loader gives each ``data`` rank its
+slice of the epoch, the steps sum the gradients over ``data``, the render
+splits the memory bank over ``mem``, and ``mesh_model`` > 1 splits the
+model Megatron style (``core/tp.py``).  The learning rate and the epoch
+length count every rank, as in the JAX package.  Only the main rank
+writes checkpoints (the whole model, gathered from its TP shards), logs
+and evaluations; the others wait at a barrier.  A resume loads on every
+rank.
 
 With ``eval_every`` > 0, every ``eval_every``-th epoch ends with the PQ
 evaluation (``apps/eval.py::evaluate_scene``, standard v2 fusion) of the
@@ -35,11 +46,15 @@ import torch
 
 from panst3r_torch.apps.common import preset_config
 from panst3r_torch.core import config as cfglib
+from panst3r_torch.core import distributed
 from panst3r_torch.core.checkpoint import (latest_checkpoint, load_checkpoint,
                                            load_optimizer_state,
                                            save_checkpoint)
 from panst3r_torch.core.device import resolve_device
 from panst3r_torch.core.logging import build_logger
+from panst3r_torch.core.mesh import (DATA_AXIS, MEM_AXIS, MODEL_AXIS,
+                                     MeshSpec, build_mesh)
+from panst3r_torch.core.tp import apply_tp, gather_state, shard_state
 from panst3r_torch.data.loader import epoch_batches, prefetch
 from panst3r_torch.data.scannetpp import ScanNetppPanoptic
 from panst3r_torch.engine.train import (Optimizer, TrainConfig,
@@ -88,8 +103,7 @@ class ExperimentConfig:
     # fetch the loss every N steps (engine/train.py::train_one_epoch)
     sync_every: int = 1
     logger: str = "tensorboard"
-    # the JAX package's device mesh; the port runs on one card, so each
-    # axis must ask for at most one device (-1: all there are, i.e. one)
+    # the (data, mem, model) mesh over the ranks (-1: the remaining ones)
     mesh_data: int = -1
     mesh_mem: int = 1
     mesh_model: int = 1
@@ -170,21 +184,14 @@ def class_embeddings(text_encoder: str, classes: list[str],
     return emb.astype(np.float32)
 
 
-def _check_supported(exp: ExperimentConfig) -> None:
-    if max(exp.mesh_data, exp.mesh_mem, exp.mesh_model) > 1:
-        raise NotImplementedError(
-            "the port trains on one card: a mesh over more devices "
-            f"(mesh_data={exp.mesh_data}, mesh_mem={exp.mesh_mem}, "
-            f"mesh_model={exp.mesh_model}) waits for the multi-GPU port "
-            "(ROADMAP queue 1 item 3)")
-
-
 def evaluate(model, dataset, classes: list[str], cls_emb: np.ndarray,
-             hw: tuple[int, int], n_scenes: int, keyframes: int) -> dict:
+             hw: tuple[int, int], n_scenes: int, keyframes: int,
+             state: dict | None = None) -> dict:
     """PQ of the last ``n_scenes`` samples of ``dataset`` (at its first
-    bucket) with the weights of ``model``, through an engine over an f32
-    copy of them (frozen towers stored in bf16 compute in f32, the JAX
-    package's promotion), so that ``model`` itself is not touched."""
+    bucket) with the weights of ``model`` (or ``state``, a whole state
+    dict of its config), through an engine over an f32 copy of them
+    (frozen towers stored in bf16 compute in f32, the JAX package's
+    promotion), so that ``model`` itself is not touched."""
     from collections import defaultdict
 
     from panst3r_torch.apps.eval import evaluate_scene
@@ -196,7 +203,7 @@ def evaluate(model, dataset, classes: list[str], cls_emb: np.ndarray,
     with torch.device("meta"):
         f32 = panst3r_model.PanSt3R(model.config)
     f32 = f32.to_empty(device=dev)
-    f32.load_state_dict(model.state_dict())
+    f32.load_state_dict(model.state_dict() if state is None else state)
     engine = InferenceEngine(f32.eval(), Bucket(*hw),
                              num_keyframes=keyframes, amp=False, device=dev)
     per_class = defaultdict(PQStat)
@@ -209,12 +216,21 @@ def evaluate(model, dataset, classes: list[str], cls_emb: np.ndarray,
 
 def train(exp: ExperimentConfig, device=None) -> dict:
     """Run the experiment (resuming from ``<output_dir>/last`` when it
-    exists).  Returns {"start_epoch", "stats": the last epoch's}."""
-    _check_supported(exp)
+    exists).  Returns {"start_epoch", "stats": the last epoch's, "saved":
+    the checkpoints this rank wrote}."""
     dev = resolve_device(device)
+    distributed.initialize(device=dev)
+    dev = distributed.rank_device(dev, distributed.process_index())
+    if dev.type == "cuda":               # one card per rank
+        torch.cuda.set_device(dev)
+    mesh = build_mesh(MeshSpec(data=exp.mesh_data, mem=exp.mesh_mem,
+                               model=exp.mesh_model))
+    world = distributed.process_count()
+    main = distributed.is_main_process()
     out_dir = Path(exp.output_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
-    print(f"device: {dev}")
+    print(f"device: {dev} mesh: {mesh.shape} (data, mem, model) rank "
+          f"{distributed.process_index()}/{world}")
 
     dataset = build_datasets(exp)
     classes = sorted(set(dataset.classes))
@@ -237,30 +253,50 @@ def train(exp: ExperimentConfig, device=None) -> dict:
         trainable.append("must3r_decoder")
     cast_frozen_params(model, tuple(trainable))
     mask = trainable_mask(model, tuple(trainable))
+    tp_group = mesh.group(MODEL_AXIS)
+    apply_tp(model, tp_group)
+    model.mem_group = mesh.group(MEM_AXIS)
 
-    world = 1
     steps_per_epoch = max(len(dataset) // (exp.train.batch_size * world), 1)
     opt = Optimizer({n: p for n, p in model.named_parameters() if mask[n]},
-                    exp.train, world, steps_per_epoch)
+                    exp.train, world, steps_per_epoch, tp_group=tp_group,
+                    tp_split=getattr(model, "tp_split", ()))
     step_fns = {hw: make_train_step(model, opt, exp.train.loss, g,
-                                    amp=exp.train.amp)
+                                    amp=exp.train.amp,
+                                    data_group=mesh.group(DATA_AXIS))
                 for hw, g in grids.items()}
+
+    def whole_states():
+        """The model's and the optimizer's states as one device would
+        hold them (a collective over the TP group: every rank calls it)."""
+        opt_state = opt.state_dict()
+        for key in ("mu", "nu", "acc"):
+            opt_state[key] = gather_state(model, opt_state[key])
+        return gather_state(model, model.state_dict()), opt_state
 
     start_epoch = 0
     last = latest_checkpoint(out_dir)
-    if last:
+    if last:                                   # on every rank
         state, _, meta = load_checkpoint(out_dir, last)
-        model.load_state_dict(state)
+        model.load_state_dict(shard_state(model, state))
         opt_state = load_optimizer_state(out_dir, last)
         if opt_state is None:
             raise FileNotFoundError(f"{out_dir / last} holds no optimizer "
                                     "state to resume from")
+        for key in ("mu", "nu", "acc"):
+            opt_state[key] = shard_state(model, opt_state[key])
         opt.load_state_dict(opt_state)
         start_epoch = int(meta.get("epoch", -1)) + 1
         print(f"resumed from epoch {start_epoch}")
 
-    log_writer = build_logger(exp.logger, out_dir)
+    log_writer = build_logger(exp.logger, out_dir) if main else None
     cls_t = torch.as_tensor(cls_emb, device=dev)
+    saved: list = []
+
+    def save(name, *args, **kw):
+        if main:
+            save_checkpoint(out_dir, name, *args, **kw)
+            saved.append(name)
 
     print(f"Start training for {exp.train.epochs} epochs")
     t0 = time.time()
@@ -269,6 +305,8 @@ def train(exp: ExperimentConfig, device=None) -> dict:
         batches = epoch_batches(dataset, exp.train.batch_size, classes,
                                 exp.train.max_instances, epoch,
                                 seed=exp.train.seed,
+                                rank=mesh.index(DATA_AXIS),
+                                world_size=mesh.size(DATA_AXIS),
                                 num_resolutions=len(exp.resolution),
                                 workers=exp.loader_workers,
                                 workers_mode=exp.loader_workers_mode)
@@ -278,10 +316,11 @@ def train(exp: ExperimentConfig, device=None) -> dict:
             opt, step_fns, batches, cls_t, epoch, exp.train.seed, dev,
             log_writer, exp.print_freq, steps_per_epoch,
             sync_every=exp.sync_every)
-        if exp.eval_every and epoch % exp.eval_every == 0:
+        state, opt_state = whole_states()
+        if main and exp.eval_every and epoch % exp.eval_every == 0:
             (w, h) = exp.resolution[0]
             pq = evaluate(model, dataset, classes, cls_emb, (h, w),
-                          exp.eval_scenes, exp.eval_keyframes)
+                          exp.eval_scenes, exp.eval_keyframes, state=state)
             print(f"[eval epoch {epoch}] {pq}")
             log_writer.log({f"eval/{k}": v for k, v in pq.items()
                             if isinstance(v, (int, float))}, epoch)
@@ -290,23 +329,24 @@ def train(exp: ExperimentConfig, device=None) -> dict:
         meta = {"epoch": epoch, "stats": stats, "classes": classes,
                 # serving pairs the trained weights with THIS table
                 "cls_emb": cls_emb}
-        save_checkpoint(out_dir, "last", model, model_cfg, meta,
-                        optimizer=opt.state_dict())
+        save("last", state, model_cfg, meta, optimizer=opt_state)
         if exp.keep_freq and epoch % exp.keep_freq == 0:
-            save_checkpoint(out_dir, str(epoch), model, model_cfg, meta,
-                            optimizer=opt.state_dict())
-        with (out_dir / "log.txt").open("a") as f:
-            f.write(json.dumps({"epoch": epoch,
-                                **{f"train_{k}": v
-                                   for k, v in stats.items()}}) + "\n")
+            save(str(epoch), state, model_cfg, meta, optimizer=opt_state)
+        if main:
+            with (out_dir / "log.txt").open("a") as f:
+                f.write(json.dumps({"epoch": epoch,
+                                    **{f"train_{k}": v
+                                       for k, v in stats.items()}}) + "\n")
+        distributed.barrier()            # the others wait for the write
 
     print(f"Training time {time.time() - t0:.1f}s")
-    log_writer.close()
+    if log_writer is not None:
+        log_writer.close()
     # the final checkpoint holds the weights only
-    save_checkpoint(out_dir, "final", model, model_cfg,
-                    {"epoch": exp.train.epochs, "classes": classes,
-                     "cls_emb": cls_emb})
-    return {"start_epoch": start_epoch, "stats": stats}
+    save("final", whole_states()[0], model_cfg,
+         {"epoch": exp.train.epochs, "classes": classes, "cls_emb": cls_emb})
+    distributed.barrier()
+    return {"start_epoch": start_epoch, "stats": stats, "saved": saved}
 
 
 def main(argv=None):

@@ -36,16 +36,18 @@ def _to_cpu(tree):
     return tree
 
 
-def save_checkpoint(directory: str | Path, name: str, model: torch.nn.Module,
+def save_checkpoint(directory: str | Path, name: str, model,
                     model_config: Any = None,
                     meta: Optional[dict] = None,
                     optimizer: Optional[dict] = None) -> Path:
-    """Save ``model``'s state_dict with its config and meta under
-    ``directory/name``, and ``optimizer`` (an optimizer's state_dict) when
-    given; returns that path."""
+    """Save ``model``'s state_dict (or ``model`` itself when it is a state
+    dict) with its config and meta under ``directory/name``, and
+    ``optimizer`` (an optimizer's state_dict) when given; returns that
+    path."""
     path = Path(directory).absolute() / name
     path.mkdir(parents=True, exist_ok=True)
-    torch.save(_to_cpu(model.state_dict()), path / "state.pt")
+    state = model if isinstance(model, dict) else model.state_dict()
+    torch.save(_to_cpu(state), path / "state.pt")
     if optimizer is not None:
         torch.save(_to_cpu(optimizer), path / "optimizer.pt")
     else:                       # a weights-only save replaces the state

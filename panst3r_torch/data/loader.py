@@ -110,7 +110,8 @@ def epoch_batches(dataset, batch_size: int, classes: list[str],
     rng = np.random.default_rng(seed + epoch)
     order = rng.permutation(len(dataset))
     order = order[rank::world_size]
-    n_batches = len(order) // batch_size
+    # every rank takes the same number of batches (its collectives pair up)
+    n_batches = len(dataset) // world_size // batch_size
     batch_keys = []
     for b in range(n_batches):
         idxs = order[b * batch_size:(b + 1) * batch_size]

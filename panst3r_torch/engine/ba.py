@@ -19,8 +19,9 @@ Every accumulation over observations is a segment sum (``segment_sum``:
 each segment in a fixed order), so two runs on the card give the same
 bits.  Left perturbations as in ``engine/slam.py``: T ← exp(ξ)·T,
 d(T·x)/dξ = [I | −hat(T·x)].  The backend runs on the card unless
-``device="cpu"``; ``bundle_adjust_sharded`` (observations over devices)
-is not ported.
+``device="cpu"``.  ``bundle_adjust_sharded`` splits the observations
+over the ranks of a group and sums the Gauss-Newton partials over it
+before the replicated Schur solve.
 """
 from __future__ import annotations
 
@@ -30,9 +31,11 @@ import numpy as np
 import torch
 
 from panst3r_torch.core.device import resolve_device
+from panst3r_torch.core.mesh import all_reduce, group_size, local_slice
 from panst3r_torch.engine.slam import hat, se3_exp
 
-__all__ = ["bundle_adjust", "voxel_anchors", "refine_scene_ba"]
+__all__ = ["bundle_adjust", "bundle_adjust_sharded", "voxel_anchors",
+           "refine_scene_ba"]
 
 
 def segment_sum(values: torch.Tensor, segment_ids: torch.Tensor,
@@ -102,11 +105,13 @@ def _gn_update(poses, anchors, Hc, bc, U, s, ba, damping: float):
 
 @torch.inference_mode()
 def bundle_adjust(poses, anchors, obs_view, obs_anchor, x_local, weights,
-                  iters: int = 8, damping: float = 1e-4, device=None):
+                  iters: int = 8, damping: float = 1e-4, device=None,
+                  group=None):
     """poses (K, 4, 4) cam2world; anchors (A, 3); obs_view / obs_anchor
     (O,) int; x_local (O, 3) per-view local points; weights (O,) ≥ 0
     (0 = padding).  Returns (poses, anchors, costs (iters,)) on the
-    device."""
+    device.  With ``group`` the observations are this rank's share and
+    each iteration's partials are summed over the group."""
     dev = resolve_device(device)
 
     def f32(x):
@@ -119,11 +124,31 @@ def bundle_adjust(poses, anchors, obs_view, obs_anchor, x_local, weights,
     K, A = poses.shape[0], anchors.shape[0]
     costs = []
     for _ in range(iters):
-        *parts, cost = _gn_partials(poses, anchors, obs_view, obs_anchor,
-                                    x_local, weights, K, A)
+        *parts, cost = (all_reduce(t, group) for t in _gn_partials(
+            poses, anchors, obs_view, obs_anchor, x_local, weights, K, A))
         poses, anchors = _gn_update(poses, anchors, *parts, damping)
         costs.append(cost)
     return poses, anchors, torch.stack(costs)
+
+
+def bundle_adjust_sharded(poses, anchors, obs_view, obs_anchor, x_local,
+                          weights, group, iters: int = 8,
+                          damping: float = 1e-4, device=None):
+    """BA with the O observations (as every rank holds them) split over
+    the ranks of ``group``: each rank sums its O/n observations' partials,
+    the six partials are all-reduced, and the Schur solve runs replicated.
+    The same math as ``bundle_adjust`` up to the f32 order of the sums.
+    Pad O to a multiple of the group's size with zero-weight
+    observations."""
+    O, n = len(obs_view), group_size(group)
+    assert O % n == 0, f"pad observations ({O}) to a multiple of {n}"
+
+    def mine(x):
+        return local_slice(torch.as_tensor(x), 0, group)
+
+    return bundle_adjust(poses, anchors, mine(obs_view), mine(obs_anchor),
+                         mine(x_local), mine(weights), iters=iters,
+                         damping=damping, device=device, group=group)
 
 
 def voxel_anchors(pts_global: np.ndarray, conf: np.ndarray,

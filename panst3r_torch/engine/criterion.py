@@ -24,6 +24,12 @@ matcher) and the mask loss's grid jitter (2,) ("grid") or its PointRend
 uniform draws ("random").  ``jax_draws`` in the tests makes them with the
 JAX package's key splits.  The matching runs without a graph: the
 assignment is an integer.
+
+Data parallelism (``group``: the mesh's ``data`` axis, every rank holding
+an equal slice of the global batch): the loss of each rank is its share
+of the global-batch loss, so the shares sum to it — ``num_masks`` and the
+softmax label loss's weight sum are global sums, and the random draws are
+this rank's rows of the global batch's draws from the same generator.
 """
 from __future__ import annotations
 
@@ -34,6 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from panst3r_torch.core import config as cfg
+from panst3r_torch.core.mesh import all_reduce, group_index, group_size
 from panst3r_torch.ops.image import resize, scale_and_translate_linear
 from panst3r_torch.ops.lap import auction_lap
 from panst3r_torch.ops.sampling import (point_sample, point_sample_shared,
@@ -175,7 +182,7 @@ def _loss_labels_sigmoid(pred_logits, targets: Targets, assign, num_masks,
 
 
 def _loss_labels_softmax(pred_logits, targets: Targets, assign, num_masks,
-                         c: PanopticLossConfig):
+                         c: PanopticLossConfig, group=None):
     """Masked-softmax CE label loss; the last class is no-object."""
     B, Q, nclsp1 = pred_logits.shape
     ncls = nclsp1 - 1
@@ -192,7 +199,7 @@ def _loss_labels_softmax(pred_logits, targets: Targets, assign, num_masks,
     logp = torch.log_softmax(masked, -1)
     nll = -torch.gather(logp, 2, target_classes[..., None])[..., 0]
     w = torch.where(target_classes == ncls, c.no_obj_weight, 1.0)
-    return (nll * w).sum() / w.sum()
+    return (nll * w).sum() / all_reduce(w.sum(), group)
 
 
 def replicate_pad1(m: torch.Tensor) -> torch.Tensor:
@@ -206,10 +213,10 @@ def replicate_pad1(m: torch.Tensor) -> torch.Tensor:
 
 
 def _loss_masks(pred_masks, targets: Targets, assign, num_masks,
-                c: PanopticLossConfig, draw=None, generator=None):
+                c: PanopticLossConfig, draw):
     """Mask CE + dice per (target, view) row.  ``draw``: the grid jitter
     (2,) ("grid") or the PointRend (candidates, extra) uniform draws
-    ("random"); drawn from ``generator`` when None."""
+    ("random"): a level of ``draw_levels``."""
     B, V, Q = pred_masks.shape[:3]
     T = assign.shape[1]
     b_idx = torch.arange(B, device=assign.device)[:, None].expand(B, T)
@@ -220,8 +227,6 @@ def _loss_masks(pred_masks, targets: Targets, assign, num_masks,
 
     if c.loss_sampling == "grid":
         gh, gw = _grid_shape(c.num_points, *tgt.shape[-2:])
-        if draw is None:
-            draw = torch.rand((2,), generator=generator, device=dev) - 0.5
         jit = draw.to(device=dev, dtype=torch.float32)
 
         def q(m):
@@ -242,7 +247,7 @@ def _loss_masks(pred_masks, targets: Targets, assign, num_masks,
         with torch.no_grad():
             coords = uncertain_point_coords(
                 src.detach(), c.num_points, c.oversample_ratio,
-                c.importance_sample_ratio, generator=generator, draws=draw)
+                c.importance_sample_ratio, draws=draw)
             point_labels = point_sample(tgt, coords)
         point_logits = point_sample(src, coords)
 
@@ -264,25 +269,62 @@ def _levels(outputs: dict):
         (a["pred_logits"], a["pred_masks"]) for a in aux]
 
 
+def draw_levels(levels, targets: Targets, c: PanopticLossConfig,
+                generator, group=None) -> list:
+    """Every level's draws from ``generator``: per level a dict with
+    "match" (the random matcher's points (B, V, P, 2)) and "mask" (the
+    mask loss's grid jitter (2,), or ``uncertain_point_coords``' two
+    uniform draws over the (B, T, V) rows), in the order the criterion
+    uses them (the matcher's points of every level, then each level's
+    mask draw).  Under a data ``group`` of n ranks each draw is that of
+    the global batch of n·B items, cut to this rank's rows: every rank
+    draws the same numbers from the same generator."""
+    n, r = group_size(group), group_index(group)
+    B, V = levels[0][1].shape[:2]
+    T = targets.labels.shape[1]
+    dev = targets.masks.device
+
+    def rows(shape, per_item):
+        full = torch.rand((n * shape[0], *shape[1:]), generator=generator,
+                          device=dev)
+        return full[r * per_item * B:(r + 1) * per_item * B]
+
+    draws = [{} for _ in levels]
+    if c.matcher_sampling != "grid":
+        for d in draws:
+            d["match"] = rows((B, V, c.num_points, 2), 1)
+    for d in draws:
+        if c.loss_sampling == "grid":
+            d["mask"] = torch.rand((2,), generator=generator,
+                                   device=dev) - 0.5
+        else:
+            n_unc = int(c.importance_sample_ratio * c.num_points)
+            d["mask"] = (
+                rows((B * T * V, int(c.num_points * c.oversample_ratio), 2),
+                     T * V),
+                rows((B * T * V, c.num_points - n_unc, 2), T * V))
+    return draws
+
+
 def set_criterion(outputs: dict, targets: Targets, c: PanopticLossConfig,
                   generator: Optional[torch.Generator] = None,
-                  draws: Optional[list] = None, details: bool = False):
+                  draws: Optional[list] = None, details: bool = False,
+                  group=None):
     """Losses over the final and aux outputs.  ``draws``: per level a dict
     with "match" (the random matcher's points) and "mask" (the mask
-    loss's draw), else drawn from ``generator``.  Returns the loss dict
-    and, with ``details``, also the assignments (L, B, T)."""
-    num_masks = torch.clamp(targets.valid.sum().float(), min=1.0)
-    label_loss = (_loss_labels_sigmoid if c.label_mode == "sigmoid"
-                  else _loss_labels_softmax)
+    loss's draw), else drawn from ``generator``.  ``group``: the data
+    axis this rank's batch is a slice of (the losses are then this rank's
+    shares).  Returns the loss dict and, with ``details``, also the
+    assignments (L, B, T)."""
+    num_masks = torch.clamp(
+        all_reduce(targets.valid.sum().float(), group), min=1.0)
+    label_loss = _loss_labels_sigmoid
+    if c.label_mode != "sigmoid":
+        def label_loss(*args):
+            return _loss_labels_softmax(*args, group=group)
     levels = _levels(outputs)
     if draws is None:
-        draws = [{} for _ in levels]
-        if c.matcher_sampling != "grid":
-            B, V = levels[0][1].shape[:2]
-            for d in draws:
-                d["match"] = torch.rand(
-                    (B, V, c.num_points, 2), generator=generator,
-                    device=targets.masks.device)
+        draws = draw_levels(levels, targets, c, generator, group)
     tgt_pts = None
     if c.matcher_sampling == "grid":    # the same targets at every level
         tgt_pts = _grid_points(targets.masks.float(), _grid_shape(
@@ -297,7 +339,7 @@ def set_criterion(outputs: dict, targets: Targets, c: PanopticLossConfig,
     for i, ((logits, masks), d) in enumerate(zip(levels, draws)):
         l_ce = label_loss(logits, targets, assign[i], num_masks, c)
         l_mask, l_dice = _loss_masks(masks, targets, assign[i], num_masks, c,
-                                     d.get("mask"), generator)
+                                     d["mask"])
         suffix = "" if i == 0 else f"_{i - 1}"
         for name, val in zip(names, (l_ce, l_mask, l_dice)):
             losses[name + suffix] = val
@@ -307,11 +349,13 @@ def set_criterion(outputs: dict, targets: Targets, c: PanopticLossConfig,
 def panoptic_loss(outputs: dict, targets: Targets,
                   c: PanopticLossConfig = PanopticLossConfig(),
                   generator: Optional[torch.Generator] = None,
-                  draws: Optional[list] = None):
+                  draws: Optional[list] = None, group=None):
     """Weighted total and the details dict (every loss, the total as
-    ``panoptic_loss`` and the assignments as ``assign`` (L, B, T))."""
+    ``panoptic_loss`` and the assignments as ``assign`` (L, B, T)).  With
+    a data ``group`` these are this rank's shares of the global-batch
+    losses (their sum over the group)."""
     losses, assign = set_criterion(outputs, targets, c, generator, draws,
-                                   details=True)
+                                   details=True, group=group)
     weights = {"loss_ce": c.class_weight, "loss_mask": c.mask_weight,
                "loss_dice": c.dice_weight}
     total = torch.zeros((), device=targets.masks.device)

@@ -12,8 +12,10 @@ panst3r_tpu/engine/fusion.py).
 - ``qubo_fusion``: query-subset selection as a QUBO (``qubo_weights``),
   solved by simulated annealing with parallel restarts
   (``solve_qubo_sa``), then an argmax instance map.
-
-Sharded fusion waits for a later slice.
+- ``fusion_sharded``: the standard fusion with the views split over the
+  ranks of a group; the per-query area sums, the only coupling across
+  views, are summed over the group as integers, so every rank selects the
+  same queries as ``_fusion_full`` does, bit for bit.
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from panst3r_torch.core.mesh import all_reduce, group_size, local_slice
 from panst3r_torch.ops.image import resize, resize_bilinear_hw
 
 
@@ -54,12 +57,14 @@ def _fusion_scores(mask_cls, mask_pred, true_shape, label_mode, cls_threshold,
 
 
 def _fusion_iters(masks, scores, keep, labels, mask_threshold,
-                  overlap_threshold, niters, void_confidence):
+                  overlap_threshold, niters, void_confidence, group=None):
     """Iterated argmax fusion; returns (pan (B, V, H, W) int32, conf,
-    seg_ids (B, Q), labels, selected (B, Q))."""
+    seg_ids (B, Q), labels, selected (B, Q)).  With ``group`` the views
+    are this rank's share of the scene's: the per-query areas are summed
+    over the group (integers: the order of the sum does not matter)."""
     pm = masks.permute(0, 2, 1, 3, 4)                   # (B, Q, V, H, W)
     prob_masks = pm * scores.to(pm.dtype)[:, :, None, None, None]
-    orig_area = (pm >= 0.5).sum((2, 3, 4))              # (B, Q)
+    orig_area = all_reduce((pm >= 0.5).sum((2, 3, 4)), group)  # (B, Q)
     alive = keep
     winner = pm_win = selected = pix_assigned = None
     neg_inf = torch.tensor(float("-inf"), dtype=pm.dtype, device=pm.device)
@@ -69,8 +74,9 @@ def _fusion_iters(masks, scores, keep, labels, mask_threshold,
         pm_win = torch.gather(pm, 1, winner[:, None])[:, 0]
         alive_win = torch.gather(alive, 1, winner.flatten(1)).view_as(winner)
         win_valid = (pm_win >= mask_threshold) & alive_win
-        mask_area = torch.zeros_like(orig_area).scatter_add_(
-            1, winner.flatten(1), win_valid.flatten(1).to(orig_area.dtype))
+        mask_area = all_reduce(torch.zeros_like(orig_area).scatter_add_(
+            1, winner.flatten(1), win_valid.flatten(1).to(orig_area.dtype)),
+            group)
         selected = (alive & (mask_area > 0) & (orig_area > 0)
                     & (mask_area / orig_area.clamp(min=1)
                        >= overlap_threshold))
@@ -95,6 +101,27 @@ def _fusion_full(mask_cls, mask_pred, true_shape, label_mode, cls_threshold,
         temperature)
     return _fusion_iters(masks, scores, keep, labels, mask_threshold,
                          overlap_threshold, niters, void_confidence)
+
+
+def fusion_sharded(mask_cls, mask_pred, true_shape: tuple[int, int], group,
+                   label_mode: str = "sigmoid", cls_threshold: float = 0.1,
+                   temperature=None, mask_threshold: float = 0.25,
+                   overlap_threshold: float = 0.5, niters: int = 2,
+                   void_confidence: float = 0.1):
+    """View-sharded fusion: mask_cls (B, Q, ncls) and mask_pred
+    (B, V, Q, h, w) as every rank of ``group`` holds them; each rank
+    upsamples and fuses its V/n views (``local_slice``), and the area sums
+    are integer all-reduces.  Returns (pan, conf) of this rank's views
+    (B, V/n, H, W) and (seg_ids, labels, selected) (B, Q), equal on every
+    rank; ``all_gather_cat`` along dim 1 rebuilds ``_fusion_full``'s
+    maps, bit for bit."""
+    V, n = mask_pred.shape[1], group_size(group)
+    assert V % n == 0, f"views {V} not divisible by the group's {n} ranks"
+    masks, scores, labels, keep = _fusion_scores(
+        mask_cls, local_slice(mask_pred, 1, group), tuple(true_shape),
+        label_mode, cls_threshold, temperature)
+    return _fusion_iters(masks, scores, keep, labels, mask_threshold,
+                         overlap_threshold, niters, void_confidence, group)
 
 
 def _fusion_presigmoid(mask_cls, masks, label_mode, cls_threshold,

@@ -39,6 +39,15 @@ launches as often as for one scene; one wire per scene.  Every input may
 be packed YUV420 (``ops/image.py``).  ``stage_flops`` / ``pipeline_flops``
 count a scene's matmul work for MFU (``ops/flops.py``).
 
+Over a mesh (``core/mesh.py``): a tensor-parallel model
+(``core/tp.py::apply_tp``) serves as it is; ``run_device`` and
+``serve_device`` take the mesh's ``mem`` group (``mem_group``): the
+memory bank is built split over it, each rank holding its slice of the
+capacity, and the decoder gathers the slices before K2
+(``models/memory.py``); ``serve_many_device`` takes its ``data`` group
+(``data_group``), runs this rank's share of the scenes and all-gathers the
+wires.
+
 ``MultiBucketEngine`` runs a scene whose views lie in different resolution
 buckets (mixed aspect ratios): one ``InferenceEngine`` per bucket over one
 shared model, one token memory shared by every bucket's keyframes (tokens
@@ -48,6 +57,7 @@ keyframe tokens.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import queue as _queue
 import threading
@@ -58,6 +68,7 @@ import torch
 
 from panst3r_torch.core.bucketing import Bucket
 from panst3r_torch.core.device import resolve_device, tick
+from panst3r_torch.core.mesh import all_gather_cat, local_slice
 from panst3r_torch.models import memory as memlib
 from panst3r_torch.models.decoder import postprocess
 from panst3r_torch.models.panst3r import PanSt3R
@@ -80,6 +91,8 @@ class InferenceEngine:
     # the trained retrieval head (``engine/retrieval.py::RetrievalHead``)
     # for ``run_device(use_retrieval=True)``; None: pooled cosine
     retrieval_head: object = None
+    # the mesh's mem axis of the call in flight (``_mem_sharded``)
+    _mem_group = None
 
     def __post_init__(self):
         c = self.model.config
@@ -94,6 +107,16 @@ class InferenceEngine:
 
     def _tick(self, times, name, t0):
         return tick(times, name, t0, self.device)
+
+    @contextlib.contextmanager
+    def _mem_sharded(self, group):
+        """``build_memory`` splits the banks over the ``mem`` group for one
+        call."""
+        self._mem_group = group
+        try:
+            yield
+        finally:
+            self._mem_group = None
 
     def _chunks(self, V: int):
         step = min(self.chunk, V)
@@ -132,7 +155,8 @@ class InferenceEngine:
         def one_build(feedback):
             mem = memlib.init_memory(c.decoder.depth, S, K * self.n_tokens,
                                      c.decoder.dim, dtype=self.dtype,
-                                     device=self.device)
+                                     device=self.device,
+                                     group=self._mem_group)
             start = 0
             for nb in c.mem_batches(K):
                 part = slice(start, start + nb)
@@ -167,11 +191,22 @@ class InferenceEngine:
         pm, y = torch.cat(pms, 1), torch.cat(ys, 1)
         return (pm, y) if batched else (pm[0], y[0])
 
-    @torch.inference_mode()
     def run_device(self, images, portrait, cls_embeddings,
                    num_keyframes: Optional[int] = None,
                    stage_times: Optional[dict] = None,
-                   use_retrieval: bool = False) -> dict:
+                   use_retrieval: bool = False, mem_group=None) -> dict:
+        """``_run_device`` (below); ``mem_group``: the mesh's mem axis, over
+        which the memory bank is split (``models/memory.py``)."""
+        with self._mem_sharded(mem_group):
+            return self._run_device(images, portrait, cls_embeddings,
+                                    num_keyframes, stage_times,
+                                    use_retrieval)
+
+    @torch.inference_mode()
+    def _run_device(self, images, portrait, cls_embeddings,
+                    num_keyframes: Optional[int] = None,
+                    stage_times: Optional[dict] = None,
+                    use_retrieval: bool = False) -> dict:
         """Device-resident pipeline.  images (V, H, W, 3) uint8 or float
         ([-1, 1]); portrait (V,) bool; cls_embeddings (ncls, lang_dim).
         Returns device tensors {pointmaps_raw (V, H, W, 7), pred_logits
@@ -417,19 +452,22 @@ class InferenceEngine:
                      num_keyframes: Optional[int] = None,
                      label_mode: str = "sigmoid", niters: int = 2,
                      fusion_res: str = "full", with_cameras: bool = False,
-                     keyframe_mode: str = "linspace") -> torch.Tensor:
+                     keyframe_mode: str = "linspace",
+                     mem_group=None) -> torch.Tensor:
         """Whole scene → packed wire (a device tensor); fetch it with
         ``fetch_wire`` and decode with ``unpack_wire``.  ``images``
         (V, H, W, 3) uint8 or packed YUV420 (V, H·3/2, W); ``portrait`` and
         ``cls_embeddings`` may be staged on the device once by the caller.
         ``with_cameras`` appends the recovered focals and cam2world poses
         as f32 bytes; ``keyframe_mode="retrieval"`` selects keyframes on
-        the device and ships them."""
+        the device and ships them.  ``mem_group``: the mesh's mem axis,
+        over which the memory bank is split."""
         V = images.shape[0]
         K = min(num_keyframes or self.num_keyframes, V)
         portrait, cls_emb = self._scene_args(portrait, cls_embeddings)
-        out = self._fused(self._upload(images), portrait, cls_emb, K,
-                          keyframe_mode)
+        with self._mem_sharded(mem_group):
+            out = self._fused(self._upload(images), portrait, cls_emb, K,
+                              keyframe_mode)
         return self._pack_wire(out, cls_emb, V, label_mode, niters,
                                fusion_res, with_cameras, keyframe_mode)
 
@@ -547,7 +585,8 @@ class InferenceEngine:
                           num_keyframes: Optional[int] = None,
                           label_mode: str = "sigmoid", niters: int = 2,
                           fusion_res: str = "full",
-                          with_cameras: bool = False) -> torch.Tensor:
+                          with_cameras: bool = False,
+                          data_group=None) -> torch.Tensor:
         """S scenes as one batch: ``scenes`` (S, V, H, W, 3) uint8 or
         packed YUV420 (S, V, H·3/2, W), ``portrait`` (S, V); linspace
         keyframes shared by every scene.  The towers run once over all S·V
@@ -555,7 +594,11 @@ class InferenceEngine:
         batch S (the stages a single scene leaves at batch 1), so each
         kernel launches as often as for one scene.  Fusion and packing run
         per scene.  Returns the (S, L) device wires, row s equal to
-        ``serve_device`` of scene s."""
+        ``serve_device`` of scene s.  ``data_group``: the mesh's data axis;
+        each rank runs its S/n scenes (``local_slice``) and the wires are
+        all-gathered, so every rank returns all S."""
+        scenes = local_slice(torch.as_tensor(scenes), 0, data_group)
+        portrait = local_slice(torch.as_tensor(portrait), 0, data_group)
         S, V = scenes.shape[:2]
         K = min(num_keyframes or self.num_keyframes, V)
         portrait, cls_emb = self._scene_args(portrait, cls_embeddings)
@@ -564,10 +607,10 @@ class InferenceEngine:
         out = self._pipeline_tail(
             *(t.reshape(S, V, *t.shape[1:]) for t in towers),
             portrait.reshape(S, V), cls_emb, K)
-        return torch.stack([
+        return all_gather_cat(torch.stack([
             self._pack_wire({k: v[s] for k, v in out.items()}, cls_emb, V,
                             label_mode, niters, fusion_res, with_cameras,
-                            "linspace") for s in range(S)])
+                            "linspace") for s in range(S)]), 0, data_group)
 
     def stage_flops(self, V: int, num_keyframes: Optional[int] = None
                     ) -> dict:

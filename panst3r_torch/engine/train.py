@@ -19,8 +19,16 @@
 
 The model's parameters are updated in place; the optimizer (its moments,
 accumulator and counters, ``Optimizer.state_dict``) is the rest of the
-training state, which ``apps/train.py`` checkpoints and resumes.  The
-data-parallel mesh of the JAX package waits for the multi-GPU slice.
+training state, which ``apps/train.py`` checkpoints and resumes.
+
+Data parallelism (``make_train_step(data_group=...)``, the mesh's
+``data`` axis): each rank runs its slice of the global batch, its loss is
+its share of the global-batch loss (``engine/criterion.py``), the
+gradients are summed over the group before the optimizer, and the loss
+and its details returned are the global ones, equal on every rank — the
+update of one process on the whole batch.  A tensor-parallel model
+(``core/tp.py``) trains the same way; ``Optimizer``'s gradient clipping
+then sums the split parameters' squares over its ``tp_group``.
 """
 from __future__ import annotations
 
@@ -35,6 +43,7 @@ import torch
 from panst3r_torch.core import config as cfg
 from panst3r_torch.core import rng
 from panst3r_torch.core.device import tick
+from panst3r_torch.core.mesh import all_reduce
 from panst3r_torch.engine.criterion import (PanopticLossConfig, Targets,
                                             panoptic_loss)
 
@@ -116,8 +125,11 @@ class Optimizer:
     micro-steps; the schedule runs over updates."""
 
     def __init__(self, params: dict, config: TrainConfig, world_size: int,
-                 steps_per_epoch: int):
+                 steps_per_epoch: int, tp_group=None, tp_split=()):
         self.params = params
+        # tensor parallelism: the names of the parameters split over
+        # ``tp_group`` (their squares are summed over it for the clip)
+        self.tp_group, self.tp_split = tp_group, set(tp_split)
         self.config = config
         self.k = max(config.accum_iter, 1)
         self.schedule = cosine_lr(config, world_size,
@@ -186,7 +198,13 @@ class Optimizer:
         c = self.config
         b1, b2 = c.betas
         if c.clip_grad:
-            norm = torch.sqrt(sum((g * g).sum() for g in grads.values()))
+            sq = {n: (g * g).sum() for n, g in grads.items()}
+            norm = sum(v for n, v in sq.items() if n not in self.tp_split)
+            split = [v for n, v in sq.items() if n in self.tp_split]
+            if split:
+                norm = norm + all_reduce(torch.stack(split).sum(),
+                                         self.tp_group)
+            norm = torch.sqrt(norm)
             grads = {n: torch.where(norm < c.clip_grad, g,
                                     g / norm * c.clip_grad)
                      for n, g in grads.items()}
@@ -233,12 +251,29 @@ def batch_to(batch: dict, device) -> dict:
             "targets": Targets(*(t(a) for a in tg))}
 
 
+def _sum_grads(params, group) -> None:
+    """Every gradient summed over ``group``, in one flat buffer per dtype
+    (one collective each)."""
+    by_dtype: dict = {}
+    for p in params:
+        if p.grad is not None:
+            by_dtype.setdefault(p.grad.dtype, []).append(p)
+    for ps in by_dtype.values():
+        flat = all_reduce(torch.cat([p.grad.reshape(-1) for p in ps]), group)
+        for p, g in zip(ps, flat.split([p.numel() for p in ps])):
+            p.grad.copy_(g.view_as(p.grad))
+
+
 def make_train_step(model: torch.nn.Module, optimizer: Optimizer,
                     loss_config: PanopticLossConfig, grid: tuple[int, int],
-                    amp: Optional[str] = None):
+                    amp: Optional[str] = None, data_group=None):
     """step(batch, cls_embeddings, generator=None, draws=None,
     stage_times=None) → (loss, details): one micro-step on a batch of
     device tensors (images (B, V, H, W, 3) f32, portrait (B, V), targets).
+    ``data_group``: the data axis the batch is this rank's slice of; the
+    generator is the same on every rank (the global batch's draws are
+    cut to this rank's rows) and the gradients, the loss and the scalar
+    details are summed over the group.
     Only the optimizer's parameters get gradients.  amp='bf16' casts the
     images to bf16 (the frozen bf16 towers then compute in bf16, the f32
     head promotes back) and runs the forward, the loss and the backward
@@ -246,10 +281,15 @@ def make_train_step(model: torch.nn.Module, optimizer: Optimizer,
     seconds of frozen_forward, head_forward, criterion, backward and
     optimizer (the device is synchronized at each boundary only when it is
     given)."""
+    from panst3r_torch.models.upscalers.loftup import MinMaxScaler
+
     train = set(optimizer.params.values())
     for p in model.parameters():
         p.requires_grad_(p in train)
     device = next(model.parameters()).device
+    for m in model.modules():
+        if isinstance(m, MinMaxScaler):    # LoftUp's image extremes
+            m.group = data_group
 
     def step(batch, cls_embeddings, generator=None, draws=None,
              stage_times=None):
@@ -271,16 +311,22 @@ def make_train_step(model: torch.nn.Module, optimizer: Optimizer,
                                   grid)
                 t.append(tick(stage_times, None, t[-1], device))
                 total, details = panoptic_loss(panout, batch["targets"],
-                                               loss_config, generator, draws)
+                                               loss_config, generator, draws,
+                                               group=data_group)
                 t.append(tick(stage_times, "criterion", t[-1], device))
                 total.backward()
+            if data_group is not None:
+                _sum_grads(optimizer.params.values(), data_group)
             t.append(tick(stage_times, "backward", t[-1], device))
         finally:
             for h in hooks:
                 h.remove()
         optimizer.step()
         tick(stage_times, "optimizer", t[-1], device)
-        return total.detach(), {k: v.detach() for k, v in details.items()}
+        details = {k: (all_reduce(v.detach().clone(), data_group)
+                       if v.ndim == 0 else v.detach())
+                   for k, v in details.items()}
+        return details["panoptic_loss"], details
 
     return step
 

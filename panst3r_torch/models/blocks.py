@@ -7,7 +7,10 @@ LayerNorm states its eps: flax's default is 1e-6, torch's 1e-5.
 Attention routing mirrors the JAX blocks: a tower shape (d=64 heads, the
 ``supports_tower_*`` gates) goes to K1/K2; other shapes take the JAX
 package's generic path (``ops/attention.py``): plain attention for tiny
-shapes, K4 otherwise.
+shapes, K4 otherwise.  Under tensor parallelism (``core/tp.py``) the
+projections hold this rank's heads and ``num_heads`` counts them, so the
+widths are read from the projections' outputs and the gates see the local
+shape.
 """
 from __future__ import annotations
 
@@ -57,14 +60,15 @@ class SelfAttention(nn.Module):
                  rope_base: Optional[float] = 100.0):
         super().__init__()
         self.num_heads = num_heads
+        self.head_dim = dim // num_heads
         self.rope_base = rope_base
         self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
         self.proj = nn.Linear(dim, dim)
 
     def forward(self, x, tabs=None):
         """x (B, N, C); tabs: (cos, sin) (B, N, D) f32 RoPE tables."""
-        C = x.shape[-1]
         qkv = self.qkv(x)
+        C = qkv.shape[-1] // 3     # this rank's heads under TP
         t = tabs if self.rope_base is not None else None
         if supports_tower_attention(x.shape[1], C, self.num_heads):
             return self.proj(tower_self_attention(qkv, self.num_heads,
@@ -93,8 +97,8 @@ class CrossAttention(nn.Module):
         self.proj = nn.Linear(dim, dim)
 
     def forward(self, x, key, value, bias=None, qtab=None, ktab=None):
-        C = x.shape[-1]
         q, k, v = self.projq(x), self.projk(key), self.projv(value)
+        C = q.shape[-1]            # this rank's heads under TP
         if self.rope_base is None:
             qtab = ktab = None
         per_key = (bias is not None and bias.ndim == 4
@@ -154,7 +158,7 @@ class DecoderBlock(nn.Module):
         memory tokens; mem_pos (B, M, 2); mem_bias (B, 1, 1, M)."""
         tabs_x = tabs_mem = None
         if self.attn.rope_base is not None:
-            hd = x.shape[-1] // self.attn.num_heads
+            hd = self.attn.head_dim
             tabs_x = rope2d_tables(xpos, hd, self.attn.rope_base)
             tabs_mem = rope2d_tables(mem_pos, hd, self.attn.rope_base)
         x = x + self.attn(self.norm1(x), tabs=tabs_x)

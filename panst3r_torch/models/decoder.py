@@ -13,6 +13,13 @@ validity bias.  With ``feedback_feats`` (a refinement pass, feedback type
 previous pass rendered; without them the MLP is not run (checkpoints carry
 its parameters either way).  The flax scan stack ``layers/*`` becomes
 ``layers.<i>``.
+
+A memory split over the mesh's ``mem`` axis (``TokenMemory.group``, the
+counterpart of the JAX decoder's ``kv_shard`` constraint) holds only this
+rank's slots: before each layer's cross-attention the ranks' slices of
+that layer's bank are all-gathered (``TokenMemory.whole``) and K2 runs
+over the whole bank, so the result has the bits of one device; an update
+writes only this rank's slots of the new tokens.
 """
 from __future__ import annotations
 
@@ -111,23 +118,24 @@ class MemoryDecoder(nn.Module):
 
         flat_pos = pos.reshape(B, V * N, 2)
         hd = c.dim // c.num_heads
-        mem_bias = memory_mask_bias(mem.valid)
+        mem_pos = mem.whole(mem.pos)
+        mem_bias = memory_mask_bias(mem.whole(mem.valid))
         tabs_self = rope2d_tables(pos.reshape(B * V, N, 2), hd, c.rope_base)
         tabs_q = rope2d_tables(flat_pos, hd, c.rope_base)
         if render:
             bias = mem_bias
-            ktab = rope2d_tables(mem.pos, hd, c.rope_base)
+            ktab = rope2d_tables(mem_pos, hd, c.rope_base)
         else:
             zeros = torch.zeros((B, 1, 1, V * N), dtype=mem_bias.dtype,
                                 device=mem_bias.device)
             bias = torch.cat([mem_bias, zeros], dim=-1)
-            ktab = rope2d_tables(torch.cat([mem.pos, flat_pos], dim=1), hd,
+            ktab = rope2d_tables(torch.cat([mem_pos, flat_pos], dim=1), hd,
                                  c.rope_base)
 
         new_y = []
         for li, layer in enumerate(self.layers):
-            x, y_cur = layer(x, mem.y[li], tabs_self, tabs_q, ktab, bias,
-                             render)
+            x, y_cur = layer(x, mem.whole(mem.y[li]), tabs_self, tabs_q,
+                             ktab, bias, render)
             new_y.append(y_cur)
         feats = self.norm(x)
         if not render:

@@ -54,11 +54,11 @@ class SplitClsSelfAttention(nn.Module):
         self.proj = nn.Linear(dim, dim)
 
     def forward(self, x, c):
-        C = x.shape[-1]
-        H = self.num_heads
-        D = C // H
         qkv_x = self.qkv(x)
         qkv_c = self.qkv(c)
+        C = qkv_x.shape[-1] // 3   # this rank's heads under TP
+        H = self.num_heads
+        D = C // H
         if supports_tower_attention(x.shape[1], C, H):
             out_p = tower_self_attention(
                 qkv_x, H, cls_kv=(qkv_c[..., C:2 * C].contiguous(),

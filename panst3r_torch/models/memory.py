@@ -9,7 +9,13 @@ panst3r_tpu/models/memory.py).
             slot);
 - ``count`` the write cursor (a Python int): the number of occupied slots,
   except inside a ring-reuse window (``begin_overwrite`` moves it to the
-  freed slots, ``end_overwrite`` restores it).
+  freed slots, ``end_overwrite`` restores it);
+- ``group`` the mesh's ``mem`` axis the banks are split over along their
+  capacity (None: whole).  Each rank then holds slots ``[r·c, (r+1)·c)``
+  of ``c = capacity / n`` in ``y``, ``pos`` and ``valid``, the writes
+  below keep only the slots of this rank (slot numbers, ``count`` and
+  ``capacity`` stay global), and ``whole`` all-gathers a bank for the
+  decoder's cross-attention, which runs over all of it.
 
 Unlike the JAX version, which returns a new immutable pytree, ``insert``
 and the edits below (``evict``, ``insert_at``, ``begin_overwrite``,
@@ -23,8 +29,12 @@ insert reuses them.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
+
+from panst3r_torch.core.mesh import (Group, gather_slices, group_index,
+                                     group_size)
 
 
 @dataclasses.dataclass
@@ -33,21 +43,48 @@ class TokenMemory:
     pos: torch.Tensor
     valid: torch.Tensor
     count: int = 0
+    group: Optional[Group] = None
 
     @property
     def capacity(self) -> int:
-        return self.y.shape[2]
+        return self.y.shape[2] * group_size(self.group)
+
+    def whole(self, bank: torch.Tensor) -> torch.Tensor:
+        """``bank`` (``pos``, ``valid`` or one layer of ``y``: capacity at
+        dim 1) with every rank's slots."""
+        return gather_slices(bank, 1, self.group)
 
 
 def init_memory(num_layers: int, batch: int, capacity: int, dim: int,
-                dtype=torch.float32, device=None) -> TokenMemory:
+                dtype=torch.float32, device=None,
+                group: Optional[Group] = None) -> TokenMemory:
+    """Empty banks of ``capacity`` slots, split over ``group`` when one is
+    given (the capacity must divide by its size)."""
+    n = group_size(group)
+    if capacity % n:
+        raise ValueError(f"a memory of {capacity} slots does not split "
+                         f"over {n} ranks")
+    capacity //= n
     return TokenMemory(
         y=torch.zeros((num_layers, batch, capacity, dim), dtype=dtype,
                       device=device),
         pos=torch.zeros((batch, capacity, 2), dtype=torch.int32,
                         device=device),
         valid=torch.zeros((batch, capacity), dtype=torch.bool, device=device),
-        count=0)
+        count=0, group=group)
+
+
+def _window(mem: TokenMemory, start: int, n: int) -> tuple[slice, slice]:
+    """The global slots [start, start + n) that this rank holds: (their
+    columns in the ``n`` written, their local slots)."""
+    if start < 0 or start + n > mem.capacity:
+        raise ValueError(f"slots [{start}, {start + n}) outside the "
+                         f"memory's {mem.capacity}")
+    size = mem.y.shape[2]
+    off = group_index(mem.group) * size
+    lo = max(start, off)
+    hi = max(lo, min(start + n, off + size))
+    return slice(lo - start, hi - start), slice(lo - off, hi - off)
 
 
 def insert(mem: TokenMemory, y_new: torch.Tensor,
@@ -58,29 +95,24 @@ def insert(mem: TokenMemory, y_new: torch.Tensor,
     s = mem.count
     if s + n > mem.capacity:
         raise ValueError(f"memory full: {s} + {n} > {mem.capacity}")
-    y_new = y_new.to(mem.y.dtype)
+    src, dst = _window(mem, s, n)
+    y_new = y_new[:, :, src].to(mem.y.dtype)
     if y_new.requires_grad:
         # a trained decoder: the banks stay out of place for autograd
-        mem.y = torch.cat([mem.y[:, :, :s], y_new, mem.y[:, :, s + n:]], 2)
+        mem.y = torch.cat([mem.y[:, :, :dst.start], y_new,
+                           mem.y[:, :, dst.stop:]], 2)
     else:
-        mem.y[:, :, s:s + n] = y_new
-    mem.pos[:, s:s + n] = pos_new.to(mem.pos.dtype)
-    mem.valid[:, s:s + n] = True
+        mem.y[:, :, dst] = y_new
+    mem.pos[:, dst] = pos_new[:, src].to(mem.pos.dtype)
+    mem.valid[:, dst] = True
     mem.count = s + n
     return mem
-
-
-def _check_window(mem: TokenMemory, start: int, n: int) -> None:
-    if start < 0 or start + n > mem.capacity:
-        raise ValueError(f"slots [{start}, {start + n}) outside the "
-                         f"memory's {mem.capacity}")
 
 
 def evict(mem: TokenMemory, start: int, n: int) -> TokenMemory:
     """Invalidate ``n`` slots from ``start``, in place.  Protection (which
     views are never evicted) is the caller's policy."""
-    _check_window(mem, start, n)
-    mem.valid[:, start:start + n] = False
+    mem.valid[:, _window(mem, start, n)[1]] = False
     return mem
 
 
@@ -89,10 +121,10 @@ def insert_at(mem: TokenMemory, y_new: torch.Tensor, pos_new: torch.Tensor,
     """Overwrite ``n`` slots at ``start`` in place (ring reuse after
     ``evict``); the cursor moves to the window's end if that is further."""
     n = y_new.shape[2]
-    _check_window(mem, start, n)
-    mem.y[:, :, start:start + n] = y_new.to(mem.y.dtype)
-    mem.pos[:, start:start + n] = pos_new.to(mem.pos.dtype)
-    mem.valid[:, start:start + n] = True
+    src, dst = _window(mem, start, n)
+    mem.y[:, :, dst] = y_new[:, :, src].to(mem.y.dtype)
+    mem.pos[:, dst] = pos_new[:, src].to(mem.pos.dtype)
+    mem.valid[:, dst] = True
     mem.count = max(mem.count, start + n)
     return mem
 

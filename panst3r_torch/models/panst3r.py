@@ -73,6 +73,9 @@ class PanSt3R(nn.Module):
         self.panoptic_decoder = PanopticDecoder(
             c.encoder.embed_dim + c.decoder.dim + c.dino.embed_dim,
             c.panoptic)
+        # the mesh's mem axis the training forward splits its memory
+        # over (None: whole on this rank; ``models/memory.py``)
+        self.mem_group = None
 
     # ---- stage methods ----
 
@@ -141,7 +144,8 @@ class PanSt3R(nn.Module):
 
         decoder = stage(self.must3r_decoder, c.freeze_decoder)
         mem = memlib.init_memory(c.decoder.depth, B, V * N, c.decoder.dim,
-                                 dtype=x.dtype, device=x.device)
+                                 dtype=x.dtype, device=x.device,
+                                 group=self.mem_group)
         start = 0
         for nb in c.mem_batches(V):
             mem = decoder(x[:, start:start + nb], pos[:, start:start + nb],

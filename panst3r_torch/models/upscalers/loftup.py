@@ -19,10 +19,12 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from panst3r_torch.core import config as cfg
+from panst3r_torch.core.mesh import all_reduce
 from panst3r_torch.models.blocks import TORCH_LN_EPS, CrossonlyDecoderBlock
 from panst3r_torch.ops.image import resize_bilinear
 
@@ -67,12 +69,20 @@ def _linspace(start: float, stop: float, num: int, nd) -> np.ndarray:
 class MinMaxScaler(nn.Module):
     """Per-channel min-max scaling to [-0.5, 0.5] over batch, H and W: a
     view's output depends on the views that share its call, or with
-    ``groups`` on those of its group (equal runs of the batch)."""
+    ``groups`` on those of its group (equal runs of the batch).  With
+    ``group`` (a data-parallel step's data axis) the batch is a slice of
+    the global batch, and the extremes are taken over all of it."""
+
+    def __init__(self):
+        super().__init__()
+        self.group = None
 
     def forward(self, x, groups: int = 1):
         g = x.reshape(groups, -1, *x.shape[1:])
-        mn = g.amin(dim=(1, 2, 3), keepdim=True)
-        mx = g.amax(dim=(1, 2, 3), keepdim=True)
+        mn = all_reduce(g.amin(dim=(1, 2, 3), keepdim=True), self.group,
+                        dist.ReduceOp.MIN)
+        mx = all_reduce(g.amax(dim=(1, 2, 3), keepdim=True), self.group,
+                        dist.ReduceOp.MAX)
         return ((g - mn) / torch.clamp(mx - mn, min=1e-4) - 0.5).reshape(
             x.shape)
 

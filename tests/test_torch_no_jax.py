@@ -22,6 +22,10 @@ sys.meta_path.insert(0, Refuse())
 import panst3r_torch
 names = [m.name for m in pkgutil.walk_packages(panst3r_torch.__path__,
                                                "panst3r_torch.")]
+# the multi-device layer is among them
+assert {"panst3r_torch.core." + m for m in ("distributed", "mesh", "tp",
+                                            "dryrun")} \
+    | {"panst3r_torch.ops.sharded_attention"} <= set(names)
 for name in names:
     importlib.import_module(name)
 import chip_smoke  # import only: main() is not run

@@ -280,33 +280,46 @@ def test_run_fused_matches_run_device(engines):
         _agree(d, dict(dec, conf=c.repeat(s, 1).repeat(s, 2)), 2.0 / 255)
 
 
-def test_latency_paths_and_stream_match_serve_device(engines):
+LATENCY_KW = {"plain": {},
+              "hybrid_cameras": {"fusion_res": "hybrid",
+                                 "with_cameras": True}}
+
+
+@pytest.mark.parametrize("kw,fn", [
+    *((kw, fn) for kw in LATENCY_KW
+      for fn in ("serve_latency_device", "serve_latency_overlap")),
+    ("stream", None)])
+def test_latency_paths_and_stream_match_serve_device(engines, kw, fn):
     """The chunked latency paths give ``serve_device``'s wire with every
-    option: pan, seg_ids, labels and selected equal, conf within 1/255,
-    cameras within 1e-4 (the towers run per upload chunk, and the CPU's
-    matrix products round a 1-view batch's tokens ~1e-6 apart from a
-    5-view batch's); the stream yields the sequential wires in order,
-    survives an early abandon and raises a failed scene at the consumer."""
+    option (one case per option set and path): pan, seg_ids, labels and
+    selected equal, conf within 1/255, cameras within 1e-4 (the towers run
+    per upload chunk, and the CPU's matrix products round a 1-view batch's
+    tokens ~1e-6 apart from a 5-view batch's); the overlap path with every
+    view a keyframe gives the wire itself; the stream (its own case)
+    yields the sequential wires in order, survives an early abandon and
+    raises a failed scene at the consumer."""
     teng = engines[1]
     images, portrait, cls_emb = _scene(5)
-    for kw in ({}, {"fusion_res": "hybrid", "with_cameras": True}):
+    if kw != "stream":
+        kw = LATENCY_KW[kw]
         cams = kw.get("with_cameras", False)
         want = teng.unpack_wire(teng.serve_device(images, portrait, cls_emb,
                                                   **kw), V, cams)
         for chunk in (1, 2, 4):
-            for fn in (teng.serve_latency_device,
-                       teng.serve_latency_overlap):
-                got = teng.unpack_wire(fn(images, portrait, cls_emb,
-                                          chunk=chunk, **kw), V, cams)
-                _agree(got, want, 1.0 / 255)
-                if cams:
-                    for k in ("focals", "cam2world"):
-                        np.testing.assert_allclose(got[k], want[k],
-                                                   rtol=1e-4, atol=1e-4)
-    w_all = fetch_wire(teng.serve_latency_overlap(images, portrait, cls_emb,
-                                                  num_keyframes=V))
-    np.testing.assert_array_equal(w_all, fetch_wire(teng.serve_device(
-        images, portrait, cls_emb, num_keyframes=V)))
+            got = teng.unpack_wire(getattr(teng, fn)(
+                images, portrait, cls_emb, chunk=chunk, **kw), V, cams)
+            _agree(got, want, 1.0 / 255)
+            if cams:
+                for k in ("focals", "cam2world"):
+                    np.testing.assert_allclose(got[k], want[k],
+                                               rtol=1e-4, atol=1e-4)
+        if fn == "serve_latency_overlap" and not kw:
+            w_all = fetch_wire(teng.serve_latency_overlap(
+                images, portrait, cls_emb, num_keyframes=V))
+            np.testing.assert_array_equal(w_all, fetch_wire(
+                teng.serve_device(images, portrait, cls_emb,
+                                  num_keyframes=V)))
+        return
 
     scenes = [np.roll(images, s + 1, axis=0).copy() for s in range(4)]
     seq = [teng.unpack_wire(teng.serve_device(s, portrait, cls_emb,

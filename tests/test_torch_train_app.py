@@ -214,8 +214,11 @@ def test_train_resumes_bit_equal(tmp_path):
 
 
 def test_unsupported_options_raise(tmp_path):
+    """A mesh over more ranks than the one process there is does not
+    cover the world: ``MeshSpec.resolve``'s ValueError, as in the JAX
+    train app."""
     exp = _experiment(tmp_path, tmp_path / "o", 1)
     for change in (dict(mesh_data=2), dict(mesh_mem=2),
                    dict(mesh_model=2)):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(ValueError, match="does not cover"):
             tapp.train(dataclasses.replace(exp, **change), device="cpu")
