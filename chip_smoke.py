@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phases text,train_app
     python3 chip_smoke.py --phases slam,slam_app,eval
     python3 chip_smoke.py --phases multi_gpu
+    python3 chip_smoke.py --phases tiny,dino_large
 
 Run from the root of a checkout.  It builds the CUDA kernels of
 ``panst3r_torch/csrc`` with nvcc (into the git-ignored
@@ -142,6 +143,20 @@ Run from the root of a checkout.  It builds the CUDA kernels of
    collectives and the data-parallel step.  Any error of a rank fails the
    phase, a collective gloo refuses on a CUDA tensor too (the error is
    printed: that check was not rehearsed on the card);
+20. ``tiny``: the registered ``tiny_config`` and ``tiny_v2_config`` as
+   they are (head dims 16, 12 and 8: every attention on K4 or K3 at a
+   padded head dim, DINO's split cls on K4 with its LSE) at 384x512, V=4,
+   K=3, card against CPU at ``small``'s limits with the launches their
+   call structure implies, and one tiny_v2 train micro-step card against
+   CPU (K5 at 8 and 16); the ``kernels`` phase holds K3, K4 (with tables,
+   with the LSE) and K5 at each head dim of ``PAD_DIMS`` (8, 16, 48, 80,
+   128; cases ``d<D>*``) against their plain versions;
+21. ``dino_large``: v1 at full width and depth at Bucket(480, 640) (1200
+   patches, past K1's 1024: the encoder and the decoder's self-attention
+   on K4 with tables, DINO's split cls on K4 with its LSE, 24 launches a
+   pass), V=8 / K=4, launches as implied; DINO-L alone at depth 2 at that
+   bucket, card against CPU (``DINO_RTOL``); the ``kernels`` phase holds
+   K4 at those calls (``dino_1200_lse``, ``encoder_1200_rope``);
 
 then one ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``.  Any failed phase raises, and the script exits non-zero
@@ -190,6 +205,8 @@ REPLACES = {
     "masked_attn_f32": "panst3r_tpu/ops/pallas/masked_attention.py:119 "
                        "(f32)",
     "flash_fwd": "panst3r_tpu/ops/pallas/flash_attention.py:171",
+    "flash_fwd_bf16": "panst3r_tpu/ops/pallas/flash_attention.py:171 "
+                      "(bf16)",
     "flash_bwd": "panst3r_tpu/ops/pallas/flash_attention_bwd.py:115",
     "flash_bwd_bf16": "panst3r_tpu/ops/pallas/flash_attention_bwd.py:115 "
                       "(bf16)",
@@ -199,7 +216,7 @@ REPLACES = {
 PHASES = ("kernels", "small", "v1", "v2", "train_v2", "serve", "serve_long",
           "ab_packed", "multibucket", "demo", "serve_many", "refine",
           "retrieval_head", "serve_app", "text", "train_app", "slam",
-          "slam_app", "eval", "multi_gpu")
+          "slam_app", "eval", "multi_gpu", "tiny", "dino_large")
 # every kernel runs a Hopper engine in both dtypes: bf16 the wgmma engine
 # (K2-int8 its s8 scores); of the f32 paths (entries ``*_f32`` of the
 # kernels line) K2, K2-int8 and K3 run the 3xTF32 engine in the same
@@ -222,9 +239,10 @@ F32_SOURCE = {"tower_self": "flash_fwd_sm90",
 # K4 in LoftUp's f32 (flax promotes that branch to f32 under amp; the v2
 # scene's 4 views), K5 at train_v2's LoftUp call (B*V = 10 views), the f32
 # K1-K3 in train_v2 (at its shapes), K6 in the A/B tool (bf16, and its f32
-# run); two kernels no path runs (NO_PATH): the f32 K2-int8 (serving is
-# bf16) at the long render, the bf16 K5 (LoftUp runs f32) at LoftUp's
-# training shape
+# run); the bf16 K4 at DINO's split-cls call past 1024 patches (phase
+# dino_large, where the towers run bf16 under amp); two kernels no path
+# runs (NO_PATH): the f32 K2-int8 (serving is bf16) at the long render,
+# the bf16 K5 (LoftUp runs f32) at LoftUp's training shape
 MAIN_CASE = {"tower_self": ("encoder_rope", "bfloat16"),
              "tower_cross": ("render", "bfloat16"),
              "tower_self_f32": ("encoder_train", "float32"),
@@ -234,6 +252,7 @@ MAIN_CASE = {"tower_self": ("encoder_rope", "bfloat16"),
              "masked_attn": ("mask_transformer", "bfloat16"),
              "masked_attn_f32": ("mask_transformer_train", "float32"),
              "flash_fwd": ("loftup", "float32"),
+             "flash_fwd_bf16": ("dino_1200_lse", "bfloat16"),
              "flash_bwd": ("loftup_train_full", "float32"),
              "flash_bwd_bf16": ("loftup_train", "bfloat16"),
              "packed_flash": ("tool", "bfloat16"),
@@ -257,6 +276,14 @@ LOFTUP_TRAIN_FULL = (10, 4, 49152, 768, 96)
 PLAIN_SLICE = 2
 # K4's LSE against its plain version's: f32 logits on both sides
 LSE_RTOL = 1e-4
+# head dims the kernels pad to their instantiations (the tiny presets' 8
+# and 16; 48, 80) and D = 128, each a case of K3, K4 and K5 (``d<D>*``)
+PAD_DIMS = (8, 16, 48, 80, 128)
+# phase dino_large's bucket: 30 x 40 = 1200 patches, past K1's 1024
+DINO_LARGE_HW = (480, 640)
+# DINO-L alone at depth 2 at that bucket, card against CPU (f32, TF32
+# off): max abs error within this share of the output's max |value|
+DINO_RTOL = 1e-4
 # The JAX package's matmul/conv FLOPs of one run_device + fusion scene at
 # 384x512 (preset, V, K): panst3r_tpu's InferenceEngine.pipeline_flops over
 # jax.eval_shape parameters, run on the CPU (the per-stage split is
@@ -532,6 +559,16 @@ def kernel_cases(dtype, dev):
     k2("slam_memory", 1, 768, 64 * 768, valid,
        qpos=_grid_pos(1, 24, 32, dev),
        kpos=_grid_pos(1, 24, 32, dev).repeat(1, 64, 1))
+    # the head dims the kernels pad (PAD_DIMS), drawn last: K4 with tables
+    # and with its LSE at a tiny tower's shape, K3 at the mask
+    # transformer's 200 x 3072 with 4 heads; then DINO-L at phase
+    # dino_large's bucket (K4 with its LSE over 1200 patches, and the
+    # encoder's K4 with tables)
+    for D in PAD_DIMS:
+        cases += _k4_cases(rnd, g, es, dtype, dev, None, head_dim=D)
+        _k3_case(cases, f"d{D}", 3072, rnd, g, es, dev, H=4, D=D,
+                 splits=False)
+    cases += _k4_cases(rnd, g, es, dtype, dev, None, dino=True)
     return cases
 
 
@@ -573,9 +610,11 @@ def _k1_case(cases, label, B, C, H, rope, cls, rnd, g, es, dev,
         bytes=nbytes, warpgroups=ta.cta_warpgroups(B, H, N)))
 
 
-def _k3_case(cases, label, Nk, rnd, g, es, dev, B=1):
-    """Appends K3's case at (B, 8, 200, Nk), D=96 (each batch with spans of
-    its own); returns its mask."""
+def _k3_case(cases, label, Nk, rnd, g, es, dev, B=1, H=8, D=96,
+             splits=True):
+    """Appends K3's case at (B, H, 200, Nk), by default 8 heads of D=96
+    (each batch with spans of its own); returns its mask.  ``splits``:
+    time each split of SPLIT_TILES_TRIED too."""
     import torch
     import torch.nn.functional as F
 
@@ -584,7 +623,7 @@ def _k3_case(cases, label, Nk, rnd, g, es, dev, B=1):
     def f32(t):
         return t.float()
 
-    H, Nq, D = 8, 200, 96
+    Nq = 200
     q, k = rnd(B, H, Nq, D, s=QK_STD), rnd(B, H, Nk, D, s=QK_STD)
     v = rnd(B, H, Nk, D)
     blocked = torch.ones(B, Nq, Nk, dtype=torch.bool, device=dev)
@@ -611,7 +650,9 @@ def _k3_case(cases, label, Nk, rnd, g, es, dev, B=1):
             q, k, v, attn_mask=~blocked[:, None]),
         pallas_sums=lambda: _masked_mha_pallas_sums(q, k, v, blocked),
         flops=4.0 * H * live_tiles * 64 * 64 * D, bytes=nbytes,
-        splits=ma.max_splits(Nk), warpgroups=1))
+        warpgroups=1))
+    if splits:
+        cases[-1]["splits"] = ma.max_splits(Nk)
     return blocked
 
 
@@ -754,13 +795,18 @@ def _sliced(fn, n: int, *ts):
     return torch.cat(parts)
 
 
-def _k4_cases(rnd, g, es, dtype, dev, blocked, full=False, text=False):
+def _k4_cases(rnd, g, es, dtype, dev, blocked, full=False, text=False,
+              head_dim=None, dino=False):
     """K4 at the v2 LoftUp shape (split-heads views of the projections, as
     the block passes them), with ragged dead keys, with the dense
     mask-transformer bias, with RoPE tables and with the LSE; with
     ``full``, only at train_v2's LoftUp batch (its plain version per slice
     of PLAIN_SLICE views); with ``text``, only at the SigLIP text tower's
-    call over the demo's class prompts (phase text)."""
+    call over the demo's class prompts (phase text); with ``head_dim``,
+    only at that head dim, with tables and with the LSE (4 views x 4 heads
+    x 768 tokens: a tiny preset's tower); with ``dino``, only at phase
+    dino_large's shapes (4 views x 16 heads x 1200 patches of 64: DINO's
+    split-cls call with its LSE, and the encoder's with tables)."""
     import torch
     import torch.nn.functional as F
 
@@ -819,6 +865,26 @@ def _k4_cases(rnd, g, es, dtype, dev, blocked, full=False, text=False):
                      heads(B, N, H, D, QK_STD), heads(B, N, H, D),
                      bias=bias, live_keys=int(mask.sum()),
                      lib_mask=(mask > 0)[:, None, None, :])]
+    if head_dim is not None:
+        B, H, N, D = 4, 4, 768, head_dim
+        tabs = rope2d_tables(_grid_pos(B, 24, 32, dev), D)
+        return [case(f"d{D}_rope", heads(B, N, H, D, QK_STD),
+                     heads(B, N, H, D, QK_STD), heads(B, N, H, D),
+                     rope=(*tabs, *tabs)),
+                case(f"d{D}_lse", heads(B, N, H, D, QK_STD),
+                     heads(B, N, H, D, QK_STD), heads(B, N, H, D),
+                     with_lse=True)]
+    if dino:
+        B, H, D = 4, 16, 64
+        gh, gw = DINO_LARGE_HW[0] // 16, DINO_LARGE_HW[1] // 16
+        N = gh * gw
+        tabs = rope2d_tables(_grid_pos(B, gh, gw, dev), D)
+        return [case("dino_1200_lse", heads(B, N, H, D, QK_STD),
+                     heads(B, N, H, D, QK_STD), heads(B, N, H, D),
+                     with_lse=True),
+                case("encoder_1200_rope", heads(B, N, H, D, QK_STD),
+                     heads(B, N, H, D, QK_STD), heads(B, N, H, D),
+                     rope=(*tabs, *tabs))]
     if full:        # f32 only: the f32 plain version is the reference
         B, H, Nq, Nk, D = LOFTUP_TRAIN_FULL
         return [case("loftup_train_full", heads(B, Nq, H, D, QK_STD),
@@ -929,6 +995,14 @@ def k5_cases(dtype, dev):
         case("loftup_train_full", heads(B, Nq, H, D, QK_STD),
              heads(B, Nk, H, D, QK_STD), heads(B, Nk, H, D),
              slices=PLAIN_SLICE)
+    # the head dims K5 pads (PAD_DIMS), drawn last: 2 views x 4 heads x
+    # 768 tokens with RoPE tables (a tiny preset's mixer, LoftUp at 8)
+    for D in PAD_DIMS:
+        B, H, N = 2, 4, 768
+        tabs = rope2d_tables(_grid_pos(B, 24, 32, dev), D)
+        case(f"d{D}_rope", heads(B, N, H, D, QK_STD),
+             heads(B, N, H, D, QK_STD), heads(B, N, H, D),
+             rope=(*tabs, *tabs))
     return cases
 
 
@@ -1332,11 +1406,11 @@ def _config(preset: str, depth=None):
                    cfg.panoptic.mask_transformer, dec_layers=depth)))
 
 
-def _inputs(V, H=384, W=512, ncls=32):
+def _inputs(V, H=384, W=512, ncls=32, lang_dim=768):
     rng = np.random.default_rng(0)
     return (rng.integers(0, 256, (V, H, W, 3), dtype=np.uint8),
             np.zeros(V, bool),
-            rng.standard_normal((ncls, 768)).astype(np.float32))
+            rng.standard_normal((ncls, lang_dim)).astype(np.float32))
 
 
 def _counters():
@@ -1350,6 +1424,12 @@ def _counters():
 F32_LAUNCHES = {}
 
 
+def _read_f32():
+    """Each kernel's f32 launches (the wrappers with an f32 share)."""
+    return {k: fn.launches_f32 for k, fn in _counters().items()
+            if hasattr(fn, "launches_f32")}
+
+
 def _reset_counts():
     for fn in _counters().values():
         fn.launches = 0
@@ -1360,37 +1440,78 @@ def _reset_counts():
 def _read_counts(path=None):
     """Every kernel's launches; with ``path``, K1's and K2's f32 share is
     kept in F32_LAUNCHES[path] too."""
-    fns = _counters()
     if path is not None:
-        F32_LAUNCHES[path] = {k: fn.launches_f32 for k, fn in fns.items()
-                              if hasattr(fn, "launches_f32")}
-    return {k: fn.launches for k, fn in fns.items()}
+        F32_LAUNCHES[path] = _read_f32()
+    return {k: fn.launches for k, fn in _counters().items()}
 
 
-def expected_launches(cfg, V, K, chunk):
-    """Launches per kernel for one run_device: the towers per chunk, the
-    decoder per memory update and render chunk, the mask transformer's
-    masked layers once, and the v2 head's mixer blocks (K1) and LoftUp
-    blocks (K4) once per panoptic call (keyframes, then the others)."""
+def _self_kernel(N: int, C: int, heads: int):
+    """The kernel a self-attention over N tokens of width C takes: K1 in
+    its gate, else K4, or none on the JAX tiny-shape branch (N < 256)."""
+    from panst3r_torch.ops.tower_attention import supports_tower_attention
+
+    if supports_tower_attention(N, C, heads):
+        return "tower_self"
+    return None if N < 256 else "flash_fwd"
+
+
+def _dino_kernel(N: int, dino):
+    """DINO's attention over N patches and the cls token: K1 with the cls
+    key in its gate, else K4 (split cls: K4 with its LSE, always; the
+    concatenated path as any self-attention over N + 1 tokens)."""
+    from panst3r_torch.ops.tower_attention import supports_tower_attention
+
+    if not dino.split_cls:
+        return _self_kernel(N + 1, dino.embed_dim, dino.num_heads)
+    return ("tower_self" if supports_tower_attention(N, dino.embed_dim,
+                                                     dino.num_heads)
+            else "flash_fwd")
+
+
+def _launch_table(*sites) -> dict:
+    """Launches per kernel from (kernel or None, count) pairs."""
+    out = dict.fromkeys(("tower_self", "tower_cross", "masked_attn",
+                         "flash_fwd", "flash_bwd", "tower_cross_int8",
+                         "packed_flash"), 0)
+    for kernel, n in sites:
+        if kernel is not None:
+            out[kernel] += n
+    return out
+
+
+def expected_launches(cfg, V, K, chunk, grid=(24, 32)):
+    """Launches per kernel for one run_device at a bucket of ``grid``
+    patches: the towers per chunk, the decoder per memory update and
+    render chunk, the mask transformer's masked layers once, and the v2
+    head's mixer blocks and LoftUp blocks (K4) once per panoptic call
+    (keyframes, then the others).  Each attention takes the kernel its
+    gate gives it: K1/K2 at the published widths at 384x512, K4 past 1024
+    tokens or for heads not of 64 (the tiny presets); the decoder's
+    cross-attention K2 where its gate takes the widths (every call has
+    Nq·Nk >= 256², a key bias: never the tiny branch), else K4."""
     from panst3r_torch.models.upscalers import LoftUpUpscalerConfig
+    from panst3r_torch.ops.tower_attention import supports_tower_cross
 
+    N = grid[0] * grid[1]
     n_chunks = math.ceil(V / chunk)
     n_updates = len(cfg.mem_batches(K))
     n_heads = 2 if V > K else 1
-    dec = cfg.decoder.depth
-    pan = cfg.panoptic
-    mixer = pan.input_mixer.num_layers if pan.input_mixer else 0
+    enc, dec, pan = cfg.encoder, cfg.decoder, cfg.panoptic
+    dec_calls = (n_updates + n_chunks) * dec.depth
+    mix = pan.input_mixer
     loftup = isinstance(pan.upscaler, LoftUpUpscalerConfig)
-    return {
-        "tower_self": n_chunks * (cfg.encoder.depth + cfg.dino.depth)
-        + (n_updates + n_chunks) * dec + n_heads * mixer,
-        "tower_cross": (n_updates + n_chunks) * dec,
-        "masked_attn": pan.mask_transformer.dec_layers,
-        "flash_fwd": n_heads * pan.upscaler.num_layers if loftup else 0,
-        "flash_bwd": 0,
-        "tower_cross_int8": 0,
-        "packed_flash": 0,
-    }
+    return _launch_table(
+        (_self_kernel(N, enc.embed_dim, enc.num_heads),
+         n_chunks * enc.depth),
+        (_dino_kernel(N, cfg.dino), n_chunks * cfg.dino.depth),
+        (_self_kernel(N, dec.dim, dec.num_heads), dec_calls),
+        ("tower_cross" if supports_tower_cross(N, N, dec.dim, dec.num_heads)
+         else "flash_fwd", dec_calls),
+        ("masked_attn", pan.mask_transformer.dec_layers),
+        (None if mix is None else _self_kernel(N, mix.hidden_dim,
+                                               mix.num_heads),
+         n_heads * (mix.num_layers if mix else 0)),
+        ("flash_fwd", n_heads * pan.upscaler.num_layers if loftup else 0))
 
 
 def expected_train_launches(cfg, V, grid):
@@ -1398,36 +1519,44 @@ def expected_train_launches(cfg, V, grid):
     all B·V views at once, then the backward): the towers once; the
     decoder per memory update and for the render, its cross-attention on
     K2 where the tower gate takes the shape, else on K4; the mask
-    transformer's masked layers; the mixer (K1) and LoftUp (K4 with the
-    LSE) once in the forward, and in the backward K5's two kernels per
-    LoftUp block.  K1-K3 differentiate their plain versions: no launch in
-    the backward."""
+    transformer's masked layers; the mixer and LoftUp (K4 with the LSE)
+    once in the forward, each attention on the kernel its gate gives it
+    (``expected_launches``), and in the backward K5's two kernels per
+    trainable K4 call (LoftUp's blocks; the mixer's where it is off K1's
+    gate, as in the tiny presets).  K1-K3 differentiate their plain
+    versions: no launch in the backward."""
     from panst3r_torch.models.upscalers import LoftUpUpscalerConfig
     from panst3r_torch.ops.tower_attention import supports_tower_cross
 
     N = grid[0] * grid[1]
-    dec = cfg.decoder
+    enc, dec, pan = cfg.encoder, cfg.decoder, cfg.panoptic
     calls = [(nb * N, V * N + nb * N) for nb in cfg.mem_batches(V)]
     calls.append((V * N, V * N))                          # the render
     k2 = sum(supports_tower_cross(nq, nk, dec.dim, dec.num_heads)
              for nq, nk in calls)
-    pan = cfg.panoptic
-    mixer = pan.input_mixer.num_layers if pan.input_mixer else 0
+    mix = pan.input_mixer
+    mixer = _self_kernel(N, mix.hidden_dim, mix.num_heads) if mix else None
+    mixer_layers = mix.num_layers if mix else 0
     loftup = pan.upscaler.num_layers \
         if isinstance(pan.upscaler, LoftUpUpscalerConfig) else 0
-    return {
-        "tower_self": cfg.encoder.depth + cfg.dino.depth
-        + len(calls) * dec.depth + mixer,
-        "tower_cross": k2 * dec.depth,
-        "masked_attn": pan.mask_transformer.dec_layers,
-        "flash_fwd": (len(calls) - k2) * dec.depth + loftup,
-        "flash_bwd": 2 * loftup,
-        "tower_cross_int8": 0,
-        "packed_flash": 0,
-    }
+    k4_trained = loftup + (mixer_layers if mixer == "flash_fwd" else 0)
+    return _launch_table(
+        (_self_kernel(N, enc.embed_dim, enc.num_heads), enc.depth),
+        (_dino_kernel(N, cfg.dino), cfg.dino.depth),
+        (_self_kernel(N, dec.dim, dec.num_heads), len(calls) * dec.depth),
+        ("tower_cross", k2 * dec.depth),
+        ("flash_fwd", (len(calls) - k2) * dec.depth + loftup),
+        (mixer, mixer_layers),
+        ("masked_attn", pan.mask_transformer.dec_layers),
+        ("flash_bwd", 2 * k4_trained))
 
 
-def phase_small(preset: str):
+def phase_small(preset: str, cfg=None):
+    """``preset`` at depth 2 (or the config ``cfg`` as it is), f32, V=4 /
+    K=3 at 384x512, on the card and on the CPU from the same weights:
+    outputs and FLOP counts compared, the card's launches as
+    ``expected_launches`` implies.  Returns the card's launches and their
+    f32 share."""
     import torch
 
     from panst3r_torch.core.bucketing import Bucket
@@ -1435,9 +1564,10 @@ def phase_small(preset: str):
     from panst3r_torch.models.panst3r import build_model
     from panst3r_torch.ops.flops import FlopCounter
 
-    cfg = _config(preset, depth=2)
+    cfg = _config(preset, depth=2) if cfg is None else cfg
     V, K = 4, 3
-    images, portrait, cls_emb = _inputs(V)
+    images, portrait, cls_emb = _inputs(
+        V, lang_dim=cfg.panoptic.mask_transformer.lang_dim)
     cpu_model = build_model(cfg, device="cpu", seed=0)
     gpu_model = build_model(cfg, device="cuda", seed=1)
     gpu_model.load_state_dict(cpu_model.state_dict())
@@ -1455,6 +1585,7 @@ def phase_small(preset: str):
               "seconds": time.perf_counter() - t0, "launches": counts,
               "flops": fc.total})
         if name == "cuda":
+            card = counts, _read_f32()
             want = expected_launches(cfg, V, K, 4)
             if counts != want:
                 raise AssertionError(f"small {preset}: launches {counts} "
@@ -1479,6 +1610,7 @@ def phase_small(preset: str):
                              f"{bad}")
     del cpu_model, gpu_model
     torch.cuda.empty_cache()
+    return card
 
 
 def check_scene_flops(fl: float, preset: str, V: int, K: int) -> None:
@@ -1598,11 +1730,11 @@ def train_config(**overrides):
     return TrainConfig(**kw)
 
 
-def train_batch(B, V, H, W, ncls, max_instances, seed):
+def train_batch(B, V, H, W, ncls, max_instances, seed, lang_dim=768):
     """A batch built the trainer's way (``data/loader.py::collate_batch``)
     from seeded per-view instance maps: per sample a dataset vocabulary of
     20 of the ``ncls`` classes and 12 instances, each a rectangle in the
-    views that see it.  Returns (numpy batch, (ncls, 768) class
+    views that see it.  Returns (numpy batch, (ncls, lang_dim) class
     embeddings)."""
     from panst3r_torch.data.loader import collate_batch
 
@@ -1629,7 +1761,7 @@ def train_batch(B, V, H, W, ncls, max_instances, seed):
                           "class_set": ";".join(classes[c] for c in local)})
         samples.append(views)
     return (collate_batch(samples, classes, max_instances),
-            rng.standard_normal((ncls, 768)).astype(np.float32))
+            rng.standard_normal((ncls, lang_dim)).astype(np.float32))
 
 
 def _recording(optimizer_cls):
@@ -1714,9 +1846,10 @@ SMALL_TRAIN_SHAPE = (1, 3, 160, 512, 32)
 TRAIN_SHAPE = (2, 5, 384, 512, 32)
 
 
-def phase_small_train(shape=SMALL_TRAIN_SHAPE, depth: int = 2):
-    """One v2 train step (full width at ``depth``, by default B=1, V=3 at
-    160x512 with 32 classes, f32)
+def phase_small_train(shape=SMALL_TRAIN_SHAPE, depth: int = 2, cfg=None,
+                      label: str = "v2_train"):
+    """One v2 train step (full width at ``depth``, or the config ``cfg`` as
+    it is; by default B=1, V=3 at 160x512 with 32 classes, f32)
     on the CPU and then on the card from the same weights, batch and draws,
     under ONE assignment: the card's matcher runs its own auction, which
     is recorded and checked for ε-optimality against its own cost
@@ -1734,10 +1867,14 @@ def phase_small_train(shape=SMALL_TRAIN_SHAPE, depth: int = 2):
     from panst3r_torch.models.panst3r import build_model
     from panst3r_torch.ops.flops import FlopCounter
 
-    cfg = _config("v2", depth=depth)
+    cfg = _config("v2", depth=depth) if cfg is None else cfg
     B, V, H, W, ncls = shape
-    tcfg = train_config(accum_iter=1)
-    batch, cls = train_batch(B, V, H, W, ncls, tcfg.max_instances, seed=3)
+    # the matcher's auction takes no more targets than queries (the tiny
+    # presets have 16)
+    tcfg = train_config(accum_iter=1, max_instances=min(
+        48, cfg.panoptic.mask_transformer.num_queries))
+    batch, cls = train_batch(B, V, H, W, ncls, tcfg.max_instances, seed=3,
+                             lang_dim=cfg.panoptic.mask_transformer.lang_dim)
     g = torch.Generator().manual_seed(5)
     draws = [{"mask": torch.rand(2, generator=g) - 0.5}
              for _ in range(cfg.panoptic.mask_transformer.dec_layers + 1)]
@@ -1766,6 +1903,8 @@ def phase_small_train(shape=SMALL_TRAIN_SHAPE, depth: int = 2):
             loss, det = step(tr.batch_to(batch, name),
                              torch.as_tensor(cls, device=name), draws=draws)
         counts = _read_counts()
+        if name == "cuda":
+            card = counts, _read_f32()
         res[name] = dict(
             flops=fc.total, loss=float(loss), assign=det["assign"].cpu(),
             grads={n: x.cpu() for n, x in opt.grads.items()},
@@ -1773,7 +1912,7 @@ def phase_small_train(shape=SMALL_TRAIN_SHAPE, depth: int = 2):
                             model.named_parameters() if not mask[n]),
             trained=sum(not torch.equal(p, before[n]) for n, p in
                         model.named_parameters() if mask[n]))
-        emit({"phase": "small", "model": "v2_train", "device": name,
+        emit({"phase": "small", "model": label, "device": name,
               "seconds": time.perf_counter() - t0, "loss": res[name]["loss"],
               "flops": fc.total, "launches": counts, "frozen_bit_identical":
               res[name]["frozen_same"],
@@ -1781,7 +1920,7 @@ def phase_small_train(shape=SMALL_TRAIN_SHAPE, depth: int = 2):
         if name == "cuda":
             want = expected_train_launches(cfg, V, (H // 16, W // 16))
             if counts != want:
-                raise AssertionError(f"small v2_train: launches {counts} "
+                raise AssertionError(f"small {label}: launches {counts} "
                                      f"!= {want}")
     a, b = res["cuda"], res["cpu"]
     floor = 1e-6 * max(float(x.abs().max()) for x in b["grads"].values())
@@ -1793,7 +1932,7 @@ def phase_small_train(shape=SMALL_TRAIN_SHAPE, depth: int = 2):
         if err > lim:
             bad.append(n)
     own = [eps_optimal(c) for c in calls["cuda"]]
-    row = {"phase": "small", "model": "v2_train", "compare": "cuda_vs_cpu",
+    row = {"phase": "small", "model": label, "compare": "cuda_vs_cpu",
            "flops_equal": a["flops"] == b["flops"],
            "auction_calls": len(own),
            "card_assign_eps_optimal": bool(own) and all(o["ok"] for o in own),
@@ -1812,9 +1951,132 @@ def phase_small_train(shape=SMALL_TRAIN_SHAPE, depth: int = 2):
             and row["loss_rel_err"] <= 1e-4 and not bad
             and a["frozen_same"] and b["frozen_same"]
             and row["flops_equal"]):
-        raise AssertionError(f"small v2_train: card and CPU disagree: {row}")
+        raise AssertionError(f"small {label}: card and CPU disagree: {row}")
     del cpu_model, model
     torch.cuda.empty_cache()
+    return card
+
+
+def _sum_counts(*counts) -> dict:
+    out = {}
+    for c in counts:
+        for k, n in c.items():
+            out[k] = out.get(k, 0) + n
+    return out
+
+
+def phase_tiny():
+    """The registered tiny presets on the card: ``tiny_config`` and
+    ``tiny_v2_config`` as they are (every attention off K1's and K2's
+    gates: K4 at head dims 16 and 12 in the towers, 16 in DINO's split
+    cls with its LSE and the v2 mixer, 8 in LoftUp; K3 at 8 in the mask
+    transformer, each padded to its kernel's head dim) at 384x512, V=4,
+    K=3, card against CPU under ``phase_small``'s limits and launches as
+    ``expected_launches`` implies; then one tiny_v2 train micro-step (B=1,
+    V=3 at 160x512) card against CPU under ``phase_small_train``'s rules
+    (K5 at 8 and 16).  Returns the launches of the three card runs and
+    keeps their f32 share in F32_LAUNCHES["tiny"]."""
+    from panst3r_torch.models.presets import tiny_config, tiny_v2_config
+
+    runs = [phase_small("tiny", tiny_config()),
+            phase_small("tiny_v2", tiny_v2_config()),
+            phase_small_train(cfg=tiny_v2_config(), label="tiny_v2_train")]
+    F32_LAUNCHES["tiny"] = _sum_counts(*(f32 for _, f32 in runs))
+    return _sum_counts(*(counts for counts, _ in runs))
+
+
+def phase_dino_large():
+    """v1 at full width and depth at Bucket(480, 640): 30 x 40 = 1200
+    patches, past K1's 1024, so the encoder's and the decoder's
+    self-attention run K4 with tables and DINO's split cls K4 with its LSE
+    (24 launches a pass of 4 views), the decoder's cross-attention K2 and
+    the mask transformer K3; ``run_device`` + ``fuse`` at V=8, K=4, bf16,
+    outputs finite and of their shapes, launches as ``expected_launches``
+    implies.  Then DINO-L alone at depth 2 (layerscale 1, so that the
+    blocks move the tokens) on two views at that bucket, f32, card
+    against CPU within DINO_RTOL of the output's max |value|, one K4
+    launch a layer."""
+    import copy
+
+    import torch
+
+    from panst3r_torch.core.bucketing import Bucket
+    from panst3r_torch.engine.inference import InferenceEngine
+    from panst3r_torch.models.dino import DinoEncoder
+    from panst3r_torch.models.panst3r import build_model, init_params
+
+    cfg = _config("v1")
+    V, K, chunk = 8, 4, 4
+    H, W = DINO_LARGE_HW
+    grid = (H // 16, W // 16)
+    images, portrait, cls_emb = _inputs(V, H, W)
+    model = build_model(cfg, seed=0)
+    eng = InferenceEngine(model, Bucket(H, W), num_keyframes=K, chunk=chunk,
+                          amp=True)
+    eng.fuse(eng.run_device(images, portrait, cls_emb), (H, W))   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    out = eng.run_device(images, portrait, cls_emb)
+    fused = eng.fuse(out, (H, W))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = _read_counts("dino_large")
+    want = expected_launches(cfg, V, K, chunk, grid)
+    Q, ncls = cfg.panoptic.mask_transformer.num_queries, cls_emb.shape[0]
+    shapes = {"pointmaps_raw": (V, H, W, 7), "pred_logits": (Q, ncls),
+              "pred_masks": (V, Q, H // 2, W // 2)}
+    checks = {k: (list(out[k].shape) == list(s),
+                  bool(torch.isfinite(out[k].float()).all()))
+              for k, s in shapes.items()}
+    pan = fused[0]["pan"]
+    emit({"phase": "dino_large", "views": V, "keyframes": out["keyframes"],
+          "bucket": [H, W], "patches": grid[0] * grid[1],
+          "run_plus_fuse_s": seconds,
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+          "checks": checks, "pan_shape": list(pan.shape),
+          "launches": counts, "expected_launches": want,
+          "dino_k4_lse_launches_per_pass": cfg.dino.depth})
+    bad = [k for k, (shape_ok, finite) in checks.items()
+           if not (shape_ok and finite)]
+    if bad or tuple(pan.shape) != (V, H, W):
+        raise AssertionError(f"dino_large: wrong or non-finite outputs: "
+                             f"{bad}")
+    if counts != want:
+        raise AssertionError(f"dino_large: launches {counts} != expected "
+                             f"{want}")
+    del eng, model, out, fused
+    torch.cuda.empty_cache()
+
+    dcfg = dataclasses.replace(cfg.dino, depth=2, layerscale_init=1.0)
+    with torch.device("meta"):
+        enc = DinoEncoder(dcfg)
+    cpu = init_params(enc.to_empty(device="cpu"),
+                      torch.Generator().manual_seed(0)).eval()
+    card = copy.deepcopy(cpu).cuda()
+    x = torch.as_tensor(np.random.default_rng(1).uniform(
+        -1, 1, (2, H, W, 3)).astype(np.float32))
+    outs = {}
+    with torch.no_grad():
+        outs["cpu"] = cpu(x)
+        _reset_counts()
+        outs["cuda"] = card(x.cuda()).cpu()
+        dcounts = _read_counts()
+    ref = outs["cpu"]
+    err = float((outs["cuda"] - ref).abs().max())
+    lim = DINO_RTOL * float(ref.abs().max())
+    row = {"phase": "dino_large", "compare": "dino_depth2_cuda_vs_cpu",
+           "shape": list(ref.shape), "max_abs_err": err, "limit": lim,
+           "ref_max_abs": float(ref.abs().max()),
+           "k4_launches": dcounts["flash_fwd"],
+           "ok": err <= lim and dcounts["flash_fwd"] == dcfg.depth
+           and bool(torch.isfinite(outs["cuda"]).all())}
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError(f"dino_large: DINO-L card and CPU disagree: "
+                             f"{row}")
+    return counts
 
 
 class _GradProbe:
@@ -4704,7 +4966,9 @@ def main(argv=None) -> int:
                         ("text", phase_text),
                         ("train_app", phase_train_app),
                         ("slam", phase_slam), ("slam_app", phase_slam_app),
-                        ("eval", phase_eval), ("multi_gpu", phase_multi_gpu)):
+                        ("eval", phase_eval), ("multi_gpu", phase_multi_gpu),
+                        ("tiny", phase_tiny),
+                        ("dino_large", phase_dino_large)):
         if name in phases:
             launches[name] = phase()
 
@@ -4724,11 +4988,12 @@ def main(argv=None) -> int:
         name = entry.removesuffix("_f32").removesuffix("_bf16")
         r = rows.get((name, case, dname), {})
         # each kernel's count on its path: K6 on the A/B tool (bf16, and
-        # its f32 run), K4, K5 and the f32 K1-K3 on train_v2, NO_PATH on
-        # none, the others on serve_long
+        # its f32 run), K4, K5 and the f32 K1-K3 on train_v2, the bf16 K4
+        # on dino_large, NO_PATH on none, the others on serve_long
         path = {"packed_flash": "ab_packed",
                 "packed_flash_f32": "ab_packed_f32",
                 "flash_fwd": "train_v2", "flash_bwd": "train_v2",
+                "flash_fwd_bf16": "dino_large",
                 "tower_self_f32": "train_v2", "tower_cross_f32": "train_v2",
                 "masked_attn_f32": "train_v2"}.get(entry, "serve_long")
         if entry in NO_PATH:

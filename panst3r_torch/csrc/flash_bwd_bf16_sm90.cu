@@ -26,8 +26,8 @@
 // TFLOP/s.
 //
 // Design, three pre-passes and two main kernels, every tile in K3's layout
-// (D / 32 sub-tiles of 32 lanes, 64-byte rows, 64B swizzle) at d = 64 and
-// d = 96, read by 4-D tensor maps (so strided views are read in place):
+// (D / 32 sub-tiles of 32 lanes, 64-byte rows, 64B swizzle) at d = 64, 96
+// and 128 (the wrapper pads any smaller head dim with zeros), read by 4-D tensor maps (so strided views are read in place):
 // (1) p3_flash_bwd_dq_bf16_sm90: with tables, rope_bf16 writes q~ and k~
 //     (contiguous, rotated and rounded once per call); cross_tiles<64> the
 //     key row in log2 units padded to whole 64-key tiles and each batch's
@@ -178,8 +178,10 @@ __device__ __forceinline__ void issue_rs(float (&acc)[D / 2],
                            a[4 * kk + 3]};
     if constexpr (D == 64)
       wgmma_rs_n64(acc, f, desc_mn_sub<R>(b, kk), 1);
-    else
+    else if constexpr (D == 96)
       wgmma_rs_n96(acc, f, desc_mn_sub<R>(b, kk), 1);
+    else
+      wgmma_rs_n128(acc, f, desc_mn_sub<R>(b, kk), 1);
   }
 }
 
@@ -593,7 +595,7 @@ P3_ERROR_STRING_FN
 // (B, H, Nk, D) bf16, else null; key biases (B, nt * 64) f32; LSE and Dvec
 // rows (B, H, Nqp) f32; live tiles (B, nt) and counts (B) int32.  This
 // call runs the pre-pass (filling ``work``) and writes dq (B, H, Nq, D)
-// f32.  Built for D = 64 and 96.
+// f32.  Built for D = 64, 96 and 128.
 extern "C" int p3_flash_bwd_dq_bf16_sm90(P3_BWD_ARGS, const void* graw,
                                          int raw_f32, void* dq,
                                          void* stream) {
@@ -604,6 +606,7 @@ extern "C" int p3_flash_bwd_dq_bf16_sm90(P3_BWD_ARGS, const void* graw,
   float* out = static_cast<float*>(dq);
   if (D == 64) return run_dq<64>(a, graw, raw_f32, out);
   if (D == 96) return run_dq<96>(a, graw, raw_f32, out);
+  if (D == 128) return run_dq<128>(a, graw, raw_f32, out);
   return cudaErrorInvalidValue;
 }
 
@@ -624,5 +627,6 @@ extern "C" int p3_flash_bwd_dkdv_bf16_sm90(P3_BWD_ARGS, void* dk, void* dv,
   float* op = static_cast<float*>(part);
   if (D == 64) return run_dkdv<64>(a, ok, ov, op, split_tiles);
   if (D == 96) return run_dkdv<96>(a, ok, ov, op, split_tiles);
+  if (D == 128) return run_dkdv<128>(a, ok, ov, op, split_tiles);
   return cudaErrorInvalidValue;
 }

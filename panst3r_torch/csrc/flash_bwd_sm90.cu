@@ -65,15 +65,19 @@ namespace {
 // CTA).  Group g owns ring slot g and takes the entries g, g + 2, ...
 // (dq: of the batch's live list; dkdv: of its split), its first thread
 // issuing each entry's loads once the group has released the slot; the
-// groups' partial sums are added in group order at the end.
+// groups' partial sums are added in group order at the end.  At D = 128
+// four resident planes of 64 rows and the ring would not fit in shared
+// memory: four warps in two groups of two over 32 rows (kNW).
+template <int D>
+constexpr int kNW = D == 128 ? 4 : 8;
 // dq: resident Q hi, Q lo, dO hi, dO lo; ring: K hi, K lo, V hi, V lo and
 // the entry's key biases.
 template <int D>
-using DqSmem = flash32::Smem<D, 8, 1, 4, 4, 2, KE * 4, 2>;
+using DqSmem = flash32::Smem<D, kNW<D>, 1, 4, 4, 2, KE * 4, 2>;
 // dkdv: resident K hi, K lo, V hi, V lo; ring: Q hi, Q lo, dO hi, dO lo
 // and the entry's LSE (log2 units) and Dvec.
 template <int D>
-using DkvSmem = flash32::Smem<D, 8, 1, 4, 4, 2, 2 * KE * 4, 2>;
+using DkvSmem = flash32::Smem<D, kNW<D>, 1, 4, 4, 2, 2 * KE * 4, 2>;
 
 template <int D>
 __global__ void __launch_bounds__(DqSmem<D>::kThreads, 1)
@@ -107,8 +111,9 @@ dq_main(const __grid_constant__ CUtensorMap mqh,
     load_plane(sm.a(2), &mgh, qb, D, R, q0, bh);
     load_plane(sm.a(3), &mgl, qb, D, R, q0, bh);
   }
-  // warp w of group w / 4: query rows q0 + 16 (w % 4) + [0, 16)
-  const int w = threadIdx.x >> 5, gr = w >> 2, wr = w & 3;
+  // warp w of group w / WG: query rows q0 + 16 (w % WG) + [0, 16)
+  constexpr int WG = SM::kNW / 2, GT = 32 * WG;   // warps, threads a group
+  const int w = threadIdx.x >> 5, gr = w / WG, wr = w % WG;
   const int lane = threadIdx.x & 31, g = lane >> 2, cq = 2 * (lane & 3);
   const int row0 = q0 + 16 * wr + g;
   const float l2[2] = {lse2[(long)bh * Nqp + row0],
@@ -131,7 +136,7 @@ dq_main(const __grid_constant__ CUtensorMap mqh,
   float s[1][16], dp[1][16];
   for (int e = gr, k = 0; e < n; e += 2, ++k) {
     const int key0 = __ldg(tiles + e) * KE;
-    if ((threadIdx.x & 127) == 0) {   // the group's first thread
+    if (threadIdx.x % GT == 0) {   // the group's first thread
       sm90::mbar_expect_tx(bar, 4 * SM::kB + KE * 4);
       load_plane(sm.b(gr, 0), &mkh, bar, D, KE, key0, bh);
       load_plane(sm.b(gr, 1), &mkl, bar, D, KE, key0, bh);
@@ -153,7 +158,7 @@ dq_main(const __grid_constant__ CUtensorMap mqh,
       s[0][i] = dscore(p, dp[0][i], dv[hh], scale);
     }
     pv<D, KE, 1, 4>(s, acc, kh, kl);   // dQ += dS K
-    group_sync(gr);                    // the slot may be refilled
+    group_sync(gr, GT);                // the slot may be refilled
   }
   // group 1's partial dQ through the (now idle) ring, added to group 0's
   float* part =
@@ -207,8 +212,9 @@ dkv_main(const __grid_constant__ CUtensorMap mkh,
   for (int c = threadIdx.x; c < R; c += blockDim.x)
     live |= (j0 + c < Nk) && kbr[j0 + c] > 0.5f * NEG;
   live = __syncthreads_or(live);
-  // warp w of group w / 4: key rows j0 + 16 (w % 4) + [0, 16)
-  const int w = threadIdx.x >> 5, gr = w >> 2, wr = w & 3;
+  // warp w of group w / WG: key rows j0 + 16 (w % WG) + [0, 16)
+  constexpr int WG = SM::kNW / 2, GT = 32 * WG;   // warps, threads a group
+  const int w = threadIdx.x >> 5, gr = w / WG, wr = w % WG;
   const int lane = threadIdx.x & 31, g = lane >> 2, cq = 2 * (lane & 3);
   const int key0 = j0 + 16 * wr + g;
   const float kb2[2] = {key0 < Nk ? kbr[key0] : NEG,
@@ -238,7 +244,7 @@ dkv_main(const __grid_constant__ CUtensorMap mkh,
     sm90::mbar_wait(sm.q_full(), 0);
     float s[1][16], dp[1][16];
     for (int e = e0 + gr, k = 0; e < e1; e += 2, ++k) {
-      if ((threadIdx.x & 127) == 0) {   // the group's first thread
+      if (threadIdx.x % GT == 0) {   // the group's first thread
         sm90::mbar_expect_tx(bar, 4 * SM::kB + 2 * KE * 4);
         load_plane(sm.b(gr, 0), &mqh, bar, D, KE, e * KE, bh);
         load_plane(sm.b(gr, 1), &mql, bar, D, KE, e * KE, bh);
@@ -263,7 +269,7 @@ dkv_main(const __grid_constant__ CUtensorMap mkh,
       }
       pv<D, KE, 1, 4>(s, av, gh, gl);    // dV += P^T dO
       pv<D, KE, 1, 4>(dp, ak, qh, ql);   // dK += dS^T Q
-      group_sync(gr);                    // the slot may be refilled
+      group_sync(gr, GT);                // the slot may be refilled
     }
   }
   // group 1's partial dK and dV through the (now idle) ring, added to
@@ -422,13 +428,15 @@ P3_ERROR_STRING_FN
 // q lo, do hi, do lo (B, H, Nq, D) f32; k hi, k lo, v hi, v lo (B, H, Nk, D)
 // f32; key biases (B, nt * 32) f32; LSE and Dvec rows (B, H, Nqp) f32; live
 // tiles (B, nt) and counts (B) int32.  This call runs the pre-pass (filling
-// ``work``) and writes dq (B, H, Nq, D) f32.  Built for D = 64 and 96.
+// ``work``) and writes dq (B, H, Nq, D) f32.  Built for D = 64, 96 and
+// 128.
 extern "C" int p3_flash_bwd_dq_sm90(P3_BWD_ARGS, void* dq, void* stream) {
   if (bad_shape(B, H, Nq, Nk, qcos, kcos)) return cudaErrorInvalidValue;
   const Args a = P3_BWD_MAKE;
   float* out = static_cast<float*>(dq);
   if (D == 64) return run_dq<64>(a, out);
   if (D == 96) return run_dq<96>(a, out);
+  if (D == 128) return run_dq<128>(a, out);
   return cudaErrorInvalidValue;
 }
 
@@ -449,5 +457,6 @@ extern "C" int p3_flash_bwd_dkdv_sm90(P3_BWD_ARGS, void* dk, void* dv,
   float* op = static_cast<float*>(part);
   if (D == 64) return run_dkdv<64>(a, ok, ov, op, split_tiles);
   if (D == 96) return run_dkdv<96>(a, ok, ov, op, split_tiles);
+  if (D == 128) return run_dkdv<128>(a, ok, ov, op, split_tiles);
   return cudaErrorInvalidValue;
 }

@@ -4,7 +4,7 @@
 //
 // Replaces panst3r_tpu/ops/pallas/flash_attention.py::_flash_fwd (body
 // _kernel) in bf16: online-softmax attention over (B, H, N, D) streams, D =
-// 64 or 96, with, each optional, a dense additive bias read through its
+// 64, 96 or 128 (the wrapper pads any smaller head dim with zeros), with, each optional, a dense additive bias read through its
 // strides (0 where it is broadcast), a per-key bias row (B, Nk) (the (B|1,
 // 1, 1, Nk) bias and the key validity folded into it by the wrapper: 0 /
 // finfo.min), 2D-RoPE tables (B, N, D) shared by the heads, and the
@@ -37,9 +37,9 @@
 //     out is written through its strides into the (B, Nq, H, D) storage
 //     the wrapper allocates.  D = 64: the K1/K2 layout (128-key tiles,
 //     64-lane rows of 128 bytes, 128B swizzle, wgmma m64n128k16 and
-//     m64n64k16).  D = 96: K3's layout (64-key tiles as three 32-lane boxes
-//     of 64-byte rows, 64B swizzle, wgmma m64n64k16 and m64n96k16), 64-row
-//     CTAs two per SM.  TMA cannot step a 0 stride, so the consumers read a
+//     m64n64k16).  D = 96 and 128: K3's layout (64-key tiles as three or
+//     four 32-lane boxes of 64-byte rows, 64B swizzle, wgmma m64n64k16 and
+//     m64n96k16 or m64n128k16), 64-row CTAs.  TMA cannot step a 0 stride, so the consumers read a
 //     dense bias from global memory at their accumulators' positions.
 // A row's arithmetic depends only on its own q, its batch's k, v and
 // biases and Nk: never on B, Nq or the grid.
@@ -54,9 +54,10 @@ namespace {
 
 constexpr float LN2 = 0.6931471805599453f;
 
-// d = 96 (K3's layout): a tile of 64 rows x 96 lanes as three 32-lane
-// sub-tiles of 64-byte rows, 4 KB each (desc_k_sub, desc_mn_sub).
-constexpr uint32_t kSub96 = 64 * 32 * 2;
+// d = 96 and 128 (K3's layout): a tile of 64 rows x d lanes as d / 32
+// sub-tiles of 32 lanes and 64-byte rows, 4 KB each (desc_k_sub,
+// desc_mn_sub).
+constexpr uint32_t kSub32 = 64 * 32 * 2;
 
 // The two layouts: keys per tile, S and O registers, the TMA boxes (BOX
 // lanes, NBOX of them per row) and the products.
@@ -80,8 +81,8 @@ struct Lay<64> {
 template <>
 struct Lay<96> {
   static constexpr int BT = 64, NS = 32, NO = 48, BOX = 32, NBOX = 3;
-  static constexpr uint32_t kQ = 3 * kSub96, kKV = 3 * kSub96;
-  static constexpr uint32_t kBoxQ = kSub96, kBoxKV = kSub96;
+  static constexpr uint32_t kQ = 3 * kSub32, kKV = 3 * kSub32;
+  static constexpr uint32_t kBoxQ = kSub32, kBoxKV = kSub32;
   static constexpr CUtensorMapSwizzle kSwizzle = CU_TENSOR_MAP_SWIZZLE_64B;
   __device__ static void scores(float (&s)[NS], const unsigned char* q,
                                 const unsigned char* k) {
@@ -100,6 +101,33 @@ struct Lay<96> {
       const uint32_t a[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
                              p[4 * kk + 3]};
       wgmma_rs_n96(o, a, desc_mn_sub<64>(v, kk), 1);
+    }
+    wg_commit();
+  }
+};
+template <>
+struct Lay<128> {
+  static constexpr int BT = 64, NS = 32, NO = 64, BOX = 32, NBOX = 4;
+  static constexpr uint32_t kQ = 4 * kSub32, kKV = 4 * kSub32;
+  static constexpr uint32_t kBoxQ = kSub32, kBoxKV = kSub32;
+  static constexpr CUtensorMapSwizzle kSwizzle = CU_TENSOR_MAP_SWIZZLE_64B;
+  __device__ static void scores(float (&s)[NS], const unsigned char* q,
+                                const unsigned char* k) {
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 128 / 16; ++kk)
+      wgmma_ss_n64(s, desc_k_sub<64>(q, kk), desc_k_sub<64>(k, kk),
+                   kk > 0);
+    wg_commit();
+  }
+  __device__ static void pv(float (&o)[NO], const uint32_t (&p)[NS / 2],
+                            const unsigned char* v) {
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < BT / 16; ++kk) {
+      const uint32_t a[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
+                             p[4 * kk + 3]};
+      wgmma_rs_n128(o, a, desc_mn_sub<64>(v, kk), 1);
     }
     wg_commit();
   }
@@ -322,7 +350,7 @@ cudaError_t run(const Args& a) {
   cross_tiles<BT><<<a.B, 1024, nt * sizeof(int), a.st>>>(
       a.kbias, a.bl, a.list, a.count, a.Nk, nt);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  if constexpr (D == 96)
+  if constexpr (D != 64)
     return run_main<D, 1>(a, q, qs, k, ks, nt);
   else
     return a.nwg == 1 ? run_main<D, 1>(a, q, qs, k, ks, nt)
@@ -340,10 +368,10 @@ P3_ERROR_STRING_FN
 // strides[12..15] (batch, head, query, key) or null; kbias (B, Nk) f32 or
 // null; tables (B, N, D) f32, all four or none; lse (B, H, Nq) f32 or
 // null; ``nwg`` consumer warpgroups per CTA at D = 64 (1 or 2; D = 96
-// takes 1).  Scratch from the caller, with BT = 128 keys per tile at D =
-// 64 and 64 at D = 96 and nt = ceil(Nk / BT): with tables qr (B, H, Nq, D)
-// and kr (B, H, Nk, D) bf16, else null; bl (B, nt * BT) f32; list (B, nt)
-// and count (B) int32.  Built for D = 64 and 96.
+// and 128 take 1).  Scratch from the caller, with BT = 128 keys per tile
+// at D = 64 and 64 at D = 96 and 128 and nt = ceil(Nk / BT): with tables
+// qr (B, H, Nq, D) and kr (B, H, Nk, D) bf16, else null; bl (B, nt * BT)
+// f32; list (B, nt) and count (B) int32.  Built for D = 64, 96 and 128.
 extern "C" int p3_flash_fwd_bf16_sm90(
     const void* q, const void* k, const void* v, const void* bias,
     const void* kbias, const void* qcos, const void* qsin, const void* kcos,
@@ -366,5 +394,6 @@ extern "C" int p3_flash_fwd_bf16_sm90(
                static_cast<cudaStream_t>(stream)};
   if (D == 64) return run<64>(a);
   if (D == 96) return run<96>(a);
+  if (D == 128) return run<128>(a);
   return cudaErrorInvalidValue;
 }

@@ -6,8 +6,8 @@
 //
 // Replaces panst3r_tpu/ops/pallas/flash_attention.py::_flash_fwd (body
 // _kernel) in f32: online-softmax attention over (B, H, N, D) streams, D =
-// 64 or 96, with, each optional, a dense additive bias read through its
-// strides, a per-key bias row (B, Nk) (the (B|1, 1, 1, Nk) bias and the key
+// 64, 96 or 128 (the wrapper pads any smaller head dim with zeros), with,
+// each optional, a dense additive bias read through its strides, a per-key bias row (B, Nk) (the (B|1, 1, 1, Nk) bias and the key
 // validity folded into it by the wrapper: 0 / finfo.min), 2D-RoPE tables
 // (B, N, D) shared by the heads, and the natural-log LSE per row.  The
 // scale multiplies the f32 score and the biases are added after it; the
@@ -55,13 +55,20 @@ namespace {
 // entry's loads once the group has released the slot; the groups' softmax
 // states are merged in group order at the end.  MT = 2 (128 rows) holds
 // one CTA per SM; MT = 1 (64 rows, at D = 64) two, each thread within 128
-// registers, so four warps per sub-partition.  A row's arithmetic is the
-// same for either.
+// registers, so four warps per sub-partition.  At D = 128 the 128-row
+// tile's planes would not fit in shared memory: MT = 1 with one CTA per
+// SM.  A row's arithmetic is the same for any of them.
 template <int D, int MT>
 using FwdSmem = flash32::Smem<D, 8, MT, 2, 4, 2, KE * 4, 2>;
 
 template <int D, int MT>
-__global__ void __launch_bounds__(FwdSmem<D, MT>::kThreads, 3 - MT)
+constexpr int fwd_min_blocks() {
+  return (D == 64 && MT == 1) ? 2 : 1;
+}
+
+template <int D, int MT>
+__global__ void __launch_bounds__(FwdSmem<D, MT>::kThreads,
+                                  fwd_min_blocks<D, MT>())
 fwd_main(const __grid_constant__ CUtensorMap mq,
          const __grid_constant__ CUtensorMap mkh,
          const __grid_constant__ CUtensorMap mkl,
@@ -240,8 +247,9 @@ cudaError_t run(const Args& a) {
                                                    a.count, a.Nk, nt);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  // (2) the main kernel: 64-row CTAs at D = 64 (two per SM), else 128
-  if constexpr (D == 64)
+  // (2) the main kernel: 64-row CTAs at D = 64 (two per SM) and D = 128
+  // (one), else 128
+  if constexpr (D == 64 || D == 128)
     return run_main<D, 1>(a, q, qs, nt);
   else
     return run_main<D, 2>(a, q, qs, nt);
@@ -292,7 +300,7 @@ P3_ERROR_STRING_FN
 // all four or none; lse (B, H, Nq) f32 or null.  Scratch from the caller,
 // with nt = ceil(Nk / 32): qr (B, H, Nq, D) f32 with tables, else null;
 // kh, kl, vh, vl (B, H, Nk, D) f32; bl (B, nt * 32) f32; list (B, nt) and
-// count (B) int32.  Built for D = 64 and 96.
+// count (B) int32.  Built for D = 64, 96 and 128.
 extern "C" int p3_flash_fwd_sm90(
     const void* q, const void* k, const void* v, const void* bias,
     const void* kbias, const void* qcos, const void* qsin, const void* kcos,
@@ -313,6 +321,7 @@ extern "C" int p3_flash_fwd_sm90(
                B, H, Nq, Nk, scale, static_cast<cudaStream_t>(stream)};
   if (D == 64) return run<64>(a);
   if (D == 96) return run<96>(a);
+  if (D == 128) return run<128>(a);
   return cudaErrorInvalidValue;
 }
 

@@ -229,9 +229,10 @@ struct Smem {
   }
 };
 
-// The four warps of group ``gr`` meet (named barrier 1 + gr).
-__device__ __forceinline__ void group_sync(int gr) {
-  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + gr) : "memory");
+// The ``threads`` threads (four warps by default) of group ``gr`` meet
+// (named barrier 1 + gr).
+__device__ __forceinline__ void group_sync(int gr, int threads = 128) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + gr), "r"(threads) : "memory");
 }
 
 // The ``rows`` rows from ``row0`` of batch-head ``bh`` of a (B*H, N, D)

@@ -3,7 +3,8 @@
 // with a d=96 layout of its own; f32: attn_f32_sm90.cuh).
 //
 // Replaces panst3r_tpu/ops/pallas/masked_attention.py::_sparse_fwd (body
-// _kernel), bf16 and f32: q (B, H, Nq, 96), k/v (B, H, Nk, 96) and a (B,
+// _kernel), bf16 and f32: q (B, H, Nq, MD), k/v (B, H, Nk, MD), MD = 96
+// or 128 (the wrapper pads any smaller head dim with zeros), and a (B,
 // Nq, Nk) uint8 mask (1 = may not attend) shared across heads; softmax(q
 // k^T * scale) v over the keys a row may attend; rows with no such key
 // write 0; p rounded to the value dtype before both sums (the port's K3;
@@ -51,17 +52,18 @@ typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int MD = 96;                   // head dim
+// The head dim MD (96 or 128) is each kernel's template argument.
 constexpr int BR = 64;                   // query rows per CTA
 constexpr int BKK = 64;                  // keys per tile (the plan's block)
 constexpr int SUB = 32;                  // lanes per 64B-swizzled sub-tile
-constexpr int NSUB = MD / SUB;           // 3
 constexpr int MSTAGES = 3;               // ring slots
 constexpr uint32_t kSubBytes = BR * SUB * 2;          // 4 KB
-constexpr uint32_t kTileBytes = NSUB * kSubBytes;     // 12 KB
 constexpr uint32_t kMaskBytes = BR * BKK;             // 4 KB
 
+template <int MD>
 struct MSmem {
+  static constexpr int NSUB = MD / SUB;                     // 3 or 4
+  static constexpr uint32_t kTileBytes = NSUB * kSubBytes;  // 12 or 16 KB
   static constexpr uint32_t kQ = 0;
   static constexpr uint32_t kK = kQ + kTileBytes;
   static constexpr uint32_t kV = kK + MSTAGES * kTileBytes;
@@ -142,11 +144,12 @@ masked_plan(const uint8_t* __restrict__ mask, int* __restrict__ list,
   }
 }
 
-// grid (ceil(Nq / 64), H, B * max_splits).  ``mq``, ``mk``, ``mv``: (96,
+// grid (ceil(Nq / 64), H, B * max_splits).  ``mq``, ``mk``, ``mv``: (MD,
 // N, B*H) maps, boxes 32 lanes x 64 rows, 64-byte swizzle; ``mm``: the
 // (Nk, B*Nq) mask map, boxes 64 x 64 bytes.  With one split the CTA writes
-// bf16 rows of ``out``; with more O (f32, (S, B, H, Nq, 96)) and (m, l)
+// bf16 rows of ``out``; with more O (f32, (S, B, H, Nq, MD)) and (m, l)
 // ((S, B, H, Nq, 2)) for masked_combine.
+template <int MD>
 __global__ void __launch_bounds__(256, 2)
 masked_main(const __grid_constant__ CUtensorMap mq,
             const __grid_constant__ CUtensorMap mk,
@@ -167,7 +170,10 @@ masked_main(const __grid_constant__ CUtensorMap mq,
   const int n = max(0, min(split_tiles, live - first));
   const int* tiles = list + plan * nkb + first;
   const int bh = b * H + h, q0 = qb * BR;
-  const MSmem sm(smem_raw);
+  using SM = MSmem<MD>;
+  constexpr int NSUB = SM::NSUB;
+  constexpr uint32_t kTileBytes = SM::kTileBytes;
+  const SM sm(smem_raw);
   if (threadIdx.x == 0) {
     mbar_init(sm.q_full(), 1);
     for (int s = 0; s < MSTAGES; ++s) {
@@ -205,7 +211,7 @@ masked_main(const __grid_constant__ CUtensorMap mq,
   // the consumer warpgroup: query rows q0 + [0, 64)
   regs_inc<Regs<1>::kConsumer>();
   const Rows rw;
-  RowStateN<48> st;
+  RowStateN<MD / 2> st;
   st.zero();
   const bool row_in[2] = {q0 + rw.r0 < Nq, q0 + rw.r1 < Nq};
   float s[32], alpha[2];
@@ -241,7 +247,10 @@ masked_main(const __grid_constant__ CUtensorMap mq,
     for (int kk = 0; kk < BKK / 16; ++kk) {
       const uint32_t a[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
                              p[4 * kk + 3]};
-      wgmma_rs_n96(st.o, a, desc_mn_sub<BKK>(sm.v(cur), kk), 1);
+      if constexpr (MD == 96)
+        wgmma_rs_n96(st.o, a, desc_mn_sub<BKK>(sm.v(cur), kk), 1);
+      else
+        wgmma_rs_n128(st.o, a, desc_mn_sub<BKK>(sm.v(cur), kk), 1);
     }
     wg_commit();
     wg_wait<0>();
@@ -265,7 +274,7 @@ masked_main(const __grid_constant__ CUtensorMap mq,
     const long row = ((long)split * B * H + bh) * Nq + i;
     float* orow = opart + row * MD;
 #pragma unroll
-    for (int j = 0; j < 48; j += 2) {
+    for (int j = 0; j < MD / 2; j += 2) {
       if (Rows::hi(j) != hh) continue;
       *reinterpret_cast<float2*>(orow + Rows::col(j) + rw.cq) =
           make_float2(st.o[j], st.o[j + 1]);
@@ -279,10 +288,13 @@ masked_main(const __grid_constant__ CUtensorMap mq,
 
 // f32: as masked_main, with four consumer warps and a producer warp on
 // the f32 engine (``mq``, ``mk``, ``mv``: f32 maps, boxes 32 lanes x 64
-// rows, 128-byte swizzle).
-using F32Smem = f32e::Smem<MD, 4, 3, kMaskBytes>;  // ring extra: the mask
+// rows, 128-byte swizzle); the ring extra is the mask tile.  At MD = 128
+// two ring slots fit in shared memory, at 96 three.
+template <int MD>
+using F32Smem = f32e::Smem<MD, 4, MD == 128 ? 2 : 3, kMaskBytes>;
 
-__global__ void __launch_bounds__(F32Smem::kThreads, 1)
+template <int MD>
+__global__ void __launch_bounds__(F32Smem<MD>::kThreads, 1)
 masked_main_f32(const __grid_constant__ CUtensorMap mq,
                 const __grid_constant__ CUtensorMap mk,
                 const __grid_constant__ CUtensorMap mv,
@@ -292,7 +304,8 @@ masked_main_f32(const __grid_constant__ CUtensorMap mq,
                 float* __restrict__ ml, int B, int H, int Nq, int Nk,
                 int nkb, int split_tiles, int max_splits, float sl) {
   extern __shared__ unsigned char smem_raw[];
-  using SM = F32Smem;
+  using SM = F32Smem<MD>;
+  constexpr int NSUB = MD / SUB;
   const int qb = blockIdx.x, h = blockIdx.y;
   const int b = blockIdx.z / max_splits, split = blockIdx.z % max_splits;
   const long plan = (long)b * gridDim.x + qb;
@@ -332,8 +345,8 @@ masked_main_f32(const __grid_constant__ CUtensorMap mq,
   f32e::split_q(sm, w);
   const Rows rw = f32e::tile_rows(w);
   const bool row_in[2] = {q0 + rw.r0 < Nq, q0 + rw.r1 < Nq};
-  RowStateN<48> sts[1];
-  RowStateN<48>& st = sts[0];
+  RowStateN<MD / 2> sts[1];
+  RowStateN<MD / 2>& st = sts[0];
   st.zero();
   f32e::consume(sm, w, n, sts, [&](float (&s)[32], int, int e, int slot) {
     const int keys = Nk - __ldg(tiles + e) * BKK;  // live keys: c < keys
@@ -371,7 +384,7 @@ masked_main_f32(const __grid_constant__ CUtensorMap mq,
 // in split order: out = sum_s w_s O_s / sum_s w_s l_s, w_s = exp2(m_s -
 // max_s m_s), with the max replaced by 0 and w_s by 0 for splits that saw
 // no live key.
-template <typename T>
+template <int MD, typename T>
 __global__ void masked_combine(const float* __restrict__ opart,
                                const float* __restrict__ ml,
                                const int* __restrict__ count,
@@ -399,9 +412,11 @@ __global__ void masked_combine(const float* __restrict__ opart,
   }
 }
 
-// A (BH, N, 96) bf16 tensor as a 3-D map (96, N, BH), boxes of 32 lanes x
+// A (BH, N, MD) bf16 tensor as a 3-D map (MD, N, BH), boxes of 32 lanes x
 // 64 rows, 64-byte swizzle.
-cudaError_t make_map96(CUtensorMap* map, const void* base, int BH, int N) {
+template <int MD>
+cudaError_t make_map_bf16(CUtensorMap* map, const void* base, int BH,
+                          int N) {
   const cuuint64_t dims[3] = {MD, (cuuint64_t)N, (cuuint64_t)BH};
   const cuuint64_t strides[2] = {MD * 2, (cuuint64_t)N * MD * 2};
   const cuuint32_t box[3] = {SUB, BR, 1};
@@ -409,32 +424,14 @@ cudaError_t make_map96(CUtensorMap* map, const void* base, int BH, int N) {
                     strides, box, CU_TENSOR_MAP_SWIZZLE_64B);
 }
 
-}  // namespace
-
-P3_ERROR_STRING_FN
-
-// q (B, H, Nq, 96), k/v (B, H, Nk, 96) bf16, or f32 with ``f32``; mask (B,
-// Nq, ld) uint8 (1 = blocked; columns >= Nk are never read as open), ld >=
-// Nk a multiple of 16; out (B, H, Nq, 96) in the inputs' dtype.  Scratch
-// from the caller, with nqb = ceil(Nq / 64), nkb = ceil(Nk / 64) and S =
-// ceil(nkb / split_tiles) splits: ``plan`` int32 of B * nqb * (nkb + 1)
-// (the lists (B, nqb, nkb), then the counts (B, nqb)); with S > 1 ``part``
-// f32 of S * B * H * Nq * 98 (O (S, B, H, Nq, 96), then (m, l) (S, B, H,
-// Nq, 2)), else null.
-extern "C" int p3_masked_attn_sm90(const void* q, const void* k,
-                                   const void* v, const void* mask,
-                                   void* out, void* plan, void* part, int B,
-                                   int H, int Nq, int Nk, int ld, float scale,
-                                   int split_tiles, int f32, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int nqb = (Nq + BR - 1) / BR, nkb = (Nk + BKK - 1) / BKK;
-  if (split_tiles < 1 || ld < Nk || ld % 16 != 0 || Nq < 1 || Nk < 1 ||
-      nkb * 4L > 48 * 1024)
-    return cudaErrorInvalidValue;
-  const int max_splits = n_splits(nkb, split_tiles);
-  if ((max_splits > 1) != (part != nullptr)) return cudaErrorInvalidValue;
-  int* lst = static_cast<int*>(plan);
-  int* cnt = lst + (long)B * nqb * nkb;
+// The plan pre-pass, then the main kernel and the split merge at head dim
+// MD (p3_masked_attn_sm90's arguments).
+template <int MD>
+cudaError_t run(const void* q, const void* k, const void* v,
+                const void* mask, void* out, int* lst, int* cnt, void* part,
+                int B, int H, int Nq, int Nk, int ld, float scale,
+                int split_tiles, int f32, int nqb, int nkb, int max_splits,
+                cudaStream_t st) {
   masked_plan<<<dim3(nqb, B), 1024, nkb * sizeof(int), st>>>(
       static_cast<const uint8_t*>(mask), lst, cnt, Nq, Nk, ld, nkb);
   cudaError_t err = cudaGetLastError();
@@ -447,9 +444,9 @@ extern "C" int p3_masked_attn_sm90(const void* q, const void* k,
         (err = f32e::make_map(&mv, v, B * H, Nk, MD, BKK)) != cudaSuccess)
       return err;
   } else {
-    if ((err = make_map96(&mq, q, B * H, Nq)) != cudaSuccess ||
-        (err = make_map96(&mk, k, B * H, Nk)) != cudaSuccess ||
-        (err = make_map96(&mv, v, B * H, Nk)) != cudaSuccess)
+    if ((err = make_map_bf16<MD>(&mq, q, B * H, Nq)) != cudaSuccess ||
+        (err = make_map_bf16<MD>(&mk, k, B * H, Nk)) != cudaSuccess ||
+        (err = make_map_bf16<MD>(&mv, v, B * H, Nk)) != cudaSuccess)
       return err;
   }
   {
@@ -465,15 +462,17 @@ extern "C" int p3_masked_attn_sm90(const void* q, const void* k,
   float* mlp = op ? op + (long)max_splits * B * H * Nq * MD : nullptr;
   const dim3 grid(nqb, H, B * max_splits);
   if (f32) {
-    const int bytes = F32Smem::kBytes;
-    if ((err = prepare(masked_main_f32, bytes)) != cudaSuccess) return err;
-    masked_main_f32<<<grid, F32Smem::kThreads, bytes, st>>>(
+    using SM = F32Smem<MD>;
+    auto kern = masked_main_f32<MD>;
+    if ((err = prepare(kern, SM::kBytes)) != cudaSuccess) return err;
+    kern<<<grid, SM::kThreads, SM::kBytes, st>>>(
         mq, mk, mv, mm, lst, cnt, static_cast<float*>(out), op, mlp, B, H, Nq,
         Nk, nkb, split_tiles, max_splits, scale * L2E);
   } else {
-    const int bytes = MSmem::kBytes;
-    if ((err = prepare(masked_main, bytes)) != cudaSuccess) return err;
-    masked_main<<<grid, 256, bytes, st>>>(
+    const int bytes = MSmem<MD>::kBytes;
+    auto kern = masked_main<MD>;
+    if ((err = prepare(kern, bytes)) != cudaSuccess) return err;
+    kern<<<grid, 256, bytes, st>>>(
         mq, mk, mv, mm, lst, cnt, static_cast<bf16*>(out), op, mlp, B, H, Nq,
         Nk, nkb, split_tiles, max_splits, scale * L2E);
   }
@@ -482,12 +481,48 @@ extern "C" int p3_masked_attn_sm90(const void* q, const void* k,
   const int cblocks =
       static_cast<int>(std::min<long>((total + 255) / 256, 132L * 16));
   if (f32)
-    masked_combine<<<cblocks, 256, 0, st>>>(op, mlp, cnt,
-                                            static_cast<float*>(out), B, H,
-                                            Nq, nqb, split_tiles);
+    masked_combine<MD><<<cblocks, 256, 0, st>>>(op, mlp, cnt,
+                                                static_cast<float*>(out), B,
+                                                H, Nq, nqb, split_tiles);
   else
-    masked_combine<<<cblocks, 256, 0, st>>>(op, mlp, cnt,
-                                            static_cast<bf16*>(out), B, H,
-                                            Nq, nqb, split_tiles);
+    masked_combine<MD><<<cblocks, 256, 0, st>>>(op, mlp, cnt,
+                                                static_cast<bf16*>(out), B,
+                                                H, Nq, nqb, split_tiles);
   return cudaGetLastError();
+}
+
+}  // namespace
+
+P3_ERROR_STRING_FN
+
+// q (B, H, Nq, D), k/v (B, H, Nk, D), D = 96 or 128, bf16, or f32 with
+// ``f32``; mask (B, Nq, ld) uint8 (1 = blocked; columns >= Nk are never
+// read as open), ld >= Nk a multiple of 16; out (B, H, Nq, D) in the
+// inputs' dtype.  Scratch from the caller, with nqb = ceil(Nq / 64), nkb
+// = ceil(Nk / 64) and S = ceil(nkb / split_tiles) splits: ``plan`` int32
+// of B * nqb * (nkb + 1) (the lists (B, nqb, nkb), then the counts (B,
+// nqb)); with S > 1 ``part`` f32 of S * B * H * Nq * (D + 2) (O (S, B, H,
+// Nq, D), then (m, l) (S, B, H, Nq, 2)), else null.
+extern "C" int p3_masked_attn_sm90(const void* q, const void* k,
+                                   const void* v, const void* mask,
+                                   void* out, void* plan, void* part, int B,
+                                   int H, int Nq, int Nk, int ld, float scale,
+                                   int split_tiles, int f32, int D,
+                                   void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int nqb = (Nq + BR - 1) / BR, nkb = (Nk + BKK - 1) / BKK;
+  if (split_tiles < 1 || ld < Nk || ld % 16 != 0 || Nq < 1 || Nk < 1 ||
+      nkb * 4L > 48 * 1024)
+    return cudaErrorInvalidValue;
+  const int max_splits = n_splits(nkb, split_tiles);
+  if ((max_splits > 1) != (part != nullptr)) return cudaErrorInvalidValue;
+  int* lst = static_cast<int*>(plan);
+  int* cnt = lst + (long)B * nqb * nkb;
+  if (D == 96)
+    return run<96>(q, k, v, mask, out, lst, cnt, part, B, H, Nq, Nk, ld,
+                   scale, split_tiles, f32, nqb, nkb, max_splits, st);
+  if (D == 128)
+    return run<128>(q, k, v, mask, out, lst, cnt, part, B, H, Nq, Nk, ld,
+                    scale, split_tiles, f32, nqb, nkb, max_splits, st);
+  return cudaErrorInvalidValue;
 }

@@ -44,6 +44,19 @@ wgmma products, dkdv over the same fixed query splits).
 kernels' arithmetic (the f32 K4 and K5; K5 in bf16 too; the tests
 only).
 
+Head dims.  The kernels are built for D = 64, 96 and 128
+(``HEAD_DIMS``); any other D up to 128 is padded with zeros inside the
+kernel wrappers to the next of them (``kernel_head_dim``), as the Pallas
+kernels pad D to their lane width: q, k and v gain zero lanes, the
+kernel runs, and out, dq, dk and dv are sliced back.  Zero lanes add
+nothing to q·k, so the logits, the LSE and the softmax are those of the
+true D (the scale stays D^-0.5 of the true D, and the FLOP declaration
+counts the true D).  With RoPE tables, q and k are padded per quarter of
+D (``pad_head_dim``): 2D RoPE rotates lane i of a quarter with lane i of
+its sibling quarter, so each D/4 block becomes a P/4 block, and the
+tables take cos 1, sin 0 on the pad lanes, which stay zero.  A D above
+128 raises ``NotImplementedError``.
+
 On a CPU tensor ``flash_mha`` and ``flash_mha_bwd`` run their plain
 versions (``flash_mha_ref``, ``flash_mha_bwd_ref``); on a CUDA tensor they
 launch the kernels or raise.  ``launches`` counts the launches (K5: one
@@ -60,7 +73,7 @@ from panst3r_torch.ops import cuda_build, flops
 from panst3r_torch.ops.attention import NEG_INF
 from panst3r_torch.ops.rope import _rotate_half_2d, apply_rope_tables_f32
 
-HEAD_DIMS = (64, 96)   # the kernels' instantiations
+HEAD_DIMS = (64, 96, 128)   # the kernels' instantiations
 # The f32 kernels' tiles: keys per ring entry (the unit of the live-tile
 # list), queries per tile of K5's dkdv split, and the fixed number of
 # query tiles a dkdv CTA walks (the split is part of the result: dk and dv
@@ -68,14 +81,62 @@ HEAD_DIMS = (64, 96)   # the kernels' instantiations
 KEY_TILE = 32
 QUERY_TILE = 64
 SPLIT_TILES = 64
-# The bf16 K4's key tile by head dim: d=64 in the K1/K2 layout, d=96 in
-# K3's (csrc/flash_fwd_bf16_sm90.cu); the bf16 K5's, K3's layout at both
-# (csrc/flash_bwd_bf16_sm90.cu).  The bf16 K5's dkdv walks the f32 K5's
-# fixed splits of SPLIT_TILES query tiles of QUERY_TILE.
-BF16_KEY_TILE = {64: 128, 96: 64}
+# The bf16 K4's key tile by head dim: d=64 in the K1/K2 layout, d=96 and
+# 128 in K3's (csrc/flash_fwd_bf16_sm90.cu); the bf16 K5's, K3's layout at
+# all three (csrc/flash_bwd_bf16_sm90.cu).  The bf16 K5's dkdv walks the
+# f32 K5's fixed splits of SPLIT_TILES query tiles of QUERY_TILE.
+BF16_KEY_TILE = {64: 128, 96: 64, 128: 64}
 BF16_BWD_KEY_TILE = 64
 _LOG2E = 1.4426950408889634
 _LN2 = 0.6931471805599453
+
+
+def kernel_head_dim(D: int, dims=HEAD_DIMS) -> int:
+    """The instantiated head dim a kernel runs a head dim ``D`` at: the
+    least of ``dims`` that is >= D."""
+    for p in dims:
+        if D <= p:
+            return p
+    raise NotImplementedError(
+        f"head dim {D}: the kernels take head dims up to {dims[-1]}")
+
+
+def pad_head_dim(x, P: int, quarters: bool = False, value: float = 0.0):
+    """x (..., D) with its last dim padded to P with ``value``: at the end,
+    or, with ``quarters``, at the end of each quarter of D (D/4 lanes to
+    P/4: the layout 2D RoPE rotates within)."""
+    D = x.shape[-1]
+    if D == P:
+        return x
+    if not quarters:
+        return torch.nn.functional.pad(x, (0, P - D), value=value)
+    if D % 4 or P % 4:
+        raise ValueError(f"quarter padding takes D and P divisible by 4, "
+                         f"not {D} -> {P}")
+    y = x.reshape(x.shape[:-1] + (4, D // 4))
+    y = torch.nn.functional.pad(y, (0, (P - D) // 4), value=value)
+    return y.reshape(x.shape[:-1] + (P,))
+
+
+def unpad_head_dim(x, D: int, quarters: bool = False):
+    """The inverse of ``pad_head_dim`` (a view where it can be)."""
+    P = x.shape[-1]
+    if D == P:
+        return x
+    if not quarters:
+        return x[..., :D]
+    return x.reshape(x.shape[:-1] + (4, P // 4))[..., :D // 4].reshape(
+        x.shape[:-1] + (D,))
+
+
+def pad_rope(rope, P: int):
+    """RoPE tables (qcos, qsin, kcos, ksin) padded per quarter to P: cos 1
+    and sin 0 on the pad lanes."""
+    if rope is None:
+        return None
+    qcos, qsin, kcos, ksin = rope
+    return (pad_head_dim(qcos, P, True, 1.0), pad_head_dim(qsin, P, True),
+            pad_head_dim(kcos, P, True, 1.0), pad_head_dim(ksin, P, True))
 
 
 def _split_bias(bias, kv_valid, B, Nk):
@@ -139,7 +200,8 @@ def _check_qkv(what, q, k, v):
     Nk = k.shape[2]
     if D not in HEAD_DIMS:
         raise NotImplementedError(
-            f"{what}: K4/K5 are built for head dims {HEAD_DIMS}, not {D}")
+            f"{what}: K4/K5 are built for head dims {HEAD_DIMS}, not {D} "
+            "(pad it: kernel_head_dim)")
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{what} takes f32/bf16, not {q.dtype}")
     for name, t, shape in (("q", q, (B, H, Nq, D)), ("k", k, (B, H, Nk, D)),
@@ -187,7 +249,25 @@ def _aligned(t):
 
 
 def _flash_fwd_kernel(q, k, v, bias, kv_valid, rope, scale, with_lse):
-    """Launch K4; returns (out, lse or None)."""
+    """K4 at any head dim up to 128: q, k and v padded to the kernel's
+    head dim (``kernel_head_dim``; per quarter for q and k with tables),
+    out sliced back; returns (out, lse or None)."""
+    D = q.shape[-1]
+    P = kernel_head_dim(D)
+    if P == D:
+        return _flash_fwd_launch(q, k, v, bias, kv_valid, rope, scale,
+                                 with_lse)
+    rot = rope is not None
+    out, lse = _flash_fwd_launch(
+        pad_head_dim(q, P, rot), pad_head_dim(k, P, rot),
+        pad_head_dim(v, P), bias, kv_valid, pad_rope(rope, P),
+        D ** -0.5 if scale is None else scale, with_lse)
+    return out[..., :D], lse
+
+
+def _flash_fwd_launch(q, k, v, bias, kv_valid, rope, scale, with_lse):
+    """Launch K4 at an instantiated head dim; returns (out, lse or
+    None)."""
     _check_qkv("flash_mha", q, k, v)
     B, H, Nq, D = q.shape
     Nk = k.shape[2]
@@ -237,12 +317,13 @@ def _flash_fwd_kernel(q, k, v, bias, kv_valid, rope, scale, with_lse):
 
 
 def bf16_warpgroups(B: int, H: int, Nq: int, D: int) -> int:
-    """The bf16 K4's consumer warpgroups per CTA: K2's choice
-    (``tower_attention.cta_warpgroups``) at d=64, one (64-row CTAs, two per
-    SM) at d=96; it changes no row's arithmetic."""
+    """The bf16 K4's consumer warpgroups per CTA at head dim ``D`` (run at
+    ``kernel_head_dim(D)``): K2's choice (``tower_attention.cta_warpgroups``)
+    at d=64, one (64-row CTAs) at d=96 and 128; it changes no row's
+    arithmetic."""
     from panst3r_torch.ops.tower_attention import cta_warpgroups
 
-    return 1 if D == 96 else cta_warpgroups(B, H, Nq)
+    return 1 if kernel_head_dim(D) != 64 else cta_warpgroups(B, H, Nq)
 
 
 def tile_scratch(B: int, Nk: int, tile: int, device) -> list:
@@ -371,7 +452,25 @@ def flash_mha_bwd(q, k, v, o, lse, do, bias=None, kv_valid=None, rope=None,
 
 
 def _flash_bwd_kernel(q, k, v, o, lse, do, bias, kv_valid, rope, scale):
-    """Launch K5's two kernels."""
+    """K5 at any head dim up to 128: q, k, v, o and do padded to the
+    kernels' head dim as ``_flash_fwd_kernel`` pads them (zero lanes of o
+    and do leave Dvec as it is), dq, dk and dv sliced back."""
+    D = q.shape[-1]
+    P = kernel_head_dim(D)
+    if P == D:
+        return _flash_bwd_launch(q, k, v, o, lse, do, bias, kv_valid, rope,
+                                 scale)
+    rot = rope is not None
+    dq, dk, dv = _flash_bwd_launch(
+        pad_head_dim(q, P, rot), pad_head_dim(k, P, rot), pad_head_dim(v, P),
+        pad_head_dim(o, P), lse, pad_head_dim(do, P), bias, kv_valid,
+        pad_rope(rope, P), D ** -0.5 if scale is None else scale)
+    return (unpad_head_dim(dq, D, rot), unpad_head_dim(dk, D, rot),
+            dv[..., :D])
+
+
+def _flash_bwd_launch(q, k, v, o, lse, do, bias, kv_valid, rope, scale):
+    """Launch K5's two kernels at an instantiated head dim."""
     _check_qkv("flash_mha_bwd", q, k, v)
     B, H, Nq, D = q.shape
     Nk = k.shape[2]

@@ -15,6 +15,13 @@ builds it in jnp outside its kernel; ``live_blocks`` is the plain version
 of the pre-pass (the first ``count`` entries of ``plan_blocks``' lists),
 and ``masked_mha_split_ref`` that of the split-then-merge arithmetic.
 
+The kernels are built for head dims 96 (the v1 mask transformer's) and
+128 (``HEAD_DIMS``); any other D up to 128 is padded with zeros to the
+next of them inside the kernel wrapper, as the Pallas kernel pads D to
+its lane width (q, k and v gain zero lanes, out is sliced back; the
+scale and the FLOP declaration stay at the true D).  A D above 128
+raises ``NotImplementedError``.
+
 On a CPU tensor ``masked_mha`` runs ``masked_mha_ref`` (same semantics: p
 rounded to the v dtype before both sums, fully blocked rows → 0); on a
 CUDA tensor it launches the kernel or raises.  ``launches`` counts the
@@ -29,11 +36,13 @@ import torch
 from panst3r_torch.ops import cuda_build, flops
 from panst3r_torch.ops.attention import (NEG_INF, dot_product_attention,
                                          recompute_vjp)
+from panst3r_torch.ops.flash_attention import kernel_head_dim, pad_head_dim
 from panst3r_torch.ops.tower_attention import _LOG2E, _softmax_rounded
 
 BLOCK_Q = 64
 BLOCK_K = 64
-HEAD_DIM = 96  # the v1 mask transformer's; the kernels are built for it
+HEAD_DIMS = (96, 128)   # the kernels' instantiations (96: the v1 mask
+                        # transformer's)
 # The kernel's fixed split (both dtypes): a (batch, query block)'s live key
 # blocks are cut into runs of SPLIT_TILES, which the wrapper passes to
 # csrc/masked_attn_sm90.cu.
@@ -181,14 +190,27 @@ masked_mha.launches = masked_mha.launches_f32 = 0
 
 
 def _masked_mha_kernel(q, k, v, blocked, scale):
-    """Launch K3: one launch as counted, whatever CUDA launches the call
-    makes (the plan pre-pass, the main kernel and the split merge)."""
+    """K3 at any head dim up to 128: q, k and v padded with zero lanes to
+    the kernel's head dim (``kernel_head_dim``), out sliced back."""
+    D = q.shape[-1]
+    P = kernel_head_dim(D, HEAD_DIMS)
+    if P == D:
+        return _masked_mha_launch(q, k, v, blocked, scale)
+    return _masked_mha_launch(
+        *(pad_head_dim(t, P) for t in (q, k, v)), blocked,
+        D ** -0.5 if scale is None else scale)[..., :D]
+
+
+def _masked_mha_launch(q, k, v, blocked, scale):
+    """Launch K3 at an instantiated head dim: one launch as counted,
+    whatever CUDA launches the call makes (the plan pre-pass, the main
+    kernel and the split merge)."""
     B, H, Nq, D = q.shape
     Nk = k.shape[2]
-    if D != HEAD_DIM:
+    if D not in HEAD_DIMS:
         raise NotImplementedError(
-            f"masked_mha: K3 is built for head dim {HEAD_DIM}, not {D} "
-            "(not yet ported)")
+            f"masked_mha: K3 is built for head dims {HEAD_DIMS}, not {D} "
+            "(pad it: kernel_head_dim)")
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"masked_mha takes f32/bf16, not {q.dtype}")
     if scale is None:
@@ -213,10 +235,10 @@ def _masked_mha_kernel(q, k, v, blocked, scale):
         ms * B * H * Nq * (D + 2), dtype=torch.float32, device=q.device)
     lib, fn = cuda_build.function(
         "masked_attn_sm90", "p3_masked_attn_sm90",
-        [p] * 7 + [i32] * 5 + [ctypes.c_float, i32, i32, p])
+        [p] * 7 + [i32] * 5 + [ctypes.c_float, i32, i32, i32, p])
     err = fn(P(q), P(k), P(v), P(mask), P(out), P(plan), P(part), B, H, Nq,
              Nk, ld, float(scale), SPLIT_TILES, int(q.dtype == torch.float32),
-             cuda_build.stream_of(q))
+             D, cuda_build.stream_of(q))
     cuda_build.check(lib, err, "masked_mha")
     masked_mha.launches += 1
     masked_mha.launches_f32 += int(q.dtype == torch.float32)

@@ -22,6 +22,7 @@ from panst3r_torch.ops import sampling as t_samp
 from panst3r_tpu.engine import criterion as j_crit
 from panst3r_tpu.ops import lap as j_lap
 from panst3r_tpu.ops import sampling as j_samp
+from tests.torch_release import release_memory  # noqa: F401
 
 B, Q, NCLS, V, T = 2, 8, 5, 2, 4
 HM, WM, H, W = 16, 24, 32, 48

@@ -30,6 +30,7 @@ from panst3r_torch.ops import masked_attention as ma
 from panst3r_torch.ops import packed_attention as pa
 from panst3r_torch.ops import tower_attention as ta
 from panst3r_torch.ops.rope import rope2d_tables
+from tests.torch_release import release_memory  # noqa: F401
 
 pytestmark = pytest.mark.cuda
 NEG = float(np.finfo(np.float32).min)
@@ -288,6 +289,104 @@ def test_masked_attn_kernel(dev, dtype, B, H, Nq, Nk):
     assert (out[:, :, Nq // 2] == 0).all()
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [8, 16, 48, 80, 128])
+def test_masked_attn_kernel_head_dims(dev, dtype, D):
+    """K3 at head dims padded to 96 and at 128 (its two instantiations)
+    against its plain version, with dead key tiles, a row with no live key
+    and more than one split; the gradients (the plain formula's, as at D
+    = 96) bit-equal to autograd through the dense masked attention."""
+    from panst3r_torch.ops.attention import dot_product_attention
+
+    B, H, Nq, Nk = 1, 3, 130, 700
+    g = torch.Generator(device=dev).manual_seed(D)
+    q = _rnd(g, dev, dtype, B, H, Nq, D, s=QK_STD).requires_grad_()
+    k = _rnd(g, dev, dtype, B, H, Nk, D, s=QK_STD).requires_grad_()
+    v = _rnd(g, dev, dtype, B, H, Nk, D).requires_grad_()
+    blocked = torch.rand(B, Nq, Nk, generator=g, device=dev) > 0.05
+    blocked[:, :, : Nk // 3] = True
+    blocked[:, Nq // 2] = True
+    n0 = ma.masked_mha.launches
+    out = ma.masked_mha(q, k, v, blocked)
+    assert ma.masked_mha.launches == n0 + 1 and out.shape == q.shape
+    _close(out.detach(), ma.masked_mha_ref, q.detach(), k.detach(),
+           v.detach(), blocked)
+    assert (out[:, :, Nq // 2] == 0).all()
+    cot = torch.randn(out.shape, generator=g, device=dev).to(dtype)
+    got = torch.autograd.grad(out, (q, k, v), cot)
+    want = torch.autograd.grad(dot_product_attention(
+        q, k, v, mask=~blocked[:, None]), (q, k, v), cot)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [8, 16, 48, 128])
+def test_flash_padded_autograd(dev, dtype, D):
+    """K4 + K5 through autograd at padded head dims and at 128, with RoPE
+    tables: f32 within 1e-4 of the gradient's max against autograd
+    through ``flash_mha_ref``; bf16 by the bf16 rule against the plain
+    versions' chain in bf16 and in f32."""
+    g = torch.Generator(device=dev).manual_seed(D + 3)
+    q, k, v, _, _, rope = _flash_inputs(g, dev, dtype, "rope", D)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    cot = _rnd(g, dev, dtype, *q.shape)
+    n0, b0 = fa.flash_mha.launches, fa.flash_mha_bwd.launches
+    got = torch.autograd.grad(fa.flash_mha(q, k, v, rope=rope), (q, k, v),
+                              cot)
+    assert fa.flash_mha.launches == n0 + 1
+    assert fa.flash_mha_bwd.launches == b0 + 2
+    if dtype == torch.float32:
+        want = torch.autograd.grad(fa.flash_mha_ref(q, k, v, rope=rope),
+                                   (q, k, v), cot)
+        for a, b in zip(got, want):
+            assert (a - b).abs().max() <= 1e-4 * b.abs().max()
+        return
+
+    def chain(q, k, v, do):
+        o, lse = fa.flash_mha_ref(q, k, v, rope=rope, with_lse=True)
+        return fa.flash_mha_bwd_ref(q, k, v, o, lse, do, rope=rope)
+
+    ins = [t.detach() for t in (q, k, v, cot)]
+    check = chip_smoke._grad_check(got, chain(*ins),
+                                   chain(*(t.float() for t in ins)), dtype)
+    assert all(c["ok"] and c["finite"] for c in check.values()), check
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,N,D", [(16, 1200, 64), (2, 768, 16)])
+def test_split_cls_on_card(dev, dtype, H, N, D):
+    """``flash_attention_split_cls`` on the card (K4 with its LSE over the
+    patches, the cls column merged) against its concatenated plain
+    version on the same inputs: DINO-L's 1200 patches at 480x640, and the
+    tiny presets' DINO (2 heads of 16); one K4 launch; the gradients
+    (the plain version's, recomputed) bit-equal to autograd through it."""
+    from panst3r_torch.ops.attention import (_split_cls_ref,
+                                             flash_attention_split_cls)
+
+    B = 2
+    g = torch.Generator(device=dev).manual_seed(N + D)
+    q, k = (_rnd(g, dev, dtype, B, H, N, D, s=QK_STD).requires_grad_()
+            for _ in range(2))
+    v = _rnd(g, dev, dtype, B, H, N, D).requires_grad_()
+    qc, kc = (_rnd(g, dev, dtype, B, H, 1, D, s=QK_STD).requires_grad_()
+              for _ in range(2))
+    vc = _rnd(g, dev, dtype, B, H, 1, D).requires_grad_()
+    ins = (q, k, v, qc, kc, vc)
+    n0 = fa.flash_mha.launches
+    out = flash_attention_split_cls(*ins)
+    assert fa.flash_mha.launches == n0 + 1
+    scale = D ** -0.5
+    plain = [t.detach() for t in ins]
+    for i in range(2):
+        _close(out[i].detach(),
+               lambda *a: _split_cls_ref(*a, scale)[i], *plain)
+    cots = [torch.randn(o.shape, generator=g, device=dev).to(dtype)
+            for o in out]
+    got = torch.autograd.grad(out, ins, cots)
+    want = torch.autograd.grad(_split_cls_ref(*ins, scale), ins, cots)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
 def test_masked_attn_batch_invariant(dev):
     """bf16 K3 on the Hopper engine: each batch element's rows equal the
     slice of the full call bit for bit, though the batches' query blocks
@@ -411,9 +510,9 @@ def test_k3_k6_route_by_dtype(dev, monkeypatch, op):
 
 def test_unsupported_shapes_raise(dev):
     blocked = torch.zeros(1, 8, 8, dtype=torch.bool, device=dev)
-    for D in (32, 64, 128):                       # K3 is built for D=96
+    for D in (160, 256):                  # K3 takes head dims up to 128
         q = torch.zeros(1, 2, 8, D, device=dev)
-        with pytest.raises(NotImplementedError, match="head dim 96"):
+        with pytest.raises(NotImplementedError, match="up to 128"):
             ma.masked_mha(q, q, q, blocked)
     qkv = torch.zeros(1, 8, 3 * 256, device=dev)
     with pytest.raises(NotImplementedError):
@@ -453,8 +552,13 @@ def _flash_inputs(g, dev, dtype, case, D, B=2, H=3, Nq=130, Nk=333):
     return q, k, v, bias, kv_valid, rope
 
 
+# the instantiated head dims, then dims padded to them (the tiny presets'
+# 8, 12, 16; 48 and 80) and D = 128
+FLASH_DIMS = [64, 96, 8, 12, 16, 48, 80, 128]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [64, 96])
+@pytest.mark.parametrize("D", FLASH_DIMS)
 @pytest.mark.parametrize("case", [
     "plain", "dense_bias", "head_shared_bias", "kv_valid", "key_bias",
     "bias_and_kv_valid", "rope", "masked_rows", "strided"])
@@ -479,10 +583,13 @@ def test_flash_fwd_kernel(dev, dtype, D, case):
 
 
 def test_flash_unsupported_inputs_raise(dev):
-    for D in (32, 128):                     # K4 is built for D = 64 and 96
+    for D in (160, 256):                    # K4 takes head dims up to 128
         q = torch.zeros(1, 2, 300, D, device=dev)
-        with pytest.raises(NotImplementedError, match="K4"):
+        with pytest.raises(NotImplementedError, match="up to 128"):
             fa.flash_mha(q, q, q)
+        lse = torch.zeros(1, 2, 300, device=dev)
+        with pytest.raises(NotImplementedError, match="up to 128"):
+            fa.flash_mha_bwd(q, q, q, q, lse, q)
     q = torch.zeros(1, 2, 300, 64, device=dev)
     with pytest.raises(TypeError):
         fa.flash_mha(q.half(), q.half(), q.half())
@@ -498,7 +605,7 @@ def test_image_cast_matches_cpu_bit_for_bit(dev):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [64, 96])
+@pytest.mark.parametrize("D", FLASH_DIMS)
 @pytest.mark.parametrize("case", [
     "plain", "dense_bias", "head_shared_bias", "kv_valid", "key_bias",
     "bias_and_kv_valid", "rope", "masked_rows", "strided", "split_merge"])

@@ -20,6 +20,7 @@ from panst3r_tpu.data import loader as jloader
 from panst3r_tpu.data.scannetpp import ScanNetppPanoptic as JScanNetpp
 from panst3r_tpu.data.utils import id2rgb as j_id2rgb
 from tests.test_data import _make_scannetpp
+from tests.torch_release import release_memory  # noqa: F401
 
 
 def _fake(mod):

@@ -41,6 +41,7 @@ from tests.test_qubo_parity import (brute_force_qubo,
                                     reference_qubo_selection,
                                     reference_weight_from_masks)
 from tools.port_torch_checkpoint import port_checkpoint
+from tests.torch_release import release_memory  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 H, W = 32, 48

@@ -34,6 +34,7 @@ from panst3r_tpu.models.presets import tiny_config as j_tiny
 from tests.test_benchmarks import _make_benchmark_root
 from tests.test_data import _make_scannetpp
 from tests.test_eval_panopticapi_parity import _random_scene
+from tests.torch_release import release_memory  # noqa: F401
 
 H, W = 32, 48
 

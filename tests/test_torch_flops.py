@@ -38,6 +38,7 @@ from panst3r_tpu.models import memory as j_memlib
 from panst3r_tpu.models import presets as j_presets
 from panst3r_tpu.models.panst3r import PanSt3R as JPanSt3R
 from panst3r_tpu.ops.flops import fn_matmul_flops
+from tests.torch_release import release_memory  # noqa: F401
 
 RTOL = 1e-6
 

@@ -13,6 +13,7 @@ from jax.experimental.pallas import tpu as pltpu
 import panst3r_tpu.ops.pallas.tower_attention as jta
 from panst3r_torch.ops import tower_attention as ta
 from panst3r_tpu.ops.rope import rope2d_tables as j_tables
+from tests.torch_release import release_memory  # noqa: F401
 
 NEG = float(np.finfo(np.float32).min)
 SCALE = 64 ** -0.5

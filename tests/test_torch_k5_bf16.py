@@ -31,6 +31,7 @@ from jax.experimental.pallas import tpu as pltpu
 from panst3r_torch.ops import flash_attention as t_fa
 from panst3r_tpu.ops.pallas import flash_attention_bwd as j_bwd
 from panst3r_tpu.ops.rope import rope2d_tables
+from tests.torch_release import release_memory  # noqa: F401
 
 NEG = float(np.finfo(np.float32).min)
 B, H, NQ, NK = 1, 2, 130, 200

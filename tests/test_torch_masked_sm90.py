@@ -17,6 +17,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from panst3r_torch.ops import masked_attention as t_ma
 from panst3r_tpu.ops.pallas import masked_attention as j_ma
+from tests.torch_release import release_memory  # noqa: F401
 
 
 def _t(a):

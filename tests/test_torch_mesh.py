@@ -18,6 +18,7 @@ from panst3r_tpu.core import mesh as jmesh
 from panst3r_tpu.core.tp import tp_spec as j_tp_spec
 from panst3r_tpu.models import presets as j_presets
 from panst3r_tpu.models.panst3r import PanSt3R as JPanSt3R
+from tests.torch_release import release_memory  # noqa: F401
 
 RESOLVE_CASES = [((-1, 2, 1), 8), ((8, 1, 1), 8), ((2, 2, -1), 8),
                  ((3, 2, 1), 8), ((2, 1, 1), 1), ((-1, 2, 1), 1),

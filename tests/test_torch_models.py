@@ -42,6 +42,7 @@ from panst3r_tpu.models.panoptic_decoder import PanopticDecoder as JPD
 from panst3r_tpu.models.presets import tiny_config as j_tiny
 from panst3r_tpu.models.upscalers import PixelShuffleUpscaler as JPS
 from panst3r_tpu.ops.rope import patch_grid_positions, rope2d_tables
+from tests.torch_release import release_memory  # noqa: F401
 
 GH, GW = 8, 12                     # token grid: N = 96
 N = GH * GW
@@ -119,10 +120,10 @@ def test_block_with_rope(rng):
 
 
 @torch.no_grad()
-def test_self_attention_generic_path(rng):
+def test_self_attention_generic_path(rng, monkeypatch):
     """d=32 heads: not a tower shape, the JAX generic path (K4, its plain
-    version on the CPU); off the CPU the port refuses it (K4 is built for
-    head dims 64 and 96)."""
+    version on the CPU); off the CPU K4 runs it padded to its head dim 64,
+    q and k per RoPE quarter (meta tensors stand in for the card here)."""
     x = rng.standard_normal((1, 300, 128)).astype(np.float32)
     pos = rng.integers(0, 20, (1, 300, 2)).astype(np.int32)
     jt = rope2d_tables(jnp.asarray(pos), 32)
@@ -132,8 +133,18 @@ def test_self_attention_generic_path(rng):
     tm = _port(t_blocks.SelfAttention(128, 4), params)
     got = tm(_t(x), tabs=tuple(_t(a) for a in jt))
     np.testing.assert_allclose(_np(got), np.asarray(want), atol=1e-5)
-    with pytest.raises(NotImplementedError, match="K4"):
-        tm.to("meta")(torch.empty(1, 300, 128, device="meta"))
+    from panst3r_torch.ops import flash_attention as t_fa
+    seen = []
+
+    def launch(q, k, v, bias, kv_valid, rope, scale, with_lse):
+        seen.append((q.shape[-1], rope[0].shape[-1], scale))
+        return torch.empty(q.shape, device="meta"), None
+
+    monkeypatch.setattr(t_fa, "_flash_fwd_launch", launch)
+    tabs = tuple(torch.empty(1, 300, 32, device="meta") for _ in range(2))
+    out = tm.to("meta")(torch.empty(1, 300, 128, device="meta"), tabs=tabs)
+    assert out.shape == (1, 300, 128)
+    assert seen == [(64, 64, 32 ** -0.5)]
 
 
 @torch.no_grad()

@@ -35,6 +35,7 @@ from tests.test_torch_demo import PRESETS as REF_PRESETS
 from tests.test_torch_demo import reference_state_dict
 from tests.test_torch_models import _apply, _init
 from tools.port_torch_checkpoint import port_checkpoint
+from tests.torch_release import release_memory  # noqa: F401
 
 H, W, H2, W2, NCLS = 32, 48, 32, 32, 5
 

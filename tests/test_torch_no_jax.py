@@ -5,6 +5,8 @@ import re
 import subprocess
 import sys
 
+from tests.torch_release import release_memory  # noqa: F401
+
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "panst3r_tpu", "tools")
 
@@ -26,6 +28,11 @@ names = [m.name for m in pkgutil.walk_packages(panst3r_torch.__path__,
 assert {"panst3r_torch.core." + m for m in ("distributed", "mesh", "tp",
                                             "dryrun")} \
     | {"panst3r_torch.ops.sharded_attention"} <= set(names)
+# so are the viewer, the gradio app, progress routing, the host
+# rasterizer's package and the preprocessing tool
+assert {"panst3r_torch.apps.viewer", "panst3r_torch.apps.gradio_app",
+        "panst3r_torch.core.progress", "panst3r_torch.native",
+        "panst3r_torch.tools.preprocess_scannetpp"} <= set(names)
 for name in names:
     importlib.import_module(name)
 import chip_smoke  # import only: main() is not run
@@ -82,6 +89,17 @@ views = [{"img": rng.random((32, 48, 3)).astype(np.float32) * 2 - 1,
 per_class = evaluate_scene(eng, views, ["chair", "wall"],
                            rng.standard_normal((2, 24)).astype(np.float32))
 assert sum(s.tp + s.fn for s in per_class.values()) >= 1
+from panst3r_torch.native import rasterize_mesh
+depth, label = rasterize_mesh(
+    np.array([[-1, -1, 2], [1, -1, 2], [0, 1, 2]], np.float32),
+    np.array([[0, 1, 2]], np.int32), np.array([5], np.int32),
+    np.array([[8, 0, 8], [0, 8, 8], [0, 0, 1]], np.float32), 16, 16)
+assert label[8, 8] == 5 and abs(depth[8, 8] - 2) < 1e-5
+from panst3r_torch.ops.attention import flash_attention_split_cls
+x = torch.randn(1, 2, 5, 16)
+c = torch.randn(1, 2, 1, 16)
+op, oc = flash_attention_split_cls(x, x, x, c, c, c)
+assert op.shape == x.shape and oc.shape == c.shape
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in FORBIDDEN)
 assert not loaded, loaded
 print("modules", len(names))

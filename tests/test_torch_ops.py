@@ -18,6 +18,7 @@ from panst3r_tpu.models.blocks import gelu_exact as j_gelu_exact
 from panst3r_tpu.ops import attention as j_attn
 from panst3r_tpu.ops import image as j_image
 from panst3r_tpu.ops import rope as j_rope
+from tests.torch_release import release_memory  # noqa: F401
 
 
 def _t(a):

@@ -21,6 +21,7 @@ from jax.experimental.pallas import tpu as pltpu
 from panst3r_torch.ops import flash_attention as t_fa
 from panst3r_torch.ops import packed_attention as pa
 from tools import ab_attention_packed as j_ab
+from tests.torch_release import release_memory  # noqa: F401
 
 
 def _inputs(shape, seed, dtype=np.float32):

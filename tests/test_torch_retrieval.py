@@ -22,6 +22,7 @@ from panst3r_tpu.engine import retrieval as jret
 from tests.test_retrieval_head import _reference_forward, _torch_model
 from tools.port_torch_checkpoint import \
     port_retrieval_checkpoint as tools_port_retrieval
+from tests.torch_release import release_memory  # noqa: F401
 
 
 def _checkpoint(m, codebook=None, residual=False, extra=None):

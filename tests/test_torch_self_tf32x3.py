@@ -23,6 +23,7 @@ from panst3r_torch.ops.tf32x3 import matmul_tf32x3
 from panst3r_tpu.ops.pallas import tower_attention as j_ta
 from panst3r_tpu.ops.rope import rope2d_tables
 from tools import ab_attention_packed as j_ab
+from tests.torch_release import release_memory  # noqa: F401
 
 F32_TOL = 1e-4        # chip_smoke.py's limit for the f32 kernels
 QK_STD = 1.4          # chip_smoke.py's: logits with a std of about 2

@@ -33,6 +33,7 @@ from panst3r_tpu.models.panst3r import PanSt3R as JPanSt3R
 from panst3r_tpu.models.presets import tiny_config as j_tiny
 from panst3r_tpu.ops import image as jimg
 from tests.test_torch_models import random_params
+from tests.torch_release import release_memory  # noqa: F401
 
 H, W, V, K, NCLS = 32, 48, 5, 3, 6
 FUSION_RES = ("full", "mask", "hybrid", "hybrid4")

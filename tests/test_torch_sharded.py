@@ -19,6 +19,7 @@ from panst3r_tpu.engine.fusion import fusion_sharded as j_fusion_sharded
 from panst3r_tpu.ops.sharded_attention import (ring_memory_attention,
                                                sharded_memory_attention)
 from tests.test_ba import _synthetic
+from tests.torch_release import release_memory  # noqa: F401
 
 RANKS = 4
 FUSION = dict(B=1, V=8, Q=12, h=16, w=24, H=32, W=48)

@@ -25,6 +25,7 @@ from panst3r_tpu.models import siglip_text as jsig
 from panst3r_tpu.models import text_encoder as jte
 from tests.test_text_towers_native import _tiny_clip_files
 from tools import port_torch_checkpoint as jport
+from tests.torch_release import release_memory  # noqa: F401
 
 TOL = dict(rtol=2e-4, atol=2e-5)
 

@@ -22,6 +22,7 @@ from panst3r_torch.ops.tf32x3 import (matmul_tf32, matmul_tf32x3,
 from panst3r_tpu.ops.pallas import masked_attention as j_ma
 from panst3r_tpu.ops.pallas import tower_attention as j_ta
 from panst3r_tpu.ops.rope import rope2d_tables
+from tests.torch_release import release_memory  # noqa: F401
 
 NEG = float(np.finfo(np.float32).min)
 QK_STD = 1.4          # chip_smoke.py's: logits with a std of about 2

@@ -17,6 +17,7 @@ from jax.experimental.pallas import tpu as pltpu
 from panst3r_torch.ops import tower_attention as t_ta
 from panst3r_tpu.ops.pallas import tower_attention as j_ta
 from panst3r_tpu.ops.rope import apply_rope_tables, rope2d_tables
+from tests.torch_release import release_memory  # noqa: F401
 
 NEG = float(np.finfo(np.float32).min)
 SCALE = 64 ** -0.5

@@ -34,6 +34,7 @@ from panst3r_tpu.models.panst3r import PanSt3R as JPanSt3R
 from panst3r_tpu.models.presets import tiny_config as j_tiny
 from tests.test_data import _make_scannetpp
 from tests.test_torch_models import random_params
+from tests.torch_release import release_memory  # noqa: F401
 
 H, W, GRID, NCLS = 32, 48, (2, 3), 5
 SERVE = dict(V=5, K=3, chunk=2, ncls=6)

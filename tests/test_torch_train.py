@@ -31,6 +31,7 @@ from panst3r_tpu.models.panst3r import PanSt3R as JPanSt3R
 from tests.test_torch_criterion import jax_draws
 from tests.test_torch_models import random_params
 from tests.test_torch_v2 import _port
+from tests.torch_release import release_memory  # noqa: F401
 
 H, W, V, NCLS, T = 32, 48, 2, 5, 4
 GRID = (H // 16, W // 16)

@@ -28,6 +28,7 @@ from panst3r_torch.ops.lap import exact_lap
 from panst3r_tpu.core import config as jcfg
 from panst3r_tpu.ops.lap import exact_lap as j_exact_lap
 from tests.test_data import _make_scannetpp
+from tests.torch_release import release_memory  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 

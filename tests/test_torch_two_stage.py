@@ -16,6 +16,7 @@ from panst3r_tpu.models.mask_transformer import MaskTransformer as JMT
 from panst3r_tpu.models.mask_transformer import \
     MaskTransformerConfig as JMTCfg
 from tests.test_torch_models import _MT_KW, _apply, _init, _np, _port, _t
+from tests.torch_release import release_memory  # noqa: F401
 
 _TS_KW = dict(_MT_KW, two_stage=True)
 

@@ -45,6 +45,7 @@ from panst3r_tpu.models.upscalers.loftup import \
     LoftUpUpscalerConfig as JLoftCfg
 from panst3r_tpu.ops.rope import patch_grid_positions
 from tests.test_torch_models import random_params
+from tests.torch_release import release_memory  # noqa: F401
 
 F64_TOL = dict(rtol=1e-6, atol=1e-6)
 

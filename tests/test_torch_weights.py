@@ -20,6 +20,7 @@ from panst3r_tpu.models.presets import panst3r_v2_config as j_v2
 from panst3r_tpu.models.presets import tiny_config as j_tiny
 from panst3r_tpu.models.presets import tiny_v2_config as j_tiny_v2
 from tests.test_torch_models import random_params
+from tests.torch_release import release_memory  # noqa: F401
 
 H, W, NCLS = 32, 48, 5
 
