@@ -8,6 +8,7 @@
     python3 chip_smoke.py --phases slam,slam_app,eval
     python3 chip_smoke.py --phases multi_gpu
     python3 chip_smoke.py --phases tiny,dino_large
+    python3 chip_smoke.py --phases checkpoint
 
 Run from the root of a checkout.  It builds the CUDA kernels of
 ``panst3r_torch/csrc`` with nvcc (into the git-ignored
@@ -157,6 +158,19 @@ Run from the root of a checkout.  It builds the CUDA kernels of
    pass), V=8 / K=4, launches as implied; DINO-L alone at depth 2 at that
    bucket, card against CPU (``DINO_RTOL``); the ``kernels`` phase holds
    K4 at those calls (``dino_1200_lse``, ``encoder_1200_rope``);
+22. ``checkpoint``: the checkpoint interop tools at full v1 and v2 width
+   and depth on a reference-named state_dict synthesized from a seed
+   (``tests/torch_reference_sd.py``) and saved as a ``.pth``: the port's
+   command line (``python -m panst3r_torch.port_checkpoint``),
+   ``tools/verify_port.py`` on the card (verdict ok; its ``card_parity``
+   stage, each stack card against CPU in f32 at ``small``'s and
+   ``DINO_RTOL``'s limits, and its ``forward`` stage run, their K1/K2/K3
+   (and LoftUp's K4) launches as the call structure implies), the
+   command line's ``ported_params.npz`` loaded into a model, the
+   reverse export of that model reproducing the file bit for bit, and
+   ``build_engine`` on the file with one V=8 ``serve_device`` scene at
+   384x512, launches as implied; the seconds of each step and the
+   host's peak memory;
 
 then one ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``.  Any failed phase raises, and the script exits non-zero
@@ -216,7 +230,7 @@ REPLACES = {
 PHASES = ("kernels", "small", "v1", "v2", "train_v2", "serve", "serve_long",
           "ab_packed", "multibucket", "demo", "serve_many", "refine",
           "retrieval_head", "serve_app", "text", "train_app", "slam",
-          "slam_app", "eval", "multi_gpu", "tiny", "dino_large")
+          "slam_app", "eval", "multi_gpu", "tiny", "dino_large", "checkpoint")
 # every kernel runs a Hopper engine in both dtypes: bf16 the wgmma engine
 # (K2-int8 its s8 scores); of the f32 paths (entries ``*_f32`` of the
 # kernels line) K2, K2-int8 and K3 run the 3xTF32 engine in the same
@@ -284,6 +298,10 @@ DINO_LARGE_HW = (480, 640)
 # DINO-L alone at depth 2 at that bucket, card against CPU (f32, TF32
 # off): max abs error within this share of the output's max |value|
 DINO_RTOL = 1e-4
+# card against CPU in f32 (``small`` and every phase that reuses its
+# limits): (output, atol, rtol)
+SMALL_LIMITS = (("pointmaps_raw", 2e-4, 0.0), ("pred_logits", 2e-3, 0.0),
+                ("pred_masks", 1e-2, 1e-2))
 # The JAX package's matmul/conv FLOPs of one run_device + fusion scene at
 # 384x512 (preset, V, K): panst3r_tpu's InferenceEngine.pipeline_flops over
 # jax.eval_shape parameters, run on the CPU (the per-stage split is
@@ -1593,9 +1611,7 @@ def phase_small(preset: str, cfg=None):
     a, b = outs["cuda"], outs["cpu"]
     row = {"phase": "small", "model": preset, "compare": "cuda_vs_cpu",
            "flops_equal": flops["cuda"] == flops["cpu"]}
-    for key, atol, rtol in (("pointmaps_raw", 2e-4, 0.0),
-                            ("pred_logits", 2e-3, 0.0),
-                            ("pred_masks", 1e-2, 1e-2)):
+    for key, atol, rtol in SMALL_LIMITS:
         diff = np.abs(a[key] - b[key])
         row[key] = {"max_abs_err": float(diff.max()), "atol": atol,
                     "rtol": rtol,
@@ -3367,8 +3383,7 @@ def phase_small_two_stage():
            "cpu_top_valid_on_card_scores": top_k_within(
                own["score"], calls["cpu"][0]["top"], 1e-4)}
     a, b = outs["cuda"], outs["cpu"]
-    for key, atol, rtol in (("pred_logits", 2e-3, 0.0),
-                            ("pred_masks", 1e-2, 1e-2)):
+    for key, atol, rtol in SMALL_LIMITS[1:]:
         diff = np.abs(a[key] - b[key])
         row[key] = {"max_abs_err": float(diff.max()), "atol": atol,
                     "rtol": rtol,
@@ -3454,12 +3469,17 @@ def _mb_check(out, cfg, ncls) -> dict:
     return ok
 
 
+# the depth of ``phase_multibucket``'s card-against-CPU check: its CPU side
+# is the phase's time
+MB_SMALL_DEPTH = 1
+
+
 def phase_multibucket():
     """The mixed-aspect main path (full v1, bf16: ``run`` + ``fuse``, which
     brings every output to the host, and ``run_device`` + ``fuse``, and a
-    profile of the latter), then a depth-2 f32 check of the same scene,
-    card against CPU, for v1 and v2; returns the full scene's launch
-    counts."""
+    profile of the latter), then an f32 check of the same scene at
+    ``MB_SMALL_DEPTH``, card against CPU, for v1 and v2; returns the full
+    scene's launch counts."""
     import torch
 
     from panst3r_torch.core.bucketing import Bucket
@@ -3524,7 +3544,7 @@ def phase_multibucket():
     torch.cuda.empty_cache()
 
     for preset in ("v1", "v2"):
-        cfg = _config(preset, depth=2)
+        cfg = _config(preset, depth=MB_SMALL_DEPTH)
         cpu_model = build_model(cfg, device="cpu", seed=0)
         gpu_model = build_model(cfg, device="cuda", seed=1)
         gpu_model.load_state_dict(cpu_model.state_dict())
@@ -3547,9 +3567,7 @@ def phase_multibucket():
         a, b = outs["cuda"], outs["cpu"]
         row = {"phase": "multibucket_small", "model": preset,
                "compare": "cuda_vs_cpu"}
-        for key, atol, rtol in (("pointmaps_raw", 2e-4, 0.0),
-                                ("pred_logits", 2e-3, 0.0),
-                                ("pred_masks", 1e-2, 1e-2)):
+        for key, atol, rtol in SMALL_LIMITS:
             pairs = list(zip(a[key], b[key])) if isinstance(a[key], list) \
                 else [(a[key], b[key])]
             err = max(float(np.abs(x - y).max()) for x, y in pairs)
@@ -4894,6 +4912,236 @@ def phase_multi_gpu():
     return launches
 
 
+# --------------------------------------------------- checkpoint tools --
+
+CKPT_SERVE = (8, 4, 384, 512)     # the serve scene from the file: V, K, H, W
+
+
+def reference_sd_module():
+    """``tests/torch_reference_sd.py``, loaded from its path: the card's
+    machine has another package named ``tests`` on its path."""
+    import importlib.util
+    import pathlib
+
+    name = "torch_reference_sd"
+    if name not in sys.modules:
+        path = pathlib.Path(__file__).resolve().parent / "tests" / f"{name}.py"
+        spec = importlib.util.spec_from_file_location(name, path)
+        sys.modules[name] = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(sys.modules[name])
+    return sys.modules[name]
+
+
+@contextlib.contextmanager
+def sampled_rss(every: float = 0.1):
+    """Yields {pid: peak resident bytes} of this process ("self") and of
+    each pid the caller adds to it, read from /proc/<pid>/statm every
+    ``every`` seconds on a thread (a child's peak: the high-water marks
+    of a forked child can carry its parent's)."""
+    import os
+    import threading
+
+    peak = {"self": 0}
+    stop = threading.Event()
+    page = os.sysconf("SC_PAGE_SIZE")
+
+    def sample():
+        while not stop.is_set():
+            for pid in list(peak):
+                try:
+                    with open(f"/proc/{pid}/statm") as f:
+                        rss = int(f.read().split()[1]) * page
+                except (OSError, ValueError, IndexError):
+                    continue
+                peak[pid] = max(peak[pid], rss)
+            stop.wait(every)
+
+    thread = threading.Thread(target=sample, daemon=True)
+    thread.start()
+    try:
+        yield peak
+    finally:
+        stop.set()
+        thread.join()
+
+
+def _ckpt_expected(cfg) -> dict:
+    """Launches of verify_port's ``card_parity`` and ``forward`` stages:
+    each runs a scene of PARITY_VIEWS views, all of them keyframes, at
+    PARITY_HW as ``run_device`` runs it (one chunk)."""
+    from panst3r_torch.tools import verify_port as vp
+
+    V = vp.PARITY_VIEWS
+    return expected_launches(cfg, V, V, V, grid=tuple(
+        d // cfg.encoder.patch_size for d in vp.PARITY_HW))
+
+
+def phase_checkpoint():
+    """The checkpoint interop tools at full v1 and v2 width and depth on a
+    reference-named state_dict synthesized from seed 0
+    (``tests/torch_reference_sd.py``; no published weights are in the
+    repository), saved as a ``.pth``: ``python -m
+    panst3r_torch.port_checkpoint`` on it; ``tools/verify_port.py`` on the
+    card (verdict ok, ``card_parity`` and ``forward`` run, their launches
+    as ``_ckpt_expected``); the CLI's ``ported_params.npz`` into a model
+    on the host (``apps/eval.py::load_ported_npz``) and ``export_model``
+    of it against the file as template reproducing the file bit for bit
+    (so ``dump_jax_params`` inverts ``load_jax_params`` at full width),
+    all three beside ``verify_port`` on a thread;
+    ``build_engine`` on the file and one ``serve_device`` scene
+    (``CKPT_SERVE``) with launches as ``expected_serve_launches``, LoftUp's
+    K4 all f32.  Seconds of each step (``verify_port``'s stages and the
+    thread's steps share the host's cores: times under contention, not
+    each step's own) and the host's memory: this process's and the
+    command line's peak resident size over the preset (``sampled_rss``)
+    and this process's high-water mark since it started.  Returns the v2
+    serve scene's launches."""
+    import concurrent.futures
+    import tempfile
+
+    import torch
+
+    from panst3r_torch.apps.common import build_engine
+    from panst3r_torch.apps.eval import load_ported_npz
+    from panst3r_torch.core.bucketing import Bucket
+    from panst3r_torch.models.panst3r import PanSt3R
+    from panst3r_torch.port_checkpoint import peak_host_gib, state_dict_of
+    from panst3r_torch.tools import verify_port
+    from panst3r_torch.tools.export_checkpoint import export_model
+
+    reference_state_dict = reference_sd_module().reference_state_dict
+    V, K, H, W = CKPT_SERVE
+    counts = {}
+    for preset in ("v1", "v2"):
+        cfg = _config(preset)
+        secs, checks = {}, {}
+        with tempfile.TemporaryDirectory() as tmp, sampled_rss() as rss:
+            ref = f"{tmp}/reference.pth"
+            t0 = time.perf_counter()
+            sd = {k: v.cpu() for k, v in reference_state_dict(
+                cfg, seed=0, device="cuda").items()}
+            torch.save({"weights": sd}, ref)
+            secs["synthesize_and_save"] = time.perf_counter() - t0
+            n_scalars = sum(v.numel() for v in sd.values())
+
+            template = state_dict_of(sd)
+
+            def cli_then_export():
+                """The port's command line, then its ``ported_params.npz``
+                in a model on the host and that model exported against
+                the file: host work, run beside ``verify_port``."""
+                t = time.perf_counter()
+                cli = subprocess.Popen(
+                    [sys.executable, "-m", "panst3r_torch.port_checkpoint",
+                     "--torch", ref, "--out", f"{tmp}/port"],
+                    stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                    text=True)
+                rss[cli.pid] = 0
+                _, stderr = cli.communicate()
+                secs["port_cli"] = time.perf_counter() - t
+                if cli.returncode:
+                    raise AssertionError(f"checkpoint {preset}: port CLI "
+                                         f"failed: {stderr[-3000:]}")
+                t = time.perf_counter()
+                with torch.device("meta"):
+                    model = PanSt3R(cfg)
+                model = load_ported_npz(model.to_empty(device="cpu"),
+                                        f"{tmp}/port/ported_params.npz")
+                secs["load_ported_npz"] = time.perf_counter() - t
+                t = time.perf_counter()
+                out, erep = export_model(model, template)
+                secs["export"] = time.perf_counter() - t
+                bad = [k for k, v in template.items()
+                       if k not in erep["passthrough"]
+                       and out[k].tobytes() != v.tobytes()]
+                return rss.pop(cli.pid), {
+                    "bad_keys": bad[:5], "missing": erep["missing"],
+                    "passthrough": erep["passthrough"],
+                    "ok": not bad and not erep["missing"]
+                    and erep["exported_keys"] + len(erep["passthrough"])
+                    == len(template)}
+
+            t0 = time.perf_counter()
+            with concurrent.futures.ThreadPoolExecutor(1) as pool:
+                side = pool.submit(cli_then_export)
+                rep = verify_port.main(["--torch", ref,
+                                        "--out", f"{tmp}/verify"])
+                secs["verify"] = time.perf_counter() - t0
+                cli_peak, checks["export"] = side.result()
+            secs["verify_beside_cli_and_export"] = time.perf_counter() - t0
+            del sd, template
+            with open(f"{tmp}/port/port_report.json") as f:
+                report = json.load(f)
+            checks["port_report"] = {
+                "unmapped": len(report["unmapped"]),
+                "ignored": report["ignored"],
+                "ok": not report["unmapped"]
+                and report["ported_keys"] + len(report["ignored"])
+                == report["total_keys"]}
+
+            stages = {st["stage"]: st for st in rep["stages"]}
+            for name, st in stages.items():
+                secs[f"verify_{name}"] = st["stage_seconds"]
+            want = _ckpt_expected(cfg)
+            checks["verify"] = {
+                "verdict": rep["verdict"],
+                "statuses": {k: st["status"] for k, st in stages.items()},
+                "card_parity": stages.get("card_parity", {}).get("modules"),
+                "launches": {k: stages.get(k, {}).get("launches")
+                             for k in ("card_parity", "forward")},
+                "expected": want}
+            checks["verify"]["ok"] = (
+                rep["verdict"] == "ok"
+                and all(stages.get(k, {}).get("status") == "ok"
+                        for k in ("port", "roundtrip", "card_parity",
+                                  "forward"))
+                and all(v == want for v in
+                        checks["verify"]["launches"].values()))
+            if not checks["verify"]["ok"]:
+                emit({"phase": "checkpoint", "model": preset,
+                      "verify_report": rep})
+
+            t0 = time.perf_counter()
+            eng, _, _ = build_engine(preset, Bucket(H, W), checkpoint=ref,
+                                     num_keyframes=K)
+            torch.cuda.synchronize()
+            secs["build_engine"] = time.perf_counter() - t0
+            images, portrait, cls_emb = _inputs(
+                V, H, W, lang_dim=cfg.panoptic.mask_transformer.lang_dim)
+            eng.serve_device(images, portrait, cls_emb)           # warm-up
+            _reset_counts()
+            t0 = time.perf_counter()
+            wire = eng.serve_device(images, portrait, cls_emb)
+            torch.cuda.synchronize()
+            secs["serve_scene"] = time.perf_counter() - t0
+            # the returned scene's f32 share (LoftUp's K4) stays in
+            # F32_LAUNCHES["checkpoint"] for the kernels line
+            counts[preset] = _read_counts("checkpoint")
+            f32 = F32_LAUNCHES["checkpoint"]
+            dec = eng.unpack_wire(wire, V)
+            want = expected_serve_launches(cfg, V, K, eng.n_tokens)
+            checks["serve"] = {
+                "launches": counts[preset], "expected": want,
+                "launches_f32": f32, "pan_shape": list(dec["pan"].shape),
+                "ok": counts[preset] == want
+                and f32.get("flash_fwd", 0) == want.get("flash_fwd", 0)
+                and list(dec["pan"].shape) == [V, H, W]
+                and bool(np.isfinite(dec["conf"]).all())}
+            del eng
+            torch.cuda.empty_cache()
+        emit({"phase": "checkpoint", "model": preset, "scalars": n_scalars,
+              "keys": report["total_keys"], "seconds": secs,
+              "host_gib": {"phase_peak": rss["self"] / 2 ** 30,
+                           "port_cli_peak": cli_peak / 2 ** 30,
+                           "process_peak": peak_host_gib()},
+              "checks": checks})
+        bad = [k for k, c in checks.items() if not c["ok"]]
+        if bad:
+            raise AssertionError(f"checkpoint {preset}: failed checks {bad}: "
+                                 f"{ {k: checks[k] for k in bad} }")
+    return counts["v2"]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES))
@@ -4936,8 +5184,7 @@ def main(argv=None) -> int:
             if any(w in ln for w in ("entry function", "registers", "spill",
                                      "arning"))]})
 
-    rows = phase_kernels() if "kernels" in phases else {}
-    if "small" in phases:
+    def small():
         phase_small("v1")
         phase_small("v2")
         phase_small_train()
@@ -4946,20 +5193,20 @@ def main(argv=None) -> int:
         phase_small_serve_many("v2")
         phase_small_refine()
         phase_small_two_stage()
-    launches = {p: phase_full(p) for p in ("v1", "v2") if p in phases}
-    if "train_v2" in phases:
-        launches["train_v2"] = phase_train_v2()
-    if "serve" in phases:
-        launches["serve"] = phase_serve()
-    if "serve_long" in phases:
-        launches["serve_long"] = phase_serve_long()
-    if "ab_packed" in phases:
+
+    def ab_packed():
         launches["ab_packed"], launches["ab_packed_f32"] = phase_ab_packed()
-    if "multibucket" in phases:
-        launches["multibucket"] = phase_multibucket()
-    if "demo" in phases:
-        launches["demo"] = phase_demo()
-    for name, phase in (("serve_many", phase_serve_many),
+
+    launches, rows = {}, {}
+    for name, phase in (("kernels", phase_kernels), ("small", small),
+                        ("v1", functools.partial(phase_full, "v1")),
+                        ("v2", functools.partial(phase_full, "v2")),
+                        ("train_v2", phase_train_v2), ("serve", phase_serve),
+                        ("serve_long", phase_serve_long),
+                        ("ab_packed", ab_packed),
+                        ("multibucket", phase_multibucket),
+                        ("demo", phase_demo),
+                        ("serve_many", phase_serve_many),
                         ("refine", phase_refine),
                         ("retrieval_head", phase_retrieval_head),
                         ("serve_app", phase_serve_app),
@@ -4968,9 +5215,18 @@ def main(argv=None) -> int:
                         ("slam", phase_slam), ("slam_app", phase_slam_app),
                         ("eval", phase_eval), ("multi_gpu", phase_multi_gpu),
                         ("tiny", phase_tiny),
-                        ("dino_large", phase_dino_large)):
-        if name in phases:
-            launches[name] = phase()
+                        ("dino_large", phase_dino_large),
+                        ("checkpoint", phase_checkpoint)):
+        if name not in phases:
+            continue
+        t = time.perf_counter()
+        out = phase()
+        emit({"phase": "seconds", "name": name,
+              "seconds": time.perf_counter() - t})
+        if name == "kernels":
+            rows = out
+        elif name not in ("small", "ab_packed"):
+            launches[name] = out
 
     def count(entry, path):
         """An entry's launches on a path: its wrapper's launches in the

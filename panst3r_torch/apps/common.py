@@ -32,16 +32,8 @@ def load_weights(model, checkpoint: str | Path,
     weights (mapped by ``port_checkpoint.load_reference_state_dict``;
     returns an empty meta; any key left unmapped raises).
 
-    A torch file is unpickled with ``weights_only=True``, which admits
-    tensors, containers and the ``argparse.Namespace`` the published
-    checkpoints store their training arguments in.  ``trust_pickle=True``
-    lifts that restriction (unpickling runs whatever code the file names)
-    and warns."""
-    import argparse
-    import warnings
-
-    import torch
-
+    A torch file is read by ``port_checkpoint.read_checkpoint``
+    (``weights_only=True`` unless ``trust_pickle``)."""
     path = Path(checkpoint)
     if path.is_dir():
         from panst3r_torch.core.checkpoint import load_checkpoint
@@ -49,15 +41,10 @@ def load_weights(model, checkpoint: str | Path,
         state, _, meta = load_checkpoint(path.parent, path.name)
         model.load_state_dict(state)
         return meta
-    from panst3r_torch.port_checkpoint import load_reference_state_dict
+    from panst3r_torch.port_checkpoint import (load_reference_state_dict,
+                                               read_checkpoint)
 
-    if trust_pickle:
-        warnings.warn(f"{path}: unpickling with weights_only=False runs any "
-                      f"code the file names; load only files you trust")
-        ckpt = torch.load(path, map_location="cpu", weights_only=False)
-    else:
-        with torch.serialization.safe_globals([argparse.Namespace]):
-            ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    ckpt = read_checkpoint(path, trust_pickle)
     report = load_reference_state_dict(model, ckpt)
     if report["unmapped"]:
         raise ValueError(f"{path}: {len(report['unmapped'])} keys of the "

@@ -69,20 +69,16 @@ def evaluate_scene(engine, views: list[dict], classes: list[str],
 
 def load_ported_npz(model, npz_path: str):
     """Fill ``model`` from a flat-keyed flax tree (``a/b/c`` keys, as
-    ``tools/port_torch_checkpoint.py`` writes ``ported_params.npz``)
+    ``python -m panst3r_torch.port_checkpoint`` writes
+    ``ported_params.npz``)
     through ``weights.load_jax_params``: a port parameter the file does
     not fill, a leaf without a port parameter, or a shape mismatch
     raises."""
+    from panst3r_torch.port_checkpoint import unflatten
     from panst3r_torch.weights import load_jax_params
 
-    tree: dict = {}
     with np.load(npz_path) as flat:
-        for key in flat.files:
-            node = tree
-            *head, leaf = key.split("/")
-            for part in head:
-                node = node.setdefault(part, {})
-            node[leaf] = flat[key]
+        tree = unflatten((k, flat[k]) for k in flat.files)
         n = len(flat.files)
     load_jax_params(model, tree)
     print(f"ported weights: applied {n} leaves")

@@ -14,12 +14,33 @@ maps it onto the flax-named parameter tree of panst3r_tpu (numpy only), and
 ``port_retrieval_checkpoint`` maps a must3r / PanSt3R retrieval checkpoint
 onto ``engine/retrieval.py::RetrievalHead``'s fields.
 
+Naming drift: ``rename`` ({regex: replacement}, ``--rename-json``) is
+applied to every key before the mapping, so a checkpoint whose external
+modules (must3r, croco) name things differently can be bridged without
+code changes.
+
 RoPE layout: croco rotates within each y/x half of the head dim
 (rotate-half per half), as ``ops/rope.py`` does, so q/k rows are taken as
-they are.
+they are (``rope_layout="half"``).  A checkpoint family that pairs
+channels interleaved ((2i, 2i+1), GPT-J style) is ported with
+``rope_layout="interleaved"``: the q/k projection rows (weights and
+biases) of every RoPE-bearing attention (the encoder, the memory
+decoder's self- and cross-attention, the v2 input mixer) are permuted per
+head, so that the rotate-half attention computes the same output (q·k is
+invariant under one permutation of q's and k's channels; v is untouched).
+
+Command line (writes ``ported_params.npz``, flat ``a/b/c`` keys, and
+``port_report.json``)::
+
+    python -m panst3r_torch.port_checkpoint --torch ckpt.pth --out d/ \
+        [--dec-layers N] [--rope-layout half|interleaved] \
+        [--rename-json m.json] [--trust-pickle]
 """
 from __future__ import annotations
 
+import argparse
+import json
+import os
 import re
 
 import numpy as np
@@ -48,13 +69,50 @@ def split_qkv(w, b):
             for i in range(3)]
 
 
-class Port:
-    """State-dict accessor that tracks consumed keys."""
+def interleave_to_half_perm(D: int) -> np.ndarray:
+    """Permutation taking a rotate-half channel index to the channel that
+    holds the same rotary pair element under interleaved (2i, 2i+1)
+    pairing, within the y half and the x half of a RoPE-2D head dim D:
+    perm[i] = 2i and perm[i + D/4] = 2i + 1 in each half."""
+    if D % 4:
+        raise ValueError(f"RoPE-2D head dim {D} is not a multiple of 4")
+    q = D // 4
+    perm = np.empty(D, np.int64)
+    for half in range(2):          # y half, then x half
+        base = half * (D // 2)
+        perm[base:base + q] = base + 2 * np.arange(q)
+        perm[base + q:base + 2 * q] = base + 2 * np.arange(q) + 1
+    return perm
 
-    def __init__(self, sd: dict):
+
+def permute_qk_rows(w, num_heads: int) -> np.ndarray:
+    """The output rows of a q or k projection weight (C, in), or of its
+    bias (C,), from interleaved-pair RoPE order to rotate-half order, per
+    head."""
+    w = np.asarray(w)
+    hd = w.shape[0] // num_heads
+    perm = interleave_to_half_perm(hd)
+    return w[np.concatenate([h * hd + perm for h in range(num_heads)])]
+
+
+ROPE_LAYOUTS = ("half", "interleaved")
+
+
+class Port:
+    """State-dict accessor that applies the renames (to the keys, first)
+    and tracks consumed keys."""
+
+    def __init__(self, sd: dict, rename: dict | None = None,
+                 rope_layout: str = "half"):
+        if rope_layout not in ROPE_LAYOUTS:
+            raise ValueError(f"rope_layout {rope_layout!r} not in "
+                             f"{ROPE_LAYOUTS}")
         self.sd = dict(sd)
+        for pat, repl in (rename or {}).items():
+            self.sd = {re.sub(pat, repl, k): v for k, v in self.sd.items()}
         self.used: set = set()
         self.ignored: set = set()
+        self.rope_layout = rope_layout
 
     def __contains__(self, key):
         return key in self.sd
@@ -91,9 +149,7 @@ def _ln(ctx, tree, path, prefix):
 
 
 def _linear(ctx, tree, path, prefix):
-    _set(tree, path + ("kernel",), t(ctx.get(prefix + ".weight")))
-    if prefix + ".bias" in ctx:
-        _set(tree, path + ("bias",), ctx.get(prefix + ".bias"))
+    _put_linear(tree, path, *_weight_bias(ctx, prefix))
 
 
 def _conv(ctx, tree, path, prefix):
@@ -112,10 +168,44 @@ def _mlp(ctx, tree, path, prefix):
     _linear(ctx, tree, path + ("fc2",), prefix + ".fc2")
 
 
-def _cross_attn(ctx, tree, path, prefix):
-    """croco CrossAttention: projq/projk/projv/proj Linears."""
+def _weight_bias(ctx, prefix):
+    w = np.asarray(ctx.get(prefix + ".weight"))
+    b = np.asarray(ctx.get(prefix + ".bias")) \
+        if prefix + ".bias" in ctx else None
+    return w, b
+
+
+def _put_linear(tree, path, w, b):
+    _set(tree, path + ("kernel",), t(w))
+    if b is not None:
+        _set(tree, path + ("bias",), b)
+
+
+def _packed_qkv(ctx, tree, path, prefix, num_heads=None, rope=False):
+    """croco Attention's packed qkv Linear (3C, C) → Dense(3C), the q and
+    k rows permuted to rotate-half order for an interleaved checkpoint."""
+    w, b = _weight_bias(ctx, prefix)
+    if rope and ctx.rope_layout == "interleaved":
+        def qk(x):
+            C = x.shape[0] // 3
+            return np.concatenate([permute_qk_rows(x[:C], num_heads),
+                                   permute_qk_rows(x[C:2 * C], num_heads),
+                                   x[2 * C:]], 0)
+        w = qk(w)
+        b = None if b is None else qk(b)
+    _put_linear(tree, path, w, b)
+
+
+def _cross_attn(ctx, tree, path, prefix, num_heads=None, rope=False):
+    """croco CrossAttention: projq/projk/projv/proj Linears; projq and
+    projk permuted as ``_packed_qkv`` permutes q and k."""
     for name in ("projq", "projk", "projv", "proj"):
-        _linear(ctx, tree, path + (name,), f"{prefix}.{name}")
+        w, b = _weight_bias(ctx, f"{prefix}.{name}")
+        if (rope and ctx.rope_layout == "interleaved"
+                and name in ("projq", "projk")):
+            w = permute_qk_rows(w, num_heads)
+            b = None if b is None else permute_qk_rows(b, num_heads)
+        _put_linear(tree, path + (name,), w, b)
 
 
 def _stack_group(out: dict, fmt: str, depth: int, target_path: tuple):
@@ -135,10 +225,11 @@ def _stack_group(out: dict, fmt: str, depth: int, target_path: tuple):
     node[target_path[-1]] = stack(subs)
 
 
-def _croco_block(ctx, tree, path, prefix):
+def _croco_block(ctx, tree, path, prefix, num_heads, rope=True):
     """croco `Block`: norm1/attn(qkv,proj)/norm2/mlp(fc1,fc2)."""
     _ln(ctx, tree, path + ("norm1",), f"{prefix}.norm1")
-    _linear(ctx, tree, path + ("attn", "qkv"), f"{prefix}.attn.qkv")
+    _packed_qkv(ctx, tree, path + ("attn", "qkv"), f"{prefix}.attn.qkv",
+                num_heads, rope)
     _linear(ctx, tree, path + ("attn", "proj"), f"{prefix}.attn.proj")
     _ln(ctx, tree, path + ("norm2",), f"{prefix}.norm2")
     _mlp(ctx, tree, path + ("mlp",), f"{prefix}.mlp")
@@ -148,7 +239,7 @@ def _croco_block(ctx, tree, path, prefix):
 # Per-module ports
 # ---------------------------------------------------------------------------
 
-def port_encoder(ctx: Port, depth: int = 24,
+def port_encoder(ctx: Port, depth: int = 24, num_heads: int = 16,
                  prefix: str = "must3r_encoder") -> dict:
     """Dust3rEncoder (croco ViT-L/16 + 2D RoPE).  dust3r naming:
     `patch_embed.proj`, `enc_blocks.i.*`, `enc_norm`; croco-generic
@@ -161,14 +252,15 @@ def port_encoder(ctx: Port, depth: int = 24,
     blocks = "enc_blocks" if f"{prefix}.enc_blocks.0.norm1.weight" in ctx \
         else "blocks"
     for i in range(depth):
-        _croco_block(ctx, out, (f"block_{i}",), f"{prefix}.{blocks}.{i}")
+        _croco_block(ctx, out, (f"block_{i}",), f"{prefix}.{blocks}.{i}",
+                     num_heads, rope=True)
     _stack_group(out, "block_{}", depth, ("blocks", "block"))
     normp = ctx.first(f"{prefix}.enc_norm.weight", f"{prefix}.norm.weight")
     _ln(ctx, out, ("norm",), normp[:-len(".weight")])
     return out
 
 
-def port_memory_decoder(ctx: Port, depth: int = 12,
+def port_memory_decoder(ctx: Port, depth: int = 12, num_heads: int = 12,
                         prefix: str = "must3r_decoder") -> dict:
     """MUSt3R memory decoder (external; naming per module docstring).
 
@@ -191,10 +283,12 @@ def port_memory_decoder(ctx: Port, depth: int = 12,
     for i in range(depth):
         b = f"{prefix}.dec_blocks.{i}"
         _ln(ctx, out, (f"norm1_{i}",), f"{b}.norm1")
-        _linear(ctx, out, (f"self_attn_{i}", "qkv"), f"{b}.attn.qkv")
+        _packed_qkv(ctx, out, (f"self_attn_{i}", "qkv"), f"{b}.attn.qkv",
+                    num_heads, rope=True)
         _linear(ctx, out, (f"self_attn_{i}", "proj"), f"{b}.attn.proj")
         _ln(ctx, out, (f"norm2_{i}",), f"{b}.norm2")
-        _cross_attn(ctx, out, (f"cross_attn_{i}",), f"{b}.cross_attn")
+        _cross_attn(ctx, out, (f"cross_attn_{i}",), f"{b}.cross_attn",
+                    num_heads, rope=True)
         _ln(ctx, out, (f"norm3_{i}",), f"{b}.norm3")
         _mlp(ctx, out, (f"mlp_{i}",), f"{b}.mlp")
         _ln(ctx, out, (f"norm_y_{i}",), f"{b}.norm_y")
@@ -295,24 +389,28 @@ def port_clip_text(ctx: Port, layers: int = 12,
     return _text_tower(ctx, layers, prefix)
 
 
-def port_input_mixer(ctx: Port, num_layers: int = 3,
+def port_input_mixer(ctx: Port, num_layers: int = 3, num_heads: int = 12,
                      prefix: str = "panoptic_decoder.input_mixer") -> dict:
     """The reference InputMixer (``in_proj``, ``mixer_blk.i``, ``mixer_norm``)."""
     out: dict = {}
     _linear(ctx, out, ("in_proj",), f"{prefix}.in_proj")
     for i in range(num_layers):
-        _croco_block(ctx, out, (f"mixer_blk_{i}",), f"{prefix}.mixer_blk.{i}")
+        _croco_block(ctx, out, (f"mixer_blk_{i}",), f"{prefix}.mixer_blk.{i}",
+                     num_heads, rope=True)
     _ln(ctx, out, ("mixer_norm",), f"{prefix}.mixer_norm")
     return out
 
 
-def _implicit_biases(x):
+def _implicit_biases(x, n_freqs: int):
     """The reference ImplicitFeaturizer stores biases as (2, dm, n_freqs)
     but *reshapes* (not transposes) each (dm, n_freqs) slab to (n_freqs,
     dm) at use time; the port's module transposes its (2, dm, n_freqs)
     parameter, so each slab is reshaped, then transposed."""
     x = np.asarray(x)
     two, dm, nf = x.shape
+    if nf != n_freqs:
+        raise ValueError(f"ImplicitFeaturizer biases {x.shape}: expected "
+                         f"{n_freqs} frequencies")
     return np.stack([x[i].reshape(nf, dm).T for i in range(two)])
 
 
@@ -322,9 +420,9 @@ def port_loftup(ctx: Port, num_layers: int = 2,
     out: dict = {}
     _conv(ctx, out, ("patch_embed",), f"{prefix}.patch_embed")
     _set(out, ("lr_pe", "biases"),
-         _implicit_biases(ctx.get(f"{prefix}.lr_pe.biases")))
+         _implicit_biases(ctx.get(f"{prefix}.lr_pe.biases"), 5))
     _set(out, ("fourier", "biases"),
-         _implicit_biases(ctx.get(f"{prefix}.fourier_feat.1.biases")))
+         _implicit_biases(ctx.get(f"{prefix}.fourier_feat.1.biases"), 20))
     _linear(ctx, out, ("lr_proj",), f"{prefix}.lr_input_proj.0")
     _ln(ctx, out, ("lr_proj_norm",), f"{prefix}.lr_input_proj.1")
     # first_conv Sequential: 0 GN(1) / 1 Conv / 2 GN(8) / 4 Conv / 5 GN(8)
@@ -423,17 +521,30 @@ def _infer_depth(sd: dict, pattern: str) -> int:
     return i
 
 
-def port_checkpoint(sd: dict) -> tuple[dict, dict]:
+# the published widths' head counts (head dim 64), which
+# ``port_checkpoint`` takes for the RoPE blocks unless told otherwise
+DEFAULT_HEADS = {"must3r_encoder": 16, "must3r_decoder": 12,
+                 "input_mixer": 12}
+
+
+def port_checkpoint(sd: dict, dec_layers: int | None = None,
+                    rename: dict | None = None, rope_layout: str = "half",
+                    heads: dict | None = None) -> tuple[dict, dict]:
     """Port a full reference PanSt3R state_dict (v1 or v2) of numpy arrays.
 
     Returns (flax-named parameter tree, report).  The goal is ZERO unmapped
     keys; anything left is listed in the report.  Depths are inferred from
-    the state_dict.
+    the state_dict (``dec_layers`` overrides the mask transformer's).
+    ``rename`` and ``rope_layout``: see the module docstring.  ``heads``
+    overrides ``DEFAULT_HEADS`` (head counts are not recoverable from a
+    state_dict; only the interleaved layout needs them).
     """
-    ctx = Port(sd)
+    heads = {**DEFAULT_HEADS, **(heads or {})}
+    ctx = Port(sd, rename=rename, rope_layout=rope_layout)
     sdk = ctx.sd
-    dec_layers = _infer_depth(
-        sdk, "panoptic_decoder.mask_transformer.ffn_layers.{}.norm.weight")
+    if dec_layers is None:
+        dec_layers = _infer_depth(
+            sdk, "panoptic_decoder.mask_transformer.ffn_layers.{}.norm.weight")
     blocks = "enc_blocks" if any(".enc_blocks." in k for k in sdk) else "blocks"
     depth_enc = _infer_depth(sdk, "must3r_encoder." + blocks
                              + ".{}.norm1.weight")
@@ -455,7 +566,8 @@ def port_checkpoint(sd: dict) -> tuple[dict, dict]:
     if "panoptic_decoder.input_mixer.in_proj.weight" in ctx:
         n_mix = _infer_depth(
             sdk, "panoptic_decoder.input_mixer.mixer_blk.{}.norm1.weight")
-        pd["input_mixer"] = port_input_mixer(ctx, num_layers=n_mix)
+        pd["input_mixer"] = port_input_mixer(
+            ctx, num_layers=n_mix, num_heads=heads["input_mixer"])
     if "panoptic_decoder.nocls_token" in ctx:
         pd["nocls_token"] = np.asarray(ctx.get("panoptic_decoder.nocls_token"))
 
@@ -468,10 +580,12 @@ def port_checkpoint(sd: dict) -> tuple[dict, dict]:
     if any(k.startswith("must3r_encoder.") for k in ctx.sd):
         _require_depth(depth_enc,
                        "must3r_encoder." + blocks + ".{}.norm1.weight")
-        ported["must3r_encoder"] = port_encoder(ctx, depth_enc)
+        ported["must3r_encoder"] = port_encoder(
+            ctx, depth_enc, num_heads=heads["must3r_encoder"])
     if any(k.startswith("must3r_decoder.") for k in ctx.sd):
         _require_depth(depth_dec, "must3r_decoder.dec_blocks.{}.norm1.weight")
-        ported["must3r_decoder"] = port_memory_decoder(ctx, depth_dec)
+        ported["must3r_decoder"] = port_memory_decoder(
+            ctx, depth_dec, num_heads=heads["must3r_decoder"])
     if any(k.startswith("dino_encoder.") for k in ctx.sd):
         _require_depth(depth_dino,
                        "dino_encoder.dinov2.encoder.layer.{}.norm1.weight")
@@ -482,20 +596,98 @@ def port_checkpoint(sd: dict) -> tuple[dict, dict]:
     return ported, report
 
 
-def load_reference_state_dict(model: nn.Module, sd: dict) -> dict:
+def model_heads(model: nn.Module) -> dict:
+    """A port ``PanSt3R``'s head counts in ``port_checkpoint``'s terms."""
+    c = model.config
+    heads = {"must3r_encoder": c.encoder.num_heads,
+             "must3r_decoder": c.decoder.num_heads}
+    if c.panoptic.input_mixer is not None:
+        heads["input_mixer"] = c.panoptic.input_mixer.num_heads
+    return heads
+
+
+def checkpoint_weights(ckpt: dict) -> dict:
+    """A checkpoint's state_dict: its ``weights`` or ``model`` entry, else
+    the checkpoint itself."""
+    for key in ("weights", "model"):
+        if isinstance(ckpt.get(key), dict):
+            return ckpt[key]
+    return ckpt
+
+
+def state_dict_of(ckpt: dict) -> dict:
+    """``checkpoint_weights(ckpt)`` as numpy arrays (bf16 and f16 tensors
+    widened to f32, exactly)."""
+    def host(v):
+        if not torch.is_tensor(v):
+            return np.asarray(v)
+        v = v.detach().cpu()
+        if v.dtype in (torch.bfloat16, torch.float16):
+            v = v.float()
+        return v.numpy()
+
+    return {k: host(v) for k, v in checkpoint_weights(ckpt).items()}
+
+
+def read_checkpoint(path, trust_pickle: bool = False) -> dict:
+    """A torch checkpoint file, unpickled with ``weights_only=True``, which
+    admits tensors, containers and the ``argparse.Namespace`` the
+    published checkpoints store their training arguments in.
+    ``trust_pickle=True`` lifts that restriction (unpickling runs whatever
+    code the file names) and warns."""
+    import warnings
+
+    if trust_pickle:
+        warnings.warn(f"{path}: unpickling with weights_only=False runs any "
+                      f"code the file names; load only files you trust")
+        return torch.load(path, map_location="cpu", weights_only=False)
+    with torch.serialization.safe_globals([argparse.Namespace]):
+        return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def load_reference_state_dict(model: nn.Module, sd: dict,
+                              rename: dict | None = None,
+                              rope_layout: str = "half") -> dict:
     """Fill every parameter of a port ``PanSt3R`` from a reference-shaped
     state_dict (tensors or numpy arrays; a checkpoint's ``weights`` or
-    ``model`` entry is taken when given the whole checkpoint).  Returns the
+    ``model`` entry is taken when given the whole checkpoint), with the
+    model's own head counts for an interleaved layout.  Returns the
     report (``unmapped`` lists the keys nothing consumed); a port
     parameter the state_dict does not fill, or a shape mismatch, raises."""
-    for key in ("weights", "model"):
-        if isinstance(sd.get(key), dict):
-            sd = sd[key]
-    sd = {k: v.detach().cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
-          for k, v in sd.items()}
-    tree, report = port_checkpoint(sd)
+    tree, report = port_checkpoint(state_dict_of(sd), rename=rename,
+                                   rope_layout=rope_layout,
+                                   heads=model_heads(model))
     load_jax_params(model, tree)
     return report
+
+
+def flatten(tree, prefix=()):
+    """(``a/b/c`` key, leaf) pairs of a nested dict, depth first."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from flatten(v, prefix + (k,))
+        else:
+            yield "/".join(prefix + (k,)), v
+
+
+def unflatten(flat) -> dict:
+    """The nested dict of (``a/b/c`` key, leaf) pairs."""
+    tree: dict = {}
+    for key, value in flat:
+        node = tree
+        *head, leaf = key.split("/")
+        for part in head:
+            node = node.setdefault(part, {})
+        node[leaf] = value
+    return tree
+
+
+def read_rename(path) -> dict | None:
+    """The {regex: replacement} map of a ``--rename-json`` file."""
+    if not path:
+        return None
+    with open(path) as f:
+        return json.load(f)
 
 
 def port_retrieval_checkpoint(ckpt: dict) -> dict:
@@ -548,3 +740,52 @@ def port_retrieval_checkpoint(ckpt: dict) -> dict:
     out["alpha"] = float(sim.get("alpha", 3.0))
     out["similarity_threshold"] = float(sim.get("similarity_threshold", 0.0))
     return out
+
+
+def peak_host_gib() -> float:
+    """This process's peak resident memory in GiB (``VmHWM``: unlike
+    ``ru_maxrss``, it holds no memory of the process that forked it)."""
+    try:
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmHWM:"):
+                    return int(line.split()[1]) / 2 ** 20
+    except OSError:
+        pass
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(
+        description="Port a reference-named PanSt3R .pth to the flax-named "
+                    "parameter tree (ported_params.npz + port_report.json)")
+    ap.add_argument("--torch", required=True, help=".pth checkpoint path")
+    ap.add_argument("--out", required=True)
+    ap.add_argument("--dec-layers", type=int, default=None,
+                    help="override the inferred mask-transformer depth")
+    ap.add_argument("--rope-layout", choices=ROPE_LAYOUTS, default="half")
+    ap.add_argument("--rename-json", default=None,
+                    help="JSON {regex: replacement} applied to keys first")
+    ap.add_argument("--trust-pickle", action="store_true",
+                    help="unpickle with weights_only=False (trusted files)")
+    args = ap.parse_args(argv)
+
+    sd = state_dict_of(read_checkpoint(args.torch, args.trust_pickle))
+    ported, report = port_checkpoint(sd, args.dec_layers,
+                                     rename=read_rename(args.rename_json),
+                                     rope_layout=args.rope_layout)
+    os.makedirs(args.out, exist_ok=True)
+    np.savez(os.path.join(args.out, "ported_params.npz"),
+             **dict(flatten(ported)))
+    with open(os.path.join(args.out, "port_report.json"), "w") as f:
+        json.dump(report, f, indent=2)
+    print(f"ported {report['ported_keys']}/{report['total_keys']} keys; "
+          f"{len(report['unmapped'])} unmapped (see port_report.json)")
+    print(f"peak host memory {peak_host_gib():.2f} GiB")
+    return report
+
+
+if __name__ == "__main__":
+    main()

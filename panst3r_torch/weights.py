@@ -17,7 +17,9 @@ is mechanical:
   their shapes.
 
 Any flax leaf without a port parameter, any port parameter left unfilled,
-and any shape mismatch raises.
+and any shape mismatch raises.  ``dump_jax_params`` is the exact inverse:
+a port model's parameters as the flax tree that ``load_jax_params`` reads
+back bit for bit.
 """
 from __future__ import annotations
 
@@ -91,3 +93,72 @@ def load_jax_params(model: nn.Module, tree: dict,
     if missing:
         raise KeyError(f"port parameters not in the flax tree: {missing}")
     return model
+
+
+def _unleaf(name: str, arr: np.ndarray):
+    """torch leaf name + array → flax leaf name + array (``_leaf``
+    inverted: a ``weight`` of rank 2 is a Dense kernel, of rank 4 a conv
+    kernel, of rank 1 a norm's scale)."""
+    if name != "weight":
+        return name, arr
+    if arr.ndim == 2:
+        return "kernel", arr.T
+    if arr.ndim == 4:
+        return "kernel", arr.transpose(2, 3, 1, 0)
+    if arr.ndim == 1:
+        return "scale", arr
+    raise ValueError(f"weight of rank {arr.ndim}")
+
+
+def _host(p: torch.Tensor) -> np.ndarray:
+    """A parameter as numpy (bf16 and f16 widened to f32, exactly); on the
+    meta device a zero-stride array of its shape, which holds no memory."""
+    if p.device.type == "meta":
+        return np.broadcast_to(np.float32(0), tuple(p.shape))
+    p = p.detach()
+    if p.dtype in (torch.bfloat16, torch.float16):
+        p = p.float()
+    return p.cpu().numpy()
+
+
+def _stack(arrs: list) -> np.ndarray:
+    if all(a.strides == (0,) * a.ndim for a in arrs):     # meta
+        return np.broadcast_to(np.float32(0), (len(arrs),) + arrs[0].shape)
+    return np.stack(arrs)
+
+
+@torch.no_grad()
+def dump_jax_params(model: nn.Module) -> dict:
+    """The flax tree of ``model``'s parameters: Dense kernels transposed
+    back, OIHW back to HWIO, ``weight`` back to ``scale``, the per-layer
+    modules stacked into their scanned stacks (``blocks.<i>.*`` →
+    ``blocks/block/*``, ``layers.<i>.*`` → ``layers/*``).  A model on the
+    meta device gives zero-stride arrays of the shapes (as
+    ``load_jax_params(copy=False)`` takes them)."""
+    stacks = {v: k for k, v in _STACKS.items()}
+    tree: dict = {}
+    stacked: dict = {}            # (head, stack, tail) -> {layer: array}
+    for name, p in model.named_parameters():
+        parts = name.split(".")
+        leaf, arr = _unleaf(parts[-1], _host(p))
+        path = tuple(parts[:-1]) + (leaf,)
+        for i, part in enumerate(path[:-1]):
+            if part in stacks and path[i + 1].isdigit():
+                key = (path[:i], stacks[part], path[i + 2:])
+                stacked.setdefault(key, {})[int(path[i + 1])] = arr
+                break
+        else:
+            _put(tree, path, arr)
+    for (head, stack, tail), layers in stacked.items():
+        if sorted(layers) != list(range(len(layers))):
+            raise ValueError(f"{'.'.join(head)}: layers {sorted(layers)}")
+        _put(tree, head + stack + tail,
+             _stack([layers[i] for i in range(len(layers))]))
+    return tree
+
+
+def _put(tree: dict, path: tuple, value) -> None:
+    node = tree
+    for p in path[:-1]:
+        node = node.setdefault(p, {})
+    node[path[-1]] = value

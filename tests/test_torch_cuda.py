@@ -10,7 +10,8 @@ launches; gradients through K1-K4 on the card against the plain versions';
 a small v2 train step and small v1 serve wires on the card against the
 CPU; FLOP counts on the card equal to the CPU's; K2 and K3 at
 ``serve_many_device``'s batch of two scenes, and ``serve_many_device``
-against ``serve_device`` per scene at depth 2.  Needs a CUDA card; skips without one.  On the card (no JAX there, so
+against ``serve_device`` per scene at depth 2; the checkpoint verifier's
+``card_parity`` and ``forward`` stages with their launches.  Needs a CUDA card; skips without one.  On the card (no JAX there, so
 without the repo's conftest):
 
     python -m pytest --noconftest -o addopts="" -p no:cacheprovider \
@@ -30,7 +31,6 @@ from panst3r_torch.ops import masked_attention as ma
 from panst3r_torch.ops import packed_attention as pa
 from panst3r_torch.ops import tower_attention as ta
 from panst3r_torch.ops.rope import rope2d_tables
-from tests.torch_release import release_memory  # noqa: F401
 
 pytestmark = pytest.mark.cuda
 NEG = float(np.finfo(np.float32).min)
@@ -1114,3 +1114,61 @@ def test_serve_many_card_matches_serve_device(dev):
             assert np.abs(a[k] - b[k]).max() <= 1e-3 * np.abs(b[k]).max()
         segments += int(b["selected"].sum())
     assert segments > 0
+
+
+def _small_checkpoint():
+    """A complete v1-shaped reference state_dict at the verify tests'
+    widths (encoder 32 x 2, decoder 24 x 2, DINO 32 x 2, tiny head) and
+    its port."""
+    import dataclasses
+
+    from panst3r_torch.models.presets import tiny_config
+    from panst3r_torch.port_checkpoint import port_checkpoint
+
+    reference_state_dict = chip_smoke.reference_sd_module() \
+        .reference_state_dict
+    rep = dataclasses.replace
+    cfg = tiny_config()
+    cfg = rep(cfg, encoder=rep(cfg.encoder, embed_dim=32, num_heads=2),
+              decoder=rep(cfg.decoder, enc_dim=32, dim=24, num_heads=2),
+              dino=rep(cfg.dino, depth=2))
+    sd = {k: v.numpy() for k, v in reference_state_dict(cfg, 5).items()}
+    return sd, port_checkpoint(sd)[0]
+
+
+def test_verify_card_parity_stage(dev):
+    """verify_port's ``card_parity`` at the verify tests' widths: every
+    stack card against CPU within chip_smoke's limits, the card's launches
+    as the call structure implies (heads not of 64: K4 and K3 at padded
+    head dims)."""
+    from panst3r_torch.tools import verify_port as vp
+
+    sd, ported = _small_checkpoint()
+    out = vp.stage_card_parity(sd, ported, enc_heads=2, dec_heads=2)
+    assert out["status"] == "ok", out
+    assert len(out["modules"]) == 6 and all(m["ok"] for m in
+                                            out["modules"].values())
+    cfg = vp.config_from_state_dict(sd, enc_heads=2, dec_heads=2)
+    assert out["launches"] == chip_smoke._ckpt_expected(cfg)
+    assert out["launches"]["masked_attn"] == 2
+
+
+def test_verify_forward_stage_launches(dev):
+    """verify_port's ``forward`` stage on a full-width v1 reference
+    state_dict: the v1 preset from ``load_ported_npz``, finite outputs,
+    K1/K2/K3 launched as the call structure implies."""
+    from panst3r_torch.models.presets import panst3r_v1_config
+    from panst3r_torch.port_checkpoint import port_checkpoint
+    from panst3r_torch.tools import verify_port as vp
+
+    reference_state_dict = chip_smoke.reference_sd_module() \
+        .reference_state_dict
+    cfg = panst3r_v1_config()
+    sd = {k: v.cpu().numpy()
+          for k, v in reference_state_dict(cfg, 0, dev).items()}
+    out = vp.stage_forward(sd, port_checkpoint(sd)[0], device=dev)
+    assert out["status"] == "ok" and out["preset"] == "v1", out
+    want = chip_smoke._ckpt_expected(cfg)
+    assert out["launches"] == want
+    assert min(want[k] for k in ("tower_self", "tower_cross",
+                                 "masked_attn")) > 0

@@ -36,7 +36,7 @@ from panst3r_tpu.models.upscalers import LoftUpUpscalerConfig as JLoftUp
 from panst3r_torch.models.upscalers import LoftUpUpscalerConfig as TLoftUp
 from tests.test_port import _fake_reference_mask_transformer_sd
 from tests.test_port_full import (TEncoder, TInputMixer, TLoftUp as TRefLoftUp,
-                                  TMemoryDecoder, TMlp, _sd)
+                                  TMemoryDecoder, TMlp)
 from tests.test_qubo_parity import (brute_force_qubo,
                                     reference_qubo_selection,
                                     reference_weight_from_masks)
@@ -65,8 +65,7 @@ PRESETS = {"v1": (tpresets.tiny_config, jpresets.tiny_config),
 
 def _dinov2_sd(dino, prefix: str) -> dict:
     """The keys and shapes of HF ``Dinov2Model`` (transformers'
-    modeling_dinov2 naming) at ``dino``'s widths; the values are filled
-    by ``reference_state_dict``."""
+    modeling_dinov2 naming) at ``dino``'s widths."""
     C, hid = dino.embed_dim, int(dino.embed_dim * dino.mlp_ratio)
     p = dino.patch_size
     sd = {f"{prefix}.embeddings.cls_token": (1, 1, C),
@@ -91,55 +90,67 @@ def _dinov2_sd(dino, prefix: str) -> dict:
             sd[f"{L}.{name}.weight"] = sd[f"{L}.{name}.bias"] = (C,)
         sd[f"{L}.layer_scale1.lambda1"] = (C,)
         sd[f"{L}.layer_scale2.lambda1"] = (C,)
-    return {k: np.zeros(v, np.float32) for k, v in sd.items()}
+    return sd
 
 
-def reference_state_dict(cfg, seed: int = 0) -> dict:
-    """A reference-shaped state_dict at ``cfg``'s widths, built from the
-    reference-named torch modules of tests/test_port_full.py and HF
-    Dinov2Model's naming (as tests/test_port_full.py:579-612 does), every
-    value then
-    drawn from a numpy seed: weights scaled by 1/sqrt(fan-in), norm scales
-    near 1, small biases."""
-    torch.manual_seed(seed)          # module construction only
+def _shapes(module, prefix):
+    return {f"{prefix}.{k}": tuple(v.shape)
+            for k, v in module.state_dict().items()}
+
+
+def reference_shapes(cfg) -> dict:
+    """{key: shape} of a reference-shaped state_dict at ``cfg``'s widths,
+    from the reference-named torch modules of tests/test_port_full.py
+    (built on the meta device) and HF Dinov2Model's naming (as
+    tests/test_port_full.py:579-612 does)."""
     enc, dec, dino = cfg.encoder, cfg.decoder, cfg.dino
     pan = cfg.panoptic
     sd = {}
-    sd.update(_sd(TEncoder(enc.embed_dim, enc.depth, enc.num_heads),
-                  "must3r_encoder"))
-    sd.update(_sd(TMemoryDecoder(enc.embed_dim, dec.dim, dec.depth,
-                                 dec.num_heads), "must3r_decoder"))
-    sd.update(_dinov2_sd(dino, "dino_encoder.dinov2"))
-    in_dim = enc.embed_dim + dec.dim + dino.embed_dim
-    if pan.input_mixer is not None:
-        mix = pan.input_mixer
-        sd.update(_sd(TInputMixer(in_dim, mix.hidden_dim, mix.num_heads,
-                                  mix.num_layers),
-                      "panoptic_decoder.input_mixer"))
-        up = pan.upscaler
-        sd.update(_sd(TRefLoftUp(mix.hidden_dim, up.dim, up.num_heads,
-                                 up.n_freqs), "panoptic_decoder.upscaler"))
-    else:
-        # the reference PixelShuffle upscaler's four MLPs, at the widths of
-        # the port's module for this config
-        shapes = {k: tuple(v.shape) for k, v in TPanSt3R(cfg)
-                  .panoptic_decoder.upscaler.named_parameters()}
-        for name in ("proj_8", "proj_4", "proj_2", "proj_16"):
-            hid, din = shapes[f"{name}.fc1.weight"]
-            sd.update(_sd(TMlp(din, hid, shapes[f"{name}.fc2.weight"][0]),
-                          f"panoptic_decoder.upscaler.{name}"))
+    with torch.device("meta"):
+        sd.update(_shapes(TEncoder(enc.embed_dim, enc.depth, enc.num_heads),
+                          "must3r_encoder"))
+        sd.update(_shapes(TMemoryDecoder(enc.embed_dim, dec.dim, dec.depth,
+                                         dec.num_heads), "must3r_decoder"))
+        sd.update(_dinov2_sd(dino, "dino_encoder.dinov2"))
+        in_dim = enc.embed_dim + dec.dim + dino.embed_dim
+        if pan.input_mixer is not None:
+            mix = pan.input_mixer
+            sd.update(_shapes(TInputMixer(in_dim, mix.hidden_dim,
+                                          mix.num_heads, mix.num_layers),
+                              "panoptic_decoder.input_mixer"))
+            up = pan.upscaler
+            sd.update(_shapes(TRefLoftUp(mix.hidden_dim, up.dim,
+                                         up.num_heads, up.n_freqs),
+                              "panoptic_decoder.upscaler"))
+        else:
+            # the reference PixelShuffle upscaler's four MLPs, at the widths
+            # of the port's module for this config
+            shapes = {k: tuple(v.shape) for k, v in TPanSt3R(cfg)
+                      .panoptic_decoder.upscaler.named_parameters()}
+            for name in ("proj_8", "proj_4", "proj_2", "proj_16"):
+                hid, din = shapes[f"{name}.fc1.weight"]
+                sd.update(_shapes(TMlp(din, hid,
+                                       shapes[f"{name}.fc2.weight"][0]),
+                                  f"panoptic_decoder.upscaler.{name}"))
     mt = pan.mask_transformer
-    sd.update(_fake_reference_mask_transformer_sd(
-        np.random.default_rng(seed), MaskTransformerConfig(
-            hidden_dim=mt.hidden_dim, ff_dim=mt.ff_dim,
-            mask_dim=mt.mask_dim, num_queries=mt.num_queries,
-            num_heads=mt.num_heads, dec_layers=mt.dec_layers,
-            lang_dim=mt.lang_dim, fpn_dims=mt.fpn_dims)))
+    sd.update({k: np.shape(v) for k, v in
+               _fake_reference_mask_transformer_sd(
+                   np.random.default_rng(0), MaskTransformerConfig(
+                       hidden_dim=mt.hidden_dim, ff_dim=mt.ff_dim,
+                       mask_dim=mt.mask_dim, num_queries=mt.num_queries,
+                       num_heads=mt.num_heads, dec_layers=mt.dec_layers,
+                       lang_dim=mt.lang_dim, fpn_dims=mt.fpn_dims)).items()})
+    return sd
 
+
+def reference_state_dict(cfg, seed: int = 0) -> dict:
+    """A reference-shaped state_dict at ``cfg``'s widths
+    (``reference_shapes``), every value drawn from a numpy seed: weights
+    scaled by 1/sqrt(fan-in), norm scales near 1, small biases."""
+    sd = reference_shapes(cfg)
     rng = np.random.default_rng(seed)
     out = {}
-    for k, v in sorted(sd.items()):
-        shape = np.shape(v)
+    for k, shape in sorted(sd.items()):
         if len(shape) >= 2 and not k.endswith(("embeddings", "_token",
                                                "position_embeddings")) \
                 and "query_" not in k and "level_embed" not in k:

@@ -33,9 +33,14 @@ assert {"panst3r_torch.core." + m for m in ("distributed", "mesh", "tp",
 assert {"panst3r_torch.apps.viewer", "panst3r_torch.apps.gradio_app",
         "panst3r_torch.core.progress", "panst3r_torch.native",
         "panst3r_torch.tools.preprocess_scannetpp"} <= set(names)
+# and the checkpoint interop tools
+assert {"panst3r_torch.port_checkpoint",
+        "panst3r_torch.tools.export_checkpoint",
+        "panst3r_torch.tools.verify_port"} <= set(names)
 for name in names:
     importlib.import_module(name)
 import chip_smoke  # import only: main() is not run
+from tests.torch_reference_sd import reference_state_dict
 
 import numpy as np
 import torch
@@ -100,6 +105,13 @@ x = torch.randn(1, 2, 5, 16)
 c = torch.randn(1, 2, 1, 16)
 op, oc = flash_attention_split_cls(x, x, x, c, c, c)
 assert op.shape == x.shape and oc.shape == c.shape
+from panst3r_torch.port_checkpoint import port_checkpoint, state_dict_of
+from panst3r_torch.tools.export_checkpoint import export_checkpoint
+from panst3r_torch.tools.verify_port import stage_port
+sd = state_dict_of(reference_state_dict(tiny_config()))
+assert stage_port(sd)["status"] == "ok"
+out, _ = export_checkpoint(port_checkpoint(sd)[0], sd)
+assert all(np.array_equal(out[k], sd[k]) for k in sd)
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in FORBIDDEN)
 assert not loaded, loaded
 print("modules", len(names))
@@ -118,7 +130,7 @@ def test_no_forbidden_import_statements():
     pat = re.compile(r"^\s*(?:import|from)\s+(%s)\b" % "|".join(FORBIDDEN),
                      re.M)
     files = sorted((ROOT / "panst3r_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "chip_smoke.py", ROOT / "tests" / "torch_reference_sd.py"]
     assert len(files) > 20
     offenders = [str(f.relative_to(ROOT)) for f in files
                  if pat.search(f.read_text())]
