@@ -9,6 +9,7 @@
     python3 chip_smoke.py --phases multi_gpu
     python3 chip_smoke.py --phases tiny,dino_large
     python3 chip_smoke.py --phases checkpoint
+    python3 chip_smoke.py --phases wide_heads,flagship
 
 Run from the root of a checkout.  It builds the CUDA kernels of
 ``panst3r_torch/csrc`` with nvcc (into the git-ignored
@@ -33,7 +34,13 @@ Run from the root of a checkout.  It builds the CUDA kernels of
    (``loftup_train_full``, f32, plain versions per slice of views), the
    f32 K1 at its B*V = 10 views (``encoder_train``, ``decoder_train``);
    K2 and K3 at ``serve_many``'s batch of two scenes (``update_many``,
-   ``render_many``, ``mask_transformer_many``);
+   ``render_many``, ``mask_transformer_many``); the wide-head engine
+   (``csrc/flash_wide_sm90.cu``: K3, K4 and K5 at head dims above 128)
+   at each of ``WIDE_DIMS`` (``d<D>*``), at LoftUp's call with one head
+   of 384 (``loftup_wide``; K5 ``loftup_wide_train`` at the micro-step's
+   B*V = 10 views), at DINO's split-cls shape with heads of 256 and at
+   the mask transformer's 3 heads of 256 (``mask_transformer_wide``,
+   ``_train``);
    gradients through K1-K3 on the card bit-equal to their plain formulas';
 2. ``small``: v1 and v2 widths at depth 2 (v2 with its full mixer and
    LoftUp), f32, V=4 / K=3 at 384x512, the same seeded weights on the card
@@ -110,7 +117,9 @@ Run from the root of a checkout.  It builds the CUDA kernels of
    ``text_siglip``) and the CLIP tower (no launch), each card against
    CPU, and ``TextEncoder``'s tables from the card towers;
 15. ``train_app``: the training entry point (``apps/train.py::train``)
-   at full v2 width and depth with configs/train_v2.yaml's recipe (five
+   at full v2 width, at depth ``TRAIN_APP_DEPTH`` (the towers and the
+   mask transformer; the mixer and LoftUp whole), with
+   configs/train_v2.yaml's recipe (five
    buckets, four spawned loader workers) on a ScanNet++-layout dataset
    the phase writes: two epochs straight, and one epoch plus a resumed
    run, compared (the final weights bit-equal); launches as ``expected_train_launches`` sums over the
@@ -132,8 +141,9 @@ Run from the root of a checkout.  It builds the CUDA kernels of
 19. ``multi_gpu``: the multi-device layer rehearsed with two gloo ranks
    on the one card (``core/dryrun.py``'s workers, each sharded path
    against the same work on one rank): ``serve_device`` under
-   ``model`` = 2 at full v1 width and depth (V=4), in f32 (raw outputs
-   within 1e-4 relative) and in bf16 (decoded pan on > 99% of pixels and
+   ``model`` = 2 at full v1 width (V=4), in f32 at depth
+   ``MULTI_GPU_F32_DEPTH`` (raw outputs within 1e-4 relative) and in bf16
+   at full depth (decoded pan on > 99% of pixels and
    conf within 0.05 where the segment agrees, both dtypes; launches
    those of one rank's scene), ``serve_many_device`` of two V=8 scenes
    over ``data`` = 2 and the memory split over ``mem`` = 2 (each rank
@@ -159,7 +169,8 @@ Run from the root of a checkout.  It builds the CUDA kernels of
    bucket, card against CPU (``DINO_RTOL``); the ``kernels`` phase holds
    K4 at those calls (``dino_1200_lse``, ``encoder_1200_rope``);
 22. ``checkpoint``: the checkpoint interop tools at full v1 and v2 width
-   and depth on a reference-named state_dict synthesized from a seed
+   (v1 at full depth, v2 at ``CKPT_V2_DEPTH``) on a reference-named
+   state_dict synthesized from a seed
    (``tests/torch_reference_sd.py``) and saved as a ``.pth``: the port's
    command line (``python -m panst3r_torch.port_checkpoint``),
    ``tools/verify_port.py`` on the card (verdict ok; its ``card_parity``
@@ -171,6 +182,21 @@ Run from the root of a checkout.  It builds the CUDA kernels of
    ``build_engine`` on the file with one V=8 ``serve_device`` scene at
    384x512, launches as implied; the seconds of each step and the
    host's peak memory;
+23. ``wide_heads``: ``wide_heads_config`` (v2 at full width and depth
+   with one head of 384 in LoftUp, 4 heads of 192 in the InputMixer and
+   3 heads of 256 in the mask transformer: the wide-head K4 in bf16 and
+   f32, K3 in bf16 and f32, K5 in f32): the panoptic head alone card
+   against CPU in f32 on the same tower features, one V=8 / K=4 bf16
+   ``run_device`` + ``fuse`` scene and the train micro-step (B=2 x V=5,
+   f32) three times with every gradient bit-equal, launches as
+   ``wide_split`` implies, seconds and peak memory of each;
+24. ``flagship``: ``core/dryrun.py::dryrun_multichip(8, flagship=True)``
+   at full v1 width and depth, 8 gloo ranks on the one card over the
+   (data 2, mem 2, model 2) mesh: the tiny step, the flagship train step
+   at 256x512 (B=2, V=3; the loss equal on every rank) and the sharded
+   serve rung (V=6, K=4 at 128x256: pan agreement > 0.99 and conf within
+   0.05 of the one-rank wire, ``fusion_sharded`` bit-exact), launches
+   per rank as one rank's, each rank's seconds and peak memory;
 
 then one ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``.  Any failed phase raises, and the script exits non-zero
@@ -226,11 +252,24 @@ REPLACES = {
                       "(bf16)",
     "packed_flash": "tools/ab_attention_packed.py:84",
     "packed_flash_f32": "tools/ab_attention_packed.py:84 (f32)",
+    "flash_fwd_wide": "panst3r_tpu/ops/pallas/flash_attention.py:171 "
+                      "(bf16, D > 128)",
+    "flash_fwd_wide_f32": "panst3r_tpu/ops/pallas/flash_attention.py:171 "
+                          "(D > 128)",
+    "flash_bwd_wide": "panst3r_tpu/ops/pallas/flash_attention_bwd.py:115 "
+                      "(bf16, D > 128)",
+    "flash_bwd_wide_f32": "panst3r_tpu/ops/pallas/flash_attention_bwd.py:"
+                          "115 (D > 128)",
+    "masked_attn_wide": "panst3r_tpu/ops/pallas/masked_attention.py:119 "
+                        "(bf16, D > 128)",
+    "masked_attn_wide_f32": "panst3r_tpu/ops/pallas/masked_attention.py:"
+                            "119 (D > 128)",
 }
 PHASES = ("kernels", "small", "v1", "v2", "train_v2", "serve", "serve_long",
           "ab_packed", "multibucket", "demo", "serve_many", "refine",
           "retrieval_head", "serve_app", "text", "train_app", "slam",
-          "slam_app", "eval", "multi_gpu", "tiny", "dino_large", "checkpoint")
+          "slam_app", "eval", "multi_gpu", "tiny", "dino_large", "checkpoint",
+          "wide_heads", "flagship")
 # every kernel runs a Hopper engine in both dtypes: bf16 the wgmma engine
 # (K2-int8 its s8 scores); of the f32 paths (entries ``*_f32`` of the
 # kernels line) K2, K2-int8 and K3 run the 3xTF32 engine in the same
@@ -242,21 +281,32 @@ SOURCE = {"tower_self": "tower_self_sm90", "tower_cross": "tower_cross_sm90",
           "masked_attn": "masked_attn_sm90",
           "flash_fwd": "flash_fwd_bf16_sm90",
           "flash_bwd": "flash_bwd_bf16_sm90",
-          "packed_flash": "packed_flash_sm90"}
+          "packed_flash": "packed_flash_sm90",
+          "flash_fwd_wide": "flash_wide_sm90",
+          "flash_bwd_wide": "flash_wide_sm90",
+          "masked_attn_wide": "flash_wide_sm90"}
 F32_SOURCE = {"tower_self": "flash_fwd_sm90",
               "tower_cross": "tower_cross_sm90",
               "tower_cross_int8": "tower_cross_int8_sm90",
               "masked_attn": "masked_attn_sm90",
               "flash_fwd": "flash_fwd_sm90", "flash_bwd": "flash_bwd_sm90",
-              "packed_flash": "flash_fwd_sm90"}
+              "packed_flash": "flash_fwd_sm90",
+              "flash_fwd_wide": "flash_wide_sm90",
+              "flash_bwd_wide": "flash_wide_sm90",
+              "masked_attn_wide": "flash_wide_sm90"}
 # the case and dtype of each kernel on its main path: K1-K3 under v1's bf16,
 # K4 in LoftUp's f32 (flax promotes that branch to f32 under amp; the v2
 # scene's 4 views), K5 at train_v2's LoftUp call (B*V = 10 views), the f32
 # K1-K3 in train_v2 (at its shapes), K6 in the A/B tool (bf16, and its f32
 # run); the bf16 K4 at DINO's split-cls call past 1024 patches (phase
-# dino_large, where the towers run bf16 under amp); two kernels no path
-# runs (NO_PATH): the f32 K2-int8 (serving is bf16) at the long render,
-# the bf16 K5 (LoftUp runs f32) at LoftUp's training shape
+# dino_large, where the towers run bf16 under amp); the wide-head engine
+# (head dims above 128, phase wide_heads): K4 in bf16 at the InputMixer's
+# 4 heads of 192 with tables, in f32 at LoftUp's head of 384, K5 at
+# LoftUp's training call, K3 at the mask transformer's 3 heads of 256
+# (bf16 in the scene, f32 in the micro-step); three kernels no path runs
+# (NO_PATH): the f32 K2-int8 (serving is bf16) at the long render, the
+# bf16 K5 (LoftUp runs f32) at LoftUp's training shape, the wide bf16 K5
+# at the mixer's head dim
 MAIN_CASE = {"tower_self": ("encoder_rope", "bfloat16"),
              "tower_cross": ("render", "bfloat16"),
              "tower_self_f32": ("encoder_train", "float32"),
@@ -270,11 +320,18 @@ MAIN_CASE = {"tower_self": ("encoder_rope", "bfloat16"),
              "flash_bwd": ("loftup_train_full", "float32"),
              "flash_bwd_bf16": ("loftup_train", "bfloat16"),
              "packed_flash": ("tool", "bfloat16"),
-             "packed_flash_f32": ("tool", "float32")}
+             "packed_flash_f32": ("tool", "float32"),
+             "flash_fwd_wide": ("d192_rope", "bfloat16"),
+             "flash_fwd_wide_f32": ("loftup_wide", "float32"),
+             "flash_bwd_wide": ("d192_rope", "bfloat16"),
+             "flash_bwd_wide_f32": ("loftup_wide_train", "float32"),
+             "masked_attn_wide": ("mask_transformer_wide", "bfloat16"),
+             "masked_attn_wide_f32": ("mask_transformer_wide_train",
+                                      "float32")}
 # entries of the kernels line that no main path launches: listed with
 # their launches summed over every path this run drove, which the launch
 # check holds to 0
-NO_PATH = ("tower_cross_int8_f32", "flash_bwd_bf16")
+NO_PATH = ("tower_cross_int8_f32", "flash_bwd_bf16", "flash_bwd_wide")
 # K2's and K3's fixed splits (key tiles per split) and a larger one, each
 # timed on the kernel's cases on the Hopper engines (bf16, and f32) in the
 # same run; K5's dkdv splits (query tiles of 64 per split) likewise
@@ -293,6 +350,17 @@ LSE_RTOL = 1e-4
 # head dims the kernels pad to their instantiations (the tiny presets' 8
 # and 16; 48, 80) and D = 128, each a case of K3, K4 and K5 (``d<D>*``)
 PAD_DIMS = (8, 16, 48, 80, 128)
+# head dims above 128, on the wide-head engine: K4 (tables, LSE), K3 and
+# K5 (tables) cases ``d<D>*`` at each; 136 and 200 are padded (per RoPE
+# quarter) to 192 and 256
+WIDE_DIMS = (136, 192, 200, 256, 384, 512)
+# LoftUp's training call at one head of 384 (phase wide_heads' micro-step:
+# B*V = 10 views)
+LOFTUP_WIDE_TRAIN = (10, 1, 49152, 768, 384)
+# the wide engine's rows are timed over this many calls (its LoftUp cases
+# take tens to hundreds of ms a call) and carry no trace of the library
+# yardstick, to keep the script within its time limit
+WIDE_REPS = 5
 # phase dino_large's bucket: 30 x 40 = 1200 patches, past K1's 1024
 DINO_LARGE_HW = (480, 640)
 # DINO-L alone at depth 2 at that bucket, card against CPU (f32, TF32
@@ -587,6 +655,21 @@ def kernel_cases(dtype, dev):
         _k3_case(cases, f"d{D}", 3072, rnd, g, es, dev, H=4, D=D,
                  splits=False)
     cases += _k4_cases(rnd, g, es, dtype, dev, None, dino=True)
+    # the wide-head engine (head dims above 128), drawn last: K4 and K3 at
+    # each of WIDE_DIMS as above (d192_rope: the InputMixer's call at 4
+    # heads of 192, phase wide_heads); K4 at LoftUp's call with one head of
+    # 384 (4 views) and at DINO's split-cls shape with heads of 256; K3 at
+    # the mask transformer's 3 heads of 256, in the scene (200 x 4 x 768)
+    # and in the micro-step (B = 2, 200 x 5 x 768)
+    for D in WIDE_DIMS:
+        cases += _k4_cases(rnd, g, es, dtype, dev, None, head_dim=D)
+        _k3_case(cases, f"d{D}", 3072, rnd, g, es, dev, H=4, D=D,
+                 splits=False)
+    cases += _k4_cases(rnd, g, es, dtype, dev, None, wide=True)
+    _k3_case(cases, "mask_transformer_wide", 3072, rnd, g, es, dev, H=3,
+             D=256, splits=False)
+    _k3_case(cases, "mask_transformer_wide_train", 3840, rnd, g, es, dev,
+             B=2, H=3, D=256, splits=False)
     return cases
 
 
@@ -660,7 +743,8 @@ def _k3_case(cases, label, Nk, rnd, g, es, dev, B=1, H=8, D=96,
     live_kb = int((~padded.view(B, Nq, nkb, 64).all(-1).all(1)).sum())
     nbytes = (2 * q.numel() + 2 * H * live_kb * 64 * D) * es + blocked.numel()
     cases.append(dict(
-        kernel="masked_attn", case=label,
+        kernel="masked_attn_wide" if D > 128 else "masked_attn", case=label,
+        reps=WIDE_REPS if D > 128 else 20,
         fn=lambda: ma.masked_mha(q, k, v, blocked),
         ref=lambda: ma.masked_mha_ref(q, k, v, blocked),
         f32=lambda: ma.masked_mha_ref(f32(q), f32(k), f32(v), blocked),
@@ -814,7 +898,7 @@ def _sliced(fn, n: int, *ts):
 
 
 def _k4_cases(rnd, g, es, dtype, dev, blocked, full=False, text=False,
-              head_dim=None, dino=False):
+              head_dim=None, dino=False, wide=False):
     """K4 at the v2 LoftUp shape (split-heads views of the projections, as
     the block passes them), with ragged dead keys, with the dense
     mask-transformer bias, with RoPE tables and with the LSE; with
@@ -824,7 +908,10 @@ def _k4_cases(rnd, g, es, dtype, dev, blocked, full=False, text=False,
     only at that head dim, with tables and with the LSE (4 views x 4 heads
     x 768 tokens: a tiny preset's tower); with ``dino``, only at phase
     dino_large's shapes (4 views x 16 heads x 1200 patches of 64: DINO's
-    split-cls call with its LSE, and the encoder's with tables)."""
+    split-cls call with its LSE, and the encoder's with tables); with
+    ``wide``, only on the wide-head engine at LoftUp's call with one head
+    of 384 and at DINO's split-cls shape with 4 heads of 256 (LSE).  A
+    case at a head dim above 128 is the kernel ``flash_fwd_wide``."""
     import torch
     import torch.nn.functional as F
 
@@ -857,14 +944,16 @@ def _k4_cases(rnd, g, es, dtype, dev, blocked, full=False, text=False,
         else:
             def ref():
                 return fa.flash_mha_ref(q, k, v, **kw)
+        wide = D > 128
         return dict(
-            kernel="flash_fwd", case=label,
+            kernel="flash_fwd_wide" if wide else "flash_fwd", case=label,
+            reps=WIDE_REPS if wide else 20,
             fn=lambda: fa.flash_mha(q, k, v, **kw), ref=ref,
             f32=lambda: fa.flash_mha_ref(f32(q), f32(k), f32(v), **kw),
             lib=lambda: F.scaled_dot_product_attention(
                 ql, kl, v, attn_mask=lib_mask),
             flops=4.0 * H * Nq * live_keys * D, bytes=nbytes,
-            warpgroups=fa.bf16_warpgroups(B, H, Nq, D))
+            warpgroups=None if wide else fa.bf16_warpgroups(B, H, Nq, D))
 
     def heads(B, N, H, D, s=1.0):
         """(B, H, N, D) view of a (B, N, H*D) projection."""
@@ -903,6 +992,12 @@ def _k4_cases(rnd, g, es, dtype, dev, blocked, full=False, text=False,
                 case("encoder_1200_rope", heads(B, N, H, D, QK_STD),
                      heads(B, N, H, D, QK_STD), heads(B, N, H, D),
                      rope=(*tabs, *tabs))]
+    if wide:
+        return [case("loftup_wide", heads(4, 49152, 1, 384, QK_STD),
+                     heads(4, 768, 1, 384, QK_STD), heads(4, 768, 1, 384)),
+                case("dino_wide_lse", heads(4, 1200, 4, 256, QK_STD),
+                     heads(4, 1200, 4, 256, QK_STD), heads(4, 1200, 4, 256),
+                     with_lse=True)]
     if full:        # f32 only: the f32 plain version is the reference
         B, H, Nq, Nk, D = LOFTUP_TRAIN_FULL
         return [case("loftup_train_full", heads(B, Nq, H, D, QK_STD),
@@ -969,12 +1064,13 @@ def k5_cases(dtype, dev):
              **kw):
         B, H, Nq, D = q.shape
         Nk = k.shape[2]
+        kernel = "flash_bwd_wide" if D > 128 else "flash_bwd"
         live = B * Nk if live_keys is None else live_keys
         nbytes = (4 * q.numel() + 4 * H * live * D) * es + B * H * Nq * 4
         for t in (kw.get("bias"), kw.get("kv_valid")):
             nbytes += 0 if t is None else t.numel() * t.element_size()
         nbytes += 0 if "rope" not in kw else 2 * B * (Nq + Nk) * D * 4
-        cases.append(dict(case=label, q=q, k=k, v=v,
+        cases.append(dict(kernel=kernel, case=label, q=q, k=k, v=v,
                           do=heads(B, Nq, H, D), kw=kw, lib_mask=lib_mask,
                           slices=slices,
                           flops=7 * 2.0 * H * Nq * live * D, bytes=nbytes))
@@ -1014,13 +1110,20 @@ def k5_cases(dtype, dev):
              heads(B, Nk, H, D, QK_STD), heads(B, Nk, H, D),
              slices=PLAIN_SLICE)
     # the head dims K5 pads (PAD_DIMS), drawn last: 2 views x 4 heads x
-    # 768 tokens with RoPE tables (a tiny preset's mixer, LoftUp at 8)
-    for D in PAD_DIMS:
+    # 768 tokens with RoPE tables (a tiny preset's mixer, LoftUp at 8);
+    # then the wide-head engine's (WIDE_DIMS) at the same shape, and in f32
+    # LoftUp's training call at one head of 384 (phase wide_heads)
+    for D in PAD_DIMS + WIDE_DIMS:
         B, H, N = 2, 4, 768
         tabs = rope2d_tables(_grid_pos(B, 24, 32, dev), D)
         case(f"d{D}_rope", heads(B, N, H, D, QK_STD),
              heads(B, N, H, D, QK_STD), heads(B, N, H, D),
              rope=(*tabs, *tabs))
+    if dtype == torch.float32:
+        B, H, Nq, Nk, D = LOFTUP_WIDE_TRAIN
+        case("loftup_wide_train", heads(B, Nq, H, D, QK_STD),
+             heads(B, Nk, H, D, QK_STD), heads(B, Nk, H, D),
+             slices=PLAIN_SLICE)
     return cases
 
 
@@ -1086,8 +1189,9 @@ def phase_k5(dtype, dname: str, dev, rows: dict) -> None:
     for c in k5_cases(dtype, dev):
         q, k, v, do, kw = c["q"], c["k"], c["v"], c["do"], c["kw"]
         n = c["slices"]
+        name, wide = c["kernel"], c["kernel"].endswith("_wide")
         o, lse = fa.flash_mha(q, k, v, with_lse=True, **kw)
-        n0 = fa.flash_mha_bwd.launches
+        n0 = _kernel_launches(name)
 
         def fn():
             return fa.flash_mha_bwd(q, k, v, o, lse, do, **kw)
@@ -1129,9 +1233,9 @@ def phase_k5(dtype, dname: str, dev, rows: dict) -> None:
         del ins, auto, exact, pair, f32
         ok = all(g["ok"] and g["finite"] for part in check.values()
                  for g in part.values())
-        reps = 5 if n is not None else 10
+        reps = (5 if n is not None else 10) if not wide else WIDE_REPS
         row = {
-            "phase": "kernels", "kernel": "flash_bwd", "case": c["case"],
+            "phase": "kernels", "kernel": name, "case": c["case"],
             "dtype": dname, "shape": list(q.shape) + [k.shape[2]],
             "max_abs_err": err, "check": check,
             "kernel_ms": time_ms(fn, reps=reps),
@@ -1147,21 +1251,24 @@ def phase_k5(dtype, dname: str, dev, rows: dict) -> None:
         row["device_ms_by_kernel"] = {
             _short(t["name"]): t["ms"] for t in prof["top"]}
         row["device_ms"] = prof["device_busy_ms"]
-        lib = profile_by_kernel(_sdpa_bwd(c), top=6)
-        row["library_device_ms_by_kernel"] = {
-            t["name"][:160]: t["ms"] for t in lib["top"]}
-        row["max_splits"] = fa.dkv_splits(q.shape[2])
-        row["by_split_tiles"] = _k5_splits(fn, reps, want, want_f32, dtype)
-        row["launches"] = fa.flash_mha_bwd.launches - n0
+        if not wide:
+            lib = profile_by_kernel(_sdpa_bwd(c), top=6)
+            row["library_device_ms_by_kernel"] = {
+                t["name"][:160]: t["ms"] for t in lib["top"]}
+        if not wide:        # the wide engine has no fixed dkdv split
+            row["max_splits"] = fa.dkv_splits(q.shape[2])
+            row["by_split_tiles"] = _k5_splits(fn, reps, want, want_f32,
+                                               dtype)
+        row["launches"] = _kernel_launches(name) - n0
         row["bound_ms"], row["bound_by"] = bound_ms(c["flops"], c["bytes"],
                                                     dname)
-        if dtype == torch.float32:
+        if dtype == torch.float32 and not wide:
             row["bound_ms_tf32x3"], row["bound_by_tf32x3"] = bound_ms(
                 c["flops"], c["bytes"], "tf32x3")
         emit(row)
         if not ok:
-            raise AssertionError(f"flash_bwd {c['case']} {dname}: {check}")
-        rows[("flash_bwd", c["case"], dname)] = row
+            raise AssertionError(f"{name} {c['case']} {dname}: {check}")
+        rows[(name, c["case"], dname)] = row
         del got, want, want_f32, o, lse
         torch.cuda.empty_cache()
 
@@ -1268,8 +1375,7 @@ def phase_kernels():
         dname = str(dtype).split(".")[-1]
         for c in kernel_cases(dtype, dev):
             name, label = c["kernel"], c["case"]
-            counter = _counters()[name]
-            n0 = counter.launches
+            n0 = _kernel_launches(name)
             out, lse = _with_lse(c["fn"]())
             torch.cuda.synchronize()
             want, want_lse = _with_lse(c["ref"]())
@@ -1341,7 +1447,7 @@ def phase_kernels():
                         c["flops"] / prof["device_busy_ms"] / 1e9
                 if dtype == torch.bfloat16:
                     row["cta_warpgroups"] = c["warpgroups"]
-                elif c["lib"] is not None:
+                elif c["lib"] is not None and not name.endswith("_wide"):
                     # which CUDA kernels the f32 yardstick runs (and their
                     # device ms): the kernel it is compared with
                     lib = profile_by_kernel(c["lib"], top=4)
@@ -1352,10 +1458,11 @@ def phase_kernels():
                     row["by_split_tiles"] = _split_tiles_tried(
                         c, reps, want, check_of)
             # the check plus warm-up and timed launches, from the counter
-            row["launches"] = counter.launches - n0
+            row["launches"] = _kernel_launches(name) - n0
             row["bound_ms"], row["bound_by"] = bound_ms(
                 c["flops"], c["bytes"], dname, c.get("int8_ops", 0))
-            if hopper and dtype == torch.float32:
+            if hopper and dtype == torch.float32 \
+                    and not name.endswith("_wide"):
                 # the same work at the rate of the kernel's 3xTF32 products
                 row["bound_ms_tf32x3"], row["bound_by_tf32x3"] = bound_ms(
                     c["flops"], c["bytes"], "tf32x3", c.get("int8_ops", 0))
@@ -1367,6 +1474,15 @@ def phase_kernels():
             del out, want
             torch.cuda.empty_cache()
     return rows
+
+
+def _kernel_launches(name: str) -> int:
+    """A kernel's launch count: its wrapper's ``launches``, or for a
+    ``*_wide`` kernel (the wide-head engine) the wrapper's
+    ``launches_wide``."""
+    base = name.removesuffix("_wide")
+    attr = "launches_wide" if base != name else "launches"
+    return getattr(_counters()[base], attr)
 
 
 def _short(name: str) -> str:
@@ -1414,8 +1530,12 @@ def _config(preset: str, depth=None):
     from panst3r_torch.models import presets
 
     cfg = getattr(presets, f"panst3r_{preset}_config")()
-    if depth is None:
-        return cfg
+    return cfg if depth is None else _cut(cfg, depth)
+
+
+def _cut(cfg, depth: int):
+    """``cfg`` with the encoder, DINO, decoder and mask transformer cut to
+    ``depth``."""
     rep = dataclasses.replace
     return rep(cfg, encoder=rep(cfg.encoder, depth=depth),
                dino=rep(cfg.dino, depth=depth),
@@ -1449,10 +1569,9 @@ def _read_f32():
 
 
 def _reset_counts():
-    for fn in _counters().values():
-        fn.launches = 0
-        if hasattr(fn, "launches_f32"):
-            fn.launches_f32 = 0
+    from panst3r_torch.core.dryrun import _reset_launches
+
+    _reset_launches()
 
 
 def _read_counts(path=None):
@@ -2286,6 +2405,24 @@ def phase_train_v2():
 # ------------------------------------------------------------- serving --
 
 @contextlib.contextmanager
+def _preset_depth(preset: str, depth: int):
+    """While the block runs, ``models/presets.py``'s
+    ``panst3r_<preset>_config`` gives the preset cut to ``depth``
+    (``_cut``), so every lookup by name builds the cut model:
+    ``apps/common.py::preset_config`` (``build_engine``, the train and eval
+    apps) and ``tools/verify_port.py::preset_of`` (its forward stage)."""
+    from panst3r_torch.models import presets
+
+    name = f"panst3r_{preset}_config"
+    real = getattr(presets, name)
+    setattr(presets, name, lambda: _cut(real(), depth))
+    try:
+        yield
+    finally:
+        setattr(presets, name, real)
+
+
+@contextlib.contextmanager
 def _env(name: str, value: str):
     """Set an environment variable for the block (the engine reads
     ``PANST3R_KV_INT8`` at call time, as the JAX package does)."""
@@ -2373,22 +2510,11 @@ def _pooled(conf, s):
 
 def segment_classes(eng, images, portrait, ncls: int = 32,
                     alive: int = 4) -> np.ndarray:
-    """(ncls, lang_dim) class embeddings under which only queries
-    0..alive-1 pass the class threshold of fusion on this scene.  With
-    random weights every query passes it with random class embeddings,
-    the queries split the pixels, none passes the overlap test and every
-    map is void; a few live queries give real segments, so the wire
-    comparisons compare something.  The embeddings enter only the class
-    logits, which are linear in them: one probe with the identity gives
-    the logits' matrix, least squares the embeddings for logits of +4
-    (query i, class i) and -8 elsewhere."""
-    lang = eng.model.config.panoptic.mask_transformer.lang_dim
-    probe = eng.run_fused(images, portrait, np.eye(lang, dtype=np.float32))
-    probe = probe["pred_logits"].double().cpu().numpy()       # (Q, lang)
-    target = np.tile(-8.0 - 0.5 * np.arange(ncls), (probe.shape[0], 1))
-    for i in range(alive):
-        target[i, i] = 4.0
-    return np.linalg.lstsq(probe, target, rcond=None)[0].T.astype(np.float32)
+    """``core/dryrun.py::segment_classes``: class embeddings under which
+    only queries 0..alive-1 pass fusion's class threshold."""
+    from panst3r_torch.core.dryrun import segment_classes as classes
+
+    return classes(eng, images, portrait, ncls, alive)
 
 
 def phase_serve():
@@ -3857,6 +3983,11 @@ def phase_text():
 # ------------------------------------------------------------ train app --
 
 TRAIN_APP_HW = (432, 576)          # the phase's ScanNet++ frames (H, W)
+# the train app's v2 at this depth (``_config``: the towers and the mask
+# transformer cut, the mixer and LoftUp whole), to keep the script within
+# its time limit: the resume, bucket and checkpoint checks do not depend
+# on depth, and train_v2 holds the full-depth micro-step
+TRAIN_APP_DEPTH = 2
 # configs/train_v2.yaml's buckets, (W, H)
 TRAIN_V2_RESOLUTIONS = ((512, 384), (512, 336), (512, 288), (512, 256),
                         (512, 160))
@@ -3994,8 +4125,15 @@ def _step_log(out_dir) -> list:
 
 
 def phase_train_app():
+    """``_phase_train_app`` with the apps' v2 cut to ``TRAIN_APP_DEPTH``."""
+    with _preset_depth("v2", TRAIN_APP_DEPTH):
+        return _phase_train_app()
+
+
+def _phase_train_app():
     """The training entry point (``apps/train.py::train``) at full v2
-    width and depth with configs/train_v2.yaml's recipe: the five buckets,
+    width, at ``TRAIN_APP_DEPTH``, with configs/train_v2.yaml's recipe:
+    the five buckets,
     V=5, B=2, accum_iter 2, ColorJitter, memory cores of 2-5 views, four
     spawned loader workers, random class embeddings, no warmup, on a
     ScanNet++-layout dataset the phase writes (4 tuples: 2 micro-steps an
@@ -4020,7 +4158,7 @@ def phase_train_app():
     from panst3r_torch.core.bucketing import Bucket
     from panst3r_torch.core.checkpoint import load_checkpoint
 
-    cfg = _config("v2")
+    cfg = _config("v2", TRAIN_APP_DEPTH)
     V = 5
     with tempfile.TemporaryDirectory() as tmp:
         data = f"{tmp}/scannetpp"
@@ -4555,8 +4693,8 @@ def phase_eval():
     rendered-test-layout scene (``--benchmark scannet``, LoftUp's f32 K4);
     the PQ dict, seconds per scene and launches (``expected_launches``) of
     each.  Then the train app with ``eval_every=1``: one epoch of two v2
-    micro-steps with the train_v2 recipe, the PQ of two samples in its
-    stats (the engine in f32).  Then at depth 2 in f32, card against CPU
+    micro-steps (v2 at ``TRAIN_APP_DEPTH``) with the train_v2 recipe, the
+    PQ of two samples in its stats (the engine in f32).  Then at depth 2 in f32, card against CPU
     on the benchmark scene, class embeddings under which four queries
     pass fusion's threshold (``segment_classes``), held by
     ``eval_agreement``.  Returns the launches of the three ``main`` runs."""
@@ -4629,7 +4767,8 @@ def phase_eval():
             eval_keyframes=4, output_dir=f"{tmp}/train")
         before = _read_counts()
         t0 = time.perf_counter()
-        out = tapp.train(exp)
+        with _preset_depth("v2", TRAIN_APP_DEPTH):
+            out = tapp.train(exp)
         seconds = time.perf_counter() - t0
         counts = _delta(before)
         stats = out["stats"]
@@ -4674,6 +4813,9 @@ def phase_eval():
 # sizes (keyframes, anchors; every 8th pixel of 384x512 observed)
 MULTI_GPU_HW = (384, 512)
 MULTI_GPU_TP = (4, 2)
+# the f32 TP serve at this depth (the bf16 one at full depth), to keep the
+# script within its time limit
+MULTI_GPU_F32_DEPTH = 2
 MULTI_GPU_DP = (8, 4)
 MULTI_GPU_TRAIN = (2, 3, 160, 512)
 MULTI_GPU_BA = (16, 8192)
@@ -4735,6 +4877,7 @@ def phase_multi_gpu():
     del eng
     torch.cuda.empty_cache()
     v1 = dryrun.ModelFactory(cfg, seed=0)
+    cfg32 = _config("v1", depth=MULTI_GPU_F32_DEPTH)
     bucket = Bucket(H, W)
     B, Vb, Hb, Wb = MULTI_GPU_TRAIN
     v2cfg = _config("v2", depth=2)
@@ -4750,7 +4893,8 @@ def phase_multi_gpu():
     ba = _ba_problem(Kb, Ab, (H // 8) * (W // 8))
     jobs = {
         "tp_serve_f32": (dryrun.serve_worker, (
-            v1, {"images": images[:Vt], "portrait": portrait[:Vt],
+            dryrun.ModelFactory(cfg32, seed=0),
+            {"images": images[:Vt], "portrait": portrait[:Vt],
                  "cls_emb": cls4}, bucket, Kt, 4, False, {}, ("tp",)),
             {"raw": False}),
         "tp_serve": (dryrun.serve_worker, (
@@ -4797,11 +4941,11 @@ def phase_multi_gpu():
     for name, per_rank in results.items():
         r0 = per_rank[0]
         if name == "tp_serve_f32":
-            # f32 at full depth: the Megatron split reassociates f32 sums
-            # only; the raw outputs within 1e-4 relative, the decoded
-            # wire as below
+            # f32 at MULTI_GPU_F32_DEPTH: the Megatron split reassociates
+            # f32 sums only; the raw outputs within 1e-4 relative, the
+            # decoded wire as below
             tp = [r["tp"] for r in per_rank]
-            want = expected_serve_launches(cfg, Vt, Kt, N)
+            want = expected_serve_launches(cfg32, Vt, Kt, N)
             close = all(t["raw_max_abs_diff"][k]
                         <= 1e-4 * max(1.0, t["raw_max_abs"][k])
                         for t in tp for k in t["raw_max_abs"])
@@ -4915,6 +5059,10 @@ def phase_multi_gpu():
 # --------------------------------------------------- checkpoint tools --
 
 CKPT_SERVE = (8, 4, 384, 512)     # the serve scene from the file: V, K, H, W
+# the v2 half's depth: v1 ports, verifies and exports the towers' names at
+# full depth; v2 adds the head's (InputMixer, LoftUp), which no depth cut
+# touches
+CKPT_V2_DEPTH = 2
 
 
 def reference_sd_module():
@@ -4977,8 +5125,8 @@ def _ckpt_expected(cfg) -> dict:
 
 
 def phase_checkpoint():
-    """The checkpoint interop tools at full v1 and v2 width and depth on a
-    reference-named state_dict synthesized from seed 0
+    """The checkpoint interop tools at full v1 and v2 width (v1 at full
+    depth, v2 at ``CKPT_V2_DEPTH``) on a reference-named state_dict synthesized from seed 0
     (``tests/torch_reference_sd.py``; no published weights are in the
     repository), saved as a ``.pth``: ``python -m
     panst3r_torch.port_checkpoint`` on it; ``tools/verify_port.py`` on the
@@ -5012,10 +5160,12 @@ def phase_checkpoint():
     reference_state_dict = reference_sd_module().reference_state_dict
     V, K, H, W = CKPT_SERVE
     counts = {}
-    for preset in ("v1", "v2"):
-        cfg = _config(preset)
+    for preset, depth in (("v1", None), ("v2", CKPT_V2_DEPTH)):
+        cfg = _config(preset, depth)
         secs, checks = {}, {}
-        with tempfile.TemporaryDirectory() as tmp, sampled_rss() as rss:
+        with tempfile.TemporaryDirectory() as tmp, sampled_rss() as rss, \
+                (_preset_depth(preset, depth) if depth else
+                 contextlib.nullcontext()):
             ref = f"{tmp}/reference.pth"
             t0 = time.perf_counter()
             sd = {k: v.cpu() for k, v in reference_state_dict(
@@ -5129,7 +5279,8 @@ def phase_checkpoint():
                 and bool(np.isfinite(dec["conf"]).all())}
             del eng
             torch.cuda.empty_cache()
-        emit({"phase": "checkpoint", "model": preset, "scalars": n_scalars,
+        emit({"phase": "checkpoint", "model": preset, "depth": depth,
+              "scalars": n_scalars,
               "keys": report["total_keys"], "seconds": secs,
               "host_gib": {"phase_peak": rss["self"] / 2 ** 30,
                            "port_cli_peak": cli_peak / 2 ** 30,
@@ -5140,6 +5291,302 @@ def phase_checkpoint():
             raise AssertionError(f"checkpoint {preset}: failed checks {bad}: "
                                  f"{ {k: checks[k] for k in bad} }")
     return counts["v2"]
+
+
+# ------------------------------------------------------- wide heads ----
+
+# phase wide_heads: panst3r_v2_config with a head of D > 128 in each of the
+# v2 head's three attention modules (no registered preset has one): the
+# InputMixer at 4 heads of 192 (K4 with RoPE tables), LoftUp at one head of
+# 384 (K4 in f32 under amp; K5 in training), the mask transformer at 3
+# heads of 256 (K3); the towers keep their d=64 heads (K1, K2).  The head
+# alone runs card against CPU on WIDE_HEAD_VIEWS views (all keyframes).
+WIDE_MIXER_HEADS, WIDE_LOFTUP_HEADS, WIDE_MASK_HEADS = 4, 1, 3
+WIDE_HEAD_VIEWS = 2
+WIDE_HW = (384, 512)
+
+
+def wide_heads_config():
+    """``panst3r_v2_config`` at full width and depth with the head counts
+    above (the config fields ``panst3r_v2_config(**overrides)`` takes)."""
+    from panst3r_torch.models.input_mixer import InputMixerConfig
+    from panst3r_torch.models.upscalers import LoftUpUpscalerConfig
+
+    cfg = _config("v2")
+    pan = cfg.panoptic
+    return dataclasses.replace(cfg, panoptic=dataclasses.replace(
+        pan,
+        input_mixer=InputMixerConfig(hidden_dim=768,
+                                     num_heads=WIDE_MIXER_HEADS),
+        upscaler=LoftUpUpscalerConfig(dim=384, output_stride=2,
+                                      num_heads=WIDE_LOFTUP_HEADS),
+        mask_transformer=dataclasses.replace(pan.mask_transformer,
+                                             num_heads=WIDE_MASK_HEADS)))
+
+
+def _wide_counts():
+    """({wide kernel: launches}, {wide kernel: f32 launches}) of the
+    wide-head engine, by kernels-line name."""
+    counters = {f"{k}_wide": fn for k, fn in _counters().items()
+                if hasattr(fn, "launches_wide")}
+    return ({k: fn.launches_wide for k, fn in counters.items()},
+            {k: fn.launches_wide_f32 for k, fn in counters.items()})
+
+
+def wide_split(cfg, want: dict, calls: int, train: bool) -> tuple:
+    """``want`` (``expected_launches`` or ``expected_train_launches`` of
+    ``wide_heads_config``) split into (the engines up to D = 128, the
+    wide-head engine, its f32 share): the mixer's and LoftUp's K4 calls
+    (``calls`` head calls of each; K5's two kernels per call in training)
+    and the mask transformer's K3 move to the wide engine; the mixer and
+    K3 run bf16 in the amp scene, everything f32 in training."""
+    pan = cfg.panoptic
+    mix, lu = pan.input_mixer.num_layers, pan.upscaler.num_layers
+    k3 = pan.mask_transformer.dec_layers
+    k4 = calls * (mix + lu)
+    wide = {"flash_fwd_wide": k4, "flash_bwd_wide": 2 * k4 if train else 0,
+            "masked_attn_wide": k3}
+    f32 = dict(wide) if train else {"flash_fwd_wide": calls * lu,
+                                    "flash_bwd_wide": 0,
+                                    "masked_attn_wide": 0}
+    narrow = dict(want)
+    narrow["flash_fwd"] -= k4
+    narrow["flash_bwd"] -= wide["flash_bwd_wide"]
+    narrow["masked_attn"] -= k3
+    return narrow, wide, f32
+
+
+def phase_wide_heads():
+    """The wide-head v2 path at full width and depth (``wide_heads_config``,
+    seeded random weights, 384x512): the panoptic head alone card against
+    CPU in f32 on the same tower features (``SMALL_LIMITS``' logits and
+    masks rules); one V=8 / K=4 bf16 ``run_device`` + ``fuse`` scene; the
+    train micro-step (train_v2's recipe, B=2 x V=5, f32, frozen towers
+    stored in bf16) three times on the same weights with every gradient
+    bit-equal (``train_repeat``).  Launches of the scene and the three
+    micro-steps as ``wide_split`` implies; seconds and peak memory of each
+    step.  Returns the launches (the wide engine's under ``*_wide``)."""
+    import copy
+
+    import torch
+
+    from panst3r_torch.core.bucketing import Bucket
+    from panst3r_torch.engine import train as tr
+    from panst3r_torch.engine.inference import InferenceEngine
+    from panst3r_torch.models.panst3r import build_model
+
+    cfg = wide_heads_config()
+    H, W = WIDE_HW
+    t0 = time.perf_counter()
+    model = build_model(cfg, seed=0)
+    torch.cuda.synchronize()
+    row = {"phase": "wide_heads", "setup_s": time.perf_counter() - t0,
+           "head_dims": {"input_mixer": 768 // WIDE_MIXER_HEADS,
+                         "loftup": 384 // WIDE_LOFTUP_HEADS,
+                         "mask_transformer": 768 // WIDE_MASK_HEADS}}
+
+    # the head alone, card against CPU (f32, TF32 off) on the tower
+    # features of the card's run
+    Vh = WIDE_HEAD_VIEWS
+    images, portrait, cls_emb = _inputs(Vh, H, W)
+    calls = []
+    hook = model.panoptic_decoder.register_forward_hook(
+        lambda m, a, kw, out: calls.append((a, kw, out)), with_kwargs=True)
+    eng = InferenceEngine(model, Bucket(H, W), num_keyframes=Vh, chunk=4,
+                          amp=False)
+    try:
+        eng.run_device(images, portrait, cls_emb)
+    finally:
+        hook.remove()
+    (args, kw, card), = calls                 # every view a keyframe
+
+    def host(x):
+        if torch.is_tensor(x):
+            return x.cpu()
+        if isinstance(x, (tuple, list)):
+            return type(x)(host(y) for y in x)
+        if isinstance(x, dict):
+            return {k: host(v) for k, v in x.items()}
+        return x
+
+    head = copy.deepcopy(model.panoptic_decoder).cpu()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        cpu = head(*host(args), **host(kw))
+    row["head_cpu_s"] = time.perf_counter() - t0
+    del head, args, kw, calls
+    head_check = {}
+    for key, atol, rtol in SMALL_LIMITS:
+        if key not in ("pred_logits", "pred_masks"):
+            continue
+        a, b = card[key].float().cpu(), cpu[key].float()
+        diff = (a - b).abs()
+        head_check[key] = {
+            "max_abs_err": float(diff.max()), "atol": atol, "rtol": rtol,
+            "ok": bool((diff <= atol + rtol * b.abs()).all()),
+            "shape": list(a.shape)}
+    row["head_card_vs_cpu"] = head_check
+    del card, cpu
+
+    # the V=8 scene (bf16 under amp: the engine casts the model)
+    V, K, chunk = 8, 4, 4
+    images, portrait, cls_emb = _inputs(V, H, W)
+    eng = InferenceEngine(model, Bucket(H, W), num_keyframes=K, chunk=chunk,
+                          amp=True)
+    eng.fuse(eng.run_device(images, portrait, cls_emb), (H, W))   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    out = eng.run_device(images, portrait, cls_emb)
+    fused = eng.fuse(out, (H, W))
+    torch.cuda.synchronize()
+    scene_s = time.perf_counter() - t0
+    scene = _read_counts(), _read_f32(), *_wide_counts()
+    Q, ncls = cfg.panoptic.mask_transformer.num_queries, cls_emb.shape[0]
+    shapes = {"pointmaps_raw": (V, H, W, 7), "pred_logits": (Q, ncls),
+              "pred_masks": (V, Q, H // 2, W // 2)}
+    checks = {k: (list(out[k].shape) == list(sh),
+                  bool(torch.isfinite(out[k].float()).all()))
+              for k, sh in shapes.items()}
+    row["scene"] = {
+        "views": V, "keyframes": out["keyframes"], "seconds": scene_s,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "checks": checks, "pan_shape": list(fused[0]["pan"].shape),
+        "n_segments": len(fused[0]["segments_info"])}
+    want_scene = wide_split(cfg, expected_launches(cfg, V, K, chunk), 2,
+                            False)
+    del eng, model, out, fused
+    torch.cuda.empty_cache()
+
+    # the micro-step, three times on the same weights
+    B, Vt, Ht, Wt, ncls = TRAIN_SHAPE
+    tcfg = train_config()
+    t0 = time.perf_counter()
+    model = tr.cast_frozen_params(build_model(cfg, seed=0))
+    mask = tr.trainable_mask(model)
+    hb, cls = train_batch(B, Vt, Ht, Wt, ncls, tcfg.max_instances, seed=10)
+    batch = tr.batch_to(hb, "cuda")
+    cls = torch.as_tensor(cls, device="cuda")
+    torch.cuda.synchronize()
+    step_setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    with _flash_shapes() as fshapes:
+        repeat = train_repeat(model, mask, tcfg, (Ht // 16, Wt // 16),
+                              batch, cls)
+    steps = _read_counts(), _read_f32(), *_wide_counts()
+    reps = repeat["reps"]
+    one = wide_split(cfg, expected_train_launches(cfg, Vt,
+                                                  (Ht // 16, Wt // 16)),
+                     1, True)
+    want_steps = tuple({k: reps * n for k, n in d.items()} for d in one)
+    row["micro_step"] = {
+        "batch": B, "views": Vt, "setup_s": step_setup_s,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "flash_shapes": {k: sorted({tuple(x) for x in v})
+                         for k, v in fshapes.items()},
+        **repeat}
+    del model, batch
+    torch.cuda.empty_cache()
+
+    got = {"scene": scene, "micro_steps": steps}
+    want = {"scene": (want_scene[0], want_scene[1], want_scene[2]),
+            "micro_steps": want_steps}
+    launch_ok = all(got[p][0] == want[p][0] and got[p][2] == want[p][1]
+                    and got[p][3] == want[p][2] for p in got)
+    row["launches"] = {p: {"engines": got[p][0], "wide": got[p][2],
+                           "wide_f32": got[p][3]} for p in got}
+    row["expected_launches"] = {p: {"engines": want[p][0],
+                                    "wide": want[p][1],
+                                    "wide_f32": want[p][2]} for p in want}
+    emit(row)
+    bad = [k for k, (shape_ok, finite) in checks.items()
+           if not (shape_ok and finite)]
+    bad += [k for k, c in head_check.items() if not c["ok"]]
+    if not launch_ok:
+        bad.append("launches")
+    if repeat["params_whose_grad_differs"] or not repeat["losses_equal"]:
+        bad.append("micro-step repeat")
+    if bad:
+        raise AssertionError(f"wide_heads: {bad}")
+    # the path's launches: the scene and the three micro-steps
+    counts = {k: scene[0][k] + steps[0][k] for k in scene[0]}
+    counts.update({k: scene[2][k] + steps[2][k] for k in scene[2]})
+    F32_LAUNCHES["wide_heads"] = {
+        **{k: scene[1][k] + steps[1][k] for k in scene[1]},
+        **{k: scene[3][k] + steps[3][k] for k in scene[3]}}
+    return counts
+
+
+# ------------------------------------------------------------ flagship --
+
+# phase flagship: the JAX ladder's dryrun_multichip(8) at full v1 width and
+# depth, 8 gloo ranks on the one card over the (data 2, mem 2, model 2) mesh
+FLAGSHIP_RANKS = 8
+
+
+def phase_flagship():
+    """``core/dryrun.py::dryrun_multichip(8, flagship=True)`` on this card:
+    the tiny step, then in the same spawn the flagship v1 train step at
+    256x512 (B=2, V=3) and the sharded serve rung (V=6, K=4 at 128x256:
+    the mem-sharded and tensor-parallel wire against the one-rank wire at
+    JAX's limits, ``fusion_sharded`` bit-exact at 200 queries x 64x128).
+    Every rank's step launches as ``expected_train_launches`` implies, its
+    sharded serve call as its one-rank call; seconds and each rank's peak
+    memory.  Returns rank 0's launches of the flagship step."""
+    from panst3r_torch.core import dryrun
+
+    cfg = _config("v1")
+    f = dryrun.FLAGSHIP_STEP
+    (H, W), V = f["hw"], f["V"]
+    t0 = time.perf_counter()
+    try:
+        out = dryrun.dryrun_multichip(FLAGSHIP_RANKS, "cuda", timeout=600,
+                                      flagship=True, config=cfg,
+                                      backend="gloo")
+    except (RuntimeError, AssertionError) as e:
+        emit({"phase": "flagship", "error": str(e)[-4000:]})
+        raise
+    spawn_s = time.perf_counter() - t0
+    want = expected_train_launches(cfg, V, (H // 16, W // 16))
+    steps = [r["flagship_step"] for r in out]
+    serves = [r["sharded_serve"] for r in out]
+
+    def gib(b):
+        return None if b is None else b / 2 ** 30
+    emit({"phase": "flagship", "ranks": FLAGSHIP_RANKS, "backend": "gloo",
+          "mesh": out[0]["flagship_step"]["mesh"],
+          "spawn_seconds": spawn_s,
+          "tiny_loss": out[0]["loss"],
+          "step": {"loss": [s["loss"] for s in steps],
+                   "seconds": [s["seconds"] for s in steps],
+                   "job_seconds": [s["job_seconds"] for s in steps],
+                   "peak_gib": [gib(s["peak_bytes"]) for s in steps],
+                   "launches_rank0": steps[0]["launches"],
+                   "expected_launches": want},
+          "serve": {"pan_agree": [s["pan_agree"] for s in serves],
+                    "conf_max_abs_diff": [s["conf_max_abs_diff"]
+                                          for s in serves],
+                    "n_segments": serves[0]["n_segments"],
+                    "fusion_bit_equal": [s["fusion_bit_equal"]
+                                         for s in serves],
+                    "fusion_segments": serves[0]["fusion_segments"],
+                    "seconds": [s["seconds"] for s in serves],
+                    "seconds_one_rank": [s["seconds_one_rank"]
+                                         for s in serves],
+                    "job_seconds": [s["job_seconds"] for s in serves],
+                    "peak_gib": [gib(s["peak_bytes"]) for s in serves],
+                    "launches_rank0": serves[0]["launches"],
+                    "launches_one_rank": serves[0]["launches_one_rank"]}})
+    bad = [i for i, s in enumerate(steps) if s["launches"] != want]
+    bad += [i for i, s in enumerate(serves)
+            if s["launches"] != s["launches_one_rank"]]
+    if bad or serves[0]["n_segments"] == 0 \
+            or serves[0]["fusion_segments"] == 0:
+        raise AssertionError(f"flagship: ranks {bad} launched otherwise than "
+                             f"one rank, or no segment to compare")
+    return steps[0]["launches"]
 
 
 def main(argv=None) -> int:
@@ -5216,7 +5663,9 @@ def main(argv=None) -> int:
                         ("eval", phase_eval), ("multi_gpu", phase_multi_gpu),
                         ("tiny", phase_tiny),
                         ("dino_large", phase_dino_large),
-                        ("checkpoint", phase_checkpoint)):
+                        ("checkpoint", phase_checkpoint),
+                        ("wide_heads", phase_wide_heads),
+                        ("flagship", phase_flagship)):
         if name not in phases:
             continue
         t = time.perf_counter()
@@ -5245,8 +5694,10 @@ def main(argv=None) -> int:
         r = rows.get((name, case, dname), {})
         # each kernel's count on its path: K6 on the A/B tool (bf16, and
         # its f32 run), K4, K5 and the f32 K1-K3 on train_v2, the bf16 K4
-        # on dino_large, NO_PATH on none, the others on serve_long
-        path = {"packed_flash": "ab_packed",
+        # on dino_large, the wide-head engine on wide_heads, NO_PATH on
+        # none, the others on serve_long
+        path = "wide_heads" if "_wide" in entry else {
+                "packed_flash": "ab_packed",
                 "packed_flash_f32": "ab_packed_f32",
                 "flash_fwd": "train_v2", "flash_bwd": "train_v2",
                 "flash_fwd_bf16": "dino_large",

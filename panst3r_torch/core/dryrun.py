@@ -5,7 +5,15 @@
 cards) and runs one tiny-preset train step over the (data, mem, model)
 mesh the JAX ladder picks for ``n`` devices: the memory bank's render
 sharded over ``mem``, tensor parallelism over ``model``, the batch over
-``data``.  It asserts a finite loss, equal on every rank.
+``data``.  It asserts a finite loss, equal on every rank.  With
+``flagship=True`` the same spawn runs the ladder's two flagship rungs
+(``__graft_entry__.py``'s ``_dryrun_flagship_step`` and
+``_dryrun_sharded_serve``) on the same mesh: ``flagship_step_worker``, one
+v1 train step at 256x512 (B=2, V=3), and ``flagship_serve_worker``, the
+mem-sharded and tensor-parallel ``serve_device`` wire against the one-rank
+wire and ``fusion_sharded`` against the unsharded fusion at the flagship's
+mask dims.  Each takes the config as an argument (``panst3r_v1_config``
+on the card, ``tiny_config`` in the CPU tests).
 
 The other functions here are rank workers (``core/distributed.py::launch``
 re-imports this module in each spawned rank): the parity checks that the
@@ -28,6 +36,18 @@ from panst3r_torch.core.mesh import (DATA_AXIS, MEM_AXIS, MODEL_AXIS,
 
 TINY_HW, TINY_GRID = (32, 48), (2, 3)
 NCLS, T = 5, 4
+# the flagship rungs (__graft_entry__.py:183-320): the train step's bucket,
+# batch, classes and sampled points; the serve rung's bucket, views,
+# keyframes, render chunk, classes and fusion queries; JAX's limits on the
+# sharded wire against the one-rank wire (pan agreement, conf atol)
+FLAGSHIP_STEP = dict(hw=(256, 512), B=2, V=3, ncls=32, num_points=512,
+                     lr=1e-3)
+FLAGSHIP_SERVE = dict(hw=(128, 256), V=6, K=4, chunk=2, ncls=16, queries=200)
+# queries of the serve rung that pass fusion's class threshold
+# (``segment_classes``): with the scene's random class table random weights
+# leave every pixel void, and the wires would compare nothing
+FLAGSHIP_LIVE = 4
+SERVE_PAN_AGREE, SERVE_CONF_ATOL = 0.99, 0.05
 
 
 def mesh_axes(n: int) -> tuple[int, int, int]:
@@ -38,9 +58,11 @@ def mesh_axes(n: int) -> tuple[int, int, int]:
 
 
 def tiny_batch(B: int, V: int = 3, seed: int = 0, hw=TINY_HW,
-               ncls: int = NCLS, lang_dim: int = 24) -> dict:
+               ncls: int = NCLS, lang_dim: int = 24,
+               valid=(True, True, False, False)) -> dict:
     """A seeded numpy batch of the JAX dryrun's layout (B, V) at ``hw``
-    with its class table (ncls, lang_dim)."""
+    with its class table (ncls, lang_dim); ``valid``: which of the T
+    targets count (the flagship step's are ``[T, T, T, F]``)."""
     from panst3r_torch.engine.criterion import Targets
 
     rng = np.random.default_rng(seed)
@@ -52,7 +74,7 @@ def tiny_batch(B: int, V: int = 3, seed: int = 0, hw=TINY_HW,
         "targets": Targets(
             labels=rng.integers(0, ncls, (B, T)).astype(np.int32),
             masks=(rng.random((B, T, V, H, W)) < 0.3).astype(np.float32),
-            valid=np.tile([True, True, False, False], (B, 1)),
+            valid=np.tile(list(valid), (B, 1)),
             output_mask=np.ones((B, ncls), bool)),
         "cls_emb": rng.standard_normal((ncls, lang_dim)).astype(np.float32),
     }
@@ -124,20 +146,200 @@ def _tiny_step(device, n: int):
     return {"loss": loss, "mesh": mesh.shape, "coords": mesh.coords}
 
 
-def dryrun_multichip(n: int, device="cpu", timeout: float = 120.0) -> list:
+def dryrun_multichip(n: int, device="cpu", timeout: float = 120.0,
+                     flagship: bool = False, config=None,
+                     backend: str | None = None) -> list:
     """The tiny train step on ``n`` spawned ranks over ``mesh_axes(n)``;
     returns each rank's {"loss", "mesh", "coords"} and raises unless the
-    loss is finite and the same on every rank."""
-    out = distributed.launch(_tiny_step, n,
-                             distributed.default_backend(device), device, n,
-                             timeout=timeout, threads=1)
+    loss is finite and the same on every rank.  With ``flagship`` the same
+    spawn then runs ``flagship_step_worker`` and ``flagship_serve_worker``
+    on ``config`` (default ``panst3r_v1_config()``), and each rank's result
+    gains them under "flagship_step" and "sharded_serve"; it raises unless
+    the flagship loss is finite and equal on every rank, the sharded wire
+    keeps JAX's limits against the one-rank wire and ``fusion_sharded`` is
+    bit-equal.  ``backend``: default ``distributed.default_backend``."""
+    if config is None and flagship:
+        from panst3r_torch.models.presets import panst3r_v1_config
+
+        config = panst3r_v1_config()
+    jobs = [(_tiny_step, (n,), {})]
+    if flagship:
+        jobs += [(flagship_step_worker, (config,), {}),
+                 (flagship_serve_worker, (config,), {})]
+    ranks = distributed.launch(
+        jobs_worker, n, backend or distributed.default_backend(device),
+        device, jobs, timeout=timeout, threads=1)
+    out = [r[0] for r in ranks]
     losses = [r["loss"] for r in out]
     if not np.isfinite(losses).all() or len(set(losses)) != 1:
         raise AssertionError(f"dryrun_multichip({n}): losses {losses}")
-    print(f"dryrun_multichip({n}): mesh={dict(zip(('data', 'mem', 'model'),
-                                                   out[0]['mesh']))} "
-          f"loss={losses[0]:.4f} ok", flush=True)
+    mesh = dict(zip(("data", "mem", "model"), out[0]["mesh"]))
+    print(f"dryrun_multichip({n}): mesh={mesh} loss={losses[0]:.4f} ok",
+          flush=True)
+    if not flagship:
+        return out
+    for r, (_, step, serve) in zip(out, ranks):
+        r["flagship_step"], r["sharded_serve"] = step, serve
+    losses = [r["flagship_step"]["loss"] for r in out]
+    if not np.isfinite(losses).all() or len(set(losses)) != 1:
+        raise AssertionError(f"dryrun_flagship_step({n}): losses {losses}")
+    bad = [(i, r["sharded_serve"]["pan_agree"],
+            r["sharded_serve"]["conf_max_abs_diff"],
+            r["sharded_serve"]["fusion_bit_equal"])
+           for i, r in enumerate(out) if not r["sharded_serve"]["ok"]]
+    if bad:
+        raise AssertionError(f"dryrun_sharded_serve({n}): rank, pan "
+                             f"agreement, conf diff, fusion exact: {bad}")
+    s0 = out[0]["sharded_serve"]
+    print(f"dryrun_flagship_step({n}): mesh={mesh} loss={losses[0]:.4f} ok "
+          f"({out[0]['flagship_step']['job_seconds']:.0f}s)", flush=True)
+    print(f"dryrun_sharded_serve({n}): mem-sharded KV + TP wire parity (pan "
+          f"agree {s0['pan_agree']:.4f}) + fusion_sharded exact ok "
+          f"({s0['job_seconds']:.0f}s)", flush=True)
     return out
+
+
+def _flagship_mesh():
+    world = distributed.process_count()
+    data, mem, model = mesh_axes(world)
+    return build_mesh(MeshSpec(data=data, mem=mem, model=model))
+
+
+def _free(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def flagship_step_worker(device, config) -> dict:
+    """Rank worker: one train micro-step of ``config`` (weights of seed 0)
+    over the ``mesh_axes(world)`` mesh, the JAX ladder's
+    ``_dryrun_flagship_step`` (``FLAGSHIP_STEP``): the batch's rows over
+    ``data``, the memory bank over ``mem``, tensor parallelism over
+    ``model``, the trainable mask ``engine/train.py`` gives (the panoptic
+    head), Adam at ``lr``.  Returns the loss, the mesh, this rank's
+    launches of the step (counted from 0 just before it), its seconds and
+    its peak device bytes."""
+    from panst3r_torch.core.tp import apply_tp
+    from panst3r_torch.models.panst3r import build_model
+
+    f = FLAGSHIP_STEP
+    strict_f32(device)
+    mesh = _flagship_mesh()
+    data = mesh.shape[0]
+    (H, W), B = f["hw"], f["B"]
+    batch = tiny_batch(B, f["V"], 0, (H, W), f["ncls"],
+                       config.panoptic.mask_transformer.lang_dim,
+                       valid=(True, True, True, False))
+    d = mesh.index(DATA_AXIS)
+    rows = slice(d * (B // data), (d + 1) * (B // data))
+    _peak_reset(device)
+    model = build_model(config, device=device, seed=0).train()
+    apply_tp(model, mesh.group(MODEL_AXIS))
+    model.mem_group = mesh.group(MEM_AXIS)
+    _reset_launches()
+    (loss, _, _), secs = _timed(
+        train_micro_step, model, batch_rows(batch, rows, device),
+        (H // 16, W // 16), device, data_group=mesh.group(DATA_AXIS),
+        lr=f["lr"], num_points=f["num_points"])
+    launches = _launches()
+    del model
+    peak = _peak_reset(device)
+    _free(device)
+    return {"loss": loss, "mesh": mesh.shape, "coords": mesh.coords,
+            "launches": launches, "seconds": secs, "peak_bytes": peak}
+
+
+def flagship_scene(lang_dim: int):
+    """The serve rung's seeded scene (``FLAGSHIP_SERVE``): uint8 views (V,
+    H, W, 3), portrait flags and a class table (ncls, lang_dim), as the JAX
+    rung draws them."""
+    rng = np.random.default_rng(0)
+    (H, W), V, ncls = (FLAGSHIP_SERVE[k] for k in ("hw", "V", "ncls"))
+    return (rng.integers(0, 256, (V, H, W, 3), dtype=np.uint8),
+            np.zeros(V, bool),
+            rng.standard_normal((ncls, lang_dim)).astype(np.float32))
+
+
+def segment_classes(eng, images, portrait, ncls: int = 32,
+                    alive: int = 4) -> np.ndarray:
+    """(ncls, lang_dim) class embeddings under which only queries
+    0..alive-1 pass the class threshold of fusion on this scene.  With
+    random weights every query passes it with random class embeddings,
+    the queries split the pixels, none passes the overlap test and every
+    map is void; a few live queries give real segments, so the wire
+    comparisons compare something.  The embeddings enter only the class
+    logits, which are linear in them: one probe with the identity gives
+    the logits' matrix, least squares the embeddings for logits of +4
+    (query i, class i) and -8 elsewhere."""
+    lang = eng.model.config.panoptic.mask_transformer.lang_dim
+    probe = eng.run_fused(images, portrait, np.eye(lang, dtype=np.float32))
+    probe = probe["pred_logits"].double().cpu().numpy()       # (Q, lang)
+    target = np.tile(-8.0 - 0.5 * np.arange(ncls), (probe.shape[0], 1))
+    for i in range(alive):
+        target[i, i] = 4.0
+    return np.linalg.lstsq(probe, target, rcond=None)[0].T.astype(np.float32)
+
+
+def flagship_serve_worker(device, config) -> dict:
+    """Rank worker: the JAX ladder's ``_dryrun_sharded_serve``
+    (``FLAGSHIP_SERVE``).  ``config``'s model (weights of seed 0, f32)
+    serves ``flagship_scene`` on this rank alone, its class table replaced
+    by ``segment_classes`` with ``FLAGSHIP_LIVE`` live queries, then,
+    tensor parallel over ``model`` (``apply_tp`` in place) with the memory
+    bank over ``mem``, again; the decoded wires agree on more than
+    ``SERVE_PAN_AGREE`` of the pixels with conf within ``SERVE_CONF_ATOL``
+    (JAX's limits).  Then ``fusion_sharded`` over ``mem`` against
+    ``_fusion_full`` on this rank at ``queries`` x (H/2, W/2), bit for
+    bit.  Returns the sharded wire, the agreements, the launches of the
+    sharded call and of the one-rank call, the seconds and the peak device
+    bytes."""
+    from panst3r_torch.core.bucketing import Bucket
+    from panst3r_torch.core.tp import apply_tp
+    from panst3r_torch.engine.inference import fetch_wire
+    from panst3r_torch.models.panst3r import build_model
+
+    f = FLAGSHIP_SERVE
+    strict_f32(device)
+    mesh = _flagship_mesh()
+    (H, W), V = f["hw"], f["V"]
+    images, portrait, _ = flagship_scene(
+        config.panoptic.mask_transformer.lang_dim)
+    _peak_reset(device)
+    model = build_model(config, device=device, seed=0)
+    bucket = Bucket(H, W)
+    eng = _engine(model, bucket, device, False, f["K"], f["chunk"])
+    cls = segment_classes(eng, images, portrait, f["ncls"], FLAGSHIP_LIVE)
+    _reset_launches()
+    ref, t_one = _timed(eng.serve_device, images, portrait, cls)
+    launches_one = _launches()
+    ref = fetch_wire(ref)
+    eng = _engine(apply_tp(model, mesh.group(MODEL_AXIS)), bucket, device,
+                  False, f["K"], f["chunk"])
+    _reset_launches()
+    wire, t_sharded = _timed(eng.serve_device, images, portrait, cls,
+                             mem_group=mesh.group(MEM_AXIS))
+    launches = _launches()
+    wire = fetch_wire(wire)
+    got, want = eng.unpack_wire(wire, V), eng.unpack_wire(ref, V)
+    agree = float((got["pan"] == want["pan"]).mean())
+    dconf = float(np.abs(got["conf"] - want["conf"]).max())
+    del eng, model
+    mask_cls, mask_pred = fusion_inputs(0, 1, V, f["queries"], H // 2,
+                                        W // 2, ncls=f["ncls"] + 1, live=8)
+    fusion = _fusion_check(device, mask_cls, mask_pred, (H, W),
+                           mesh.group(MEM_AXIS), {})
+    peak = _peak_reset(device)
+    _free(device)
+    return {"wire": wire, "wire_one": ref, "cls_emb": cls,
+            "launches": launches, "launches_one_rank": launches_one,
+            "pan_agree": agree, "conf_max_abs_diff": dconf,
+            "n_segments": int(want["selected"].sum()),
+            "fusion_bit_equal": fusion["bit_equal"],
+            "fusion_segments": int(fusion["selected"].sum()),
+            "ok": bool(agree > SERVE_PAN_AGREE and dconf <= SERVE_CONF_ATOL
+                       and fusion["bit_equal"]),
+            "seconds": t_sharded, "seconds_one_rank": t_one,
+            "fusion_seconds": fusion["seconds"], "peak_bytes": peak}
 
 
 # ------------------------------------------------------ parity workers ----
@@ -221,10 +423,16 @@ def fusion_worker(device, mask_cls, mask_pred, true_shape, kw: dict):
     """``fusion_sharded`` over a ``mem`` = 2 axis (the world split into
     data × 2) against ``_fusion_full`` on this rank: the gathered maps and
     the selection, and whether they are bit-equal."""
-    from panst3r_torch.engine.fusion import _fusion_full, fusion_sharded
-
     world = distributed.process_count()
     g = build_mesh(MeshSpec(data=world // 2, mem=2)).group(MEM_AXIS)
+    return _fusion_check(device, mask_cls, mask_pred, true_shape, g, kw)
+
+
+def _fusion_check(device, mask_cls, mask_pred, true_shape, g, kw: dict):
+    """``fusion_sharded`` over the group ``g`` against ``_fusion_full`` on
+    this rank (``fusion_worker``'s result)."""
+    from panst3r_torch.engine.fusion import _fusion_full, fusion_sharded
+
     cls = torch.as_tensor(mask_cls, device=device)
     pred = torch.as_tensor(mask_pred, device=device)
     args = (kw.get("label_mode", "sigmoid"), 0.1, None,
@@ -289,9 +497,10 @@ def _launches():
 
 def _reset_launches():
     for fn in kernel_wrappers().values():
-        fn.launches = 0
-        if hasattr(fn, "launches_f32"):
-            fn.launches_f32 = 0
+        for name in ("launches", "launches_f32", "launches_wide",
+                     "launches_wide_f32"):
+            if hasattr(fn, name):
+                setattr(fn, name, 0)
 
 
 class ModelFactory:

@@ -44,7 +44,7 @@ wgmma products, dkdv over the same fixed query splits).
 kernels' arithmetic (the f32 K4 and K5; K5 in bf16 too; the tests
 only).
 
-Head dims.  The kernels are built for D = 64, 96 and 128
+Head dims.  The engines above are built for D = 64, 96 and 128
 (``HEAD_DIMS``); any other D up to 128 is padded with zeros inside the
 kernel wrappers to the next of them (``kernel_head_dim``), as the Pallas
 kernels pad D to their lane width: q, k and v gain zero lanes, the
@@ -55,12 +55,19 @@ counts the true D).  With RoPE tables, q and k are padded per quarter of
 D (``pad_head_dim``): 2D RoPE rotates lane i of a quarter with lane i of
 its sibling quarter, so each D/4 block becomes a P/4 block, and the
 tables take cos 1, sin 0 on the pad lanes, which stay zero.  A D above
-128 raises ``NotImplementedError``.
+128 is padded the same way to a multiple of ``WIDE_CHUNK`` (64) and runs
+the wide-head engine, ``csrc/flash_wide_sm90.cu`` (f32 and bf16: f32 FMA
+products over 64-lane chunks of q, k, v and dO streamed through shared
+memory, one 64-lane chunk of the output per CTA, the scores recomputed
+per chunk; K3 at D > 128 runs it too, ``ops/masked_attention.py``).
 
 On a CPU tensor ``flash_mha`` and ``flash_mha_bwd`` run their plain
-versions (``flash_mha_ref``, ``flash_mha_bwd_ref``); on a CUDA tensor they
-launch the kernels or raise.  ``launches`` counts the launches (K5: one
-per kernel, two per backward).
+versions (``flash_mha_ref``, ``flash_mha_bwd_ref``, any D); on a CUDA
+tensor they launch the kernels or raise.  ``launches`` counts the
+launches at D <= 128 (K5: one per kernel, two per backward),
+``launches_wide`` those of the wide-head engine (K5 two per backward,
+its dq and dk/dv kernels), each with its f32 share (``launches_f32``,
+``launches_wide_f32``).
 """
 from __future__ import annotations
 
@@ -74,6 +81,9 @@ from panst3r_torch.ops.attention import NEG_INF
 from panst3r_torch.ops.rope import _rotate_half_2d, apply_rope_tables_f32
 
 HEAD_DIMS = (64, 96, 128)   # the kernels' instantiations
+# the wide-head engine's head-dim chunk: a D above HEAD_DIMS[-1] runs at
+# round_up(D, WIDE_CHUNK)
+WIDE_CHUNK = 64
 # The f32 kernels' tiles: keys per ring entry (the unit of the live-tile
 # list), queries per tile of K5's dkdv split, and the fixed number of
 # query tiles a dkdv CTA walks (the split is part of the result: dk and dv
@@ -92,13 +102,19 @@ _LN2 = 0.6931471805599453
 
 
 def kernel_head_dim(D: int, dims=HEAD_DIMS) -> int:
-    """The instantiated head dim a kernel runs a head dim ``D`` at: the
-    least of ``dims`` that is >= D."""
+    """The head dim a kernel runs a head dim ``D`` at: the least of
+    ``dims`` that is >= D, else (the wide-head engine) D rounded up to a
+    multiple of ``WIDE_CHUNK``."""
     for p in dims:
         if D <= p:
             return p
-    raise NotImplementedError(
-        f"head dim {D}: the kernels take head dims up to {dims[-1]}")
+    return -(-D // WIDE_CHUNK) * WIDE_CHUNK
+
+
+def is_wide(P: int, dims=HEAD_DIMS) -> bool:
+    """Whether a kernel head dim ``P`` (``kernel_head_dim``'s) runs the
+    wide-head engine."""
+    return P > dims[-1]
 
 
 def pad_head_dim(x, P: int, quarters: bool = False, value: float = 0.0):
@@ -195,10 +211,14 @@ def _strides(t):
     return list(t.stride()[:3])
 
 
-def _check_qkv(what, q, k, v):
+def _check_qkv(what, q, k, v, wide=False):
     B, H, Nq, D = q.shape
     Nk = k.shape[2]
-    if D not in HEAD_DIMS:
+    if wide and not (is_wide(D) and D % WIDE_CHUNK == 0):
+        raise NotImplementedError(
+            f"{what}: the wide-head engine takes multiples of {WIDE_CHUNK} "
+            f"above {HEAD_DIMS[-1]}, not {D} (pad it: kernel_head_dim)")
+    if not wide and D not in HEAD_DIMS:
         raise NotImplementedError(
             f"{what}: K4/K5 are built for head dims {HEAD_DIMS}, not {D} "
             "(pad it: kernel_head_dim)")
@@ -249,16 +269,17 @@ def _aligned(t):
 
 
 def _flash_fwd_kernel(q, k, v, bias, kv_valid, rope, scale, with_lse):
-    """K4 at any head dim up to 128: q, k and v padded to the kernel's
-    head dim (``kernel_head_dim``; per quarter for q and k with tables),
-    out sliced back; returns (out, lse or None)."""
+    """K4 at any head dim: q, k and v padded to the kernel's head dim
+    (``kernel_head_dim``; per quarter for q and k with tables), out sliced
+    back; above 128 on the wide-head engine.  Returns (out, lse or
+    None)."""
     D = q.shape[-1]
     P = kernel_head_dim(D)
+    launch = _flash_wide_fwd_launch if is_wide(P) else _flash_fwd_launch
     if P == D:
-        return _flash_fwd_launch(q, k, v, bias, kv_valid, rope, scale,
-                                 with_lse)
+        return launch(q, k, v, bias, kv_valid, rope, scale, with_lse)
     rot = rope is not None
-    out, lse = _flash_fwd_launch(
+    out, lse = launch(
         pad_head_dim(q, P, rot), pad_head_dim(k, P, rot),
         pad_head_dim(v, P), bias, kv_valid, pad_rope(rope, P),
         D ** -0.5 if scale is None else scale, with_lse)
@@ -313,6 +334,68 @@ def _flash_fwd_launch(q, k, v, bias, kv_valid, rope, scale, with_lse):
     cuda_build.check(lib, err, "flash_mha")
     flash_mha.launches += 1
     flash_mha.launches_f32 += int(f32)
+    return out, lse
+
+
+def _wide_extras(what, q, k, bias, kv_valid, rope):
+    """``_kernel_extras`` in the wide-head engine's form: (dense bias, its
+    strides as a C array or None, key row, tables)."""
+    bias, row, tabs, bstr = _kernel_extras(what, q, k, bias, kv_valid, rope)
+    if q.shape[0] * q.shape[1] > 65535:
+        raise ValueError(f"{what}: the wide-head engine takes B*H <= 65535")
+    return (bias, None if bias is None else (ctypes.c_longlong * 4)(*bstr),
+            row, tabs)
+
+
+def _wide_rotated(rope, B, H, Nq, Nk, P, dtype, dev) -> list:
+    """The wide-head pre-pass's rotated q and k (B, H, N, P), or Nones."""
+    return [None, None] if rope is None else [
+        torch.empty((B, H, n, P), dtype=dtype, device=dev) for n in (Nq, Nk)]
+
+
+def wide_fwd(what, q, k, v, scale, with_lse=False, bias=None, kv_valid=None,
+             rope=None, blocked=None):
+    """The wide-head engine's forward (``csrc/flash_wide_sm90.cu``'s
+    ``p3_wide_fwd``) at a head dim that is a multiple of 64 above 128: K4
+    with ``flash_mha``'s options, or K3 with the (B, Nq, Nk) ``blocked``
+    mask.  ``scale`` None: P^-0.5.  Returns (out (B, H, Nq, P)
+    contiguous, lse or None)."""
+    _check_qkv(what, q, k, v, wide=True)
+    B, H, Nq, P = q.shape
+    Nk = k.shape[2]
+    dev = q.device
+    if scale is None:
+        scale = P ** -0.5
+    bias, bstr, row, tabs = _wide_extras(what, q, k, bias, kv_valid, rope)
+    mask = None
+    if blocked is not None:
+        cuda_build.check_tensor(blocked, "blocked", (B, Nq, Nk), torch.bool,
+                                dev)
+        mask = blocked.view(torch.uint8)
+    q, k, v = (t.contiguous() for t in (q, k, v))
+    out = torch.empty((B, H, Nq, P), dtype=q.dtype, device=dev)
+    lse = (torch.empty((B, H, Nq), dtype=torch.float32, device=dev)
+           if with_lse else None)
+    p, i32, ptr = ctypes.c_void_p, ctypes.c_int, cuda_build.ptr
+    lib, fn = cuda_build.function(
+        "flash_wide_sm90", "p3_wide_fwd",
+        [p] * 13 + [i32, p, p] + [i32] * 5 + [ctypes.c_float, i32, p])
+    err = fn(ptr(q), ptr(k), ptr(v), *map(ptr, tabs),
+             *map(ptr, _wide_rotated(rope, B, H, Nq, Nk, P, q.dtype, dev)),
+             ptr(bias), bstr, ptr(row), ptr(mask), Nk, ptr(out), ptr(lse), B,
+             H, Nq, Nk, P, float(scale), int(q.dtype != torch.float32),
+             cuda_build.stream_of(q))
+    cuda_build.check(lib, err, f"{what} (wide)")
+    return out, lse
+
+
+def _flash_wide_fwd_launch(q, k, v, bias, kv_valid, rope, scale, with_lse):
+    """Launch the wide-head K4 (``wide_fwd``); returns (out, lse or
+    None)."""
+    out, lse = wide_fwd("flash_mha", q, k, v, scale, with_lse, bias,
+                        kv_valid, rope)
+    flash_mha.launches_wide += 1
+    flash_mha.launches_wide_f32 += int(q.dtype == torch.float32)
     return out, lse
 
 
@@ -398,8 +481,10 @@ def flash_mha(q, k, v, bias=None, kv_valid=None, rope=None, scale=None,
                                with_lse, need_grad)
 
 
-# launches: every call; launches_f32: those of them on the f32 kernel
+# launches: every call at D <= 128; launches_f32: those of them on the
+# f32 kernel; launches_wide(_f32): the calls on the wide-head engine
 flash_mha.launches = flash_mha.launches_f32 = 0
+flash_mha.launches_wide = flash_mha.launches_wide_f32 = 0
 
 
 def _rope_adjoint(g, cos, sin):
@@ -452,16 +537,17 @@ def flash_mha_bwd(q, k, v, o, lse, do, bias=None, kv_valid=None, rope=None,
 
 
 def _flash_bwd_kernel(q, k, v, o, lse, do, bias, kv_valid, rope, scale):
-    """K5 at any head dim up to 128: q, k, v, o and do padded to the
-    kernels' head dim as ``_flash_fwd_kernel`` pads them (zero lanes of o
-    and do leave Dvec as it is), dq, dk and dv sliced back."""
+    """K5 at any head dim: q, k, v, o and do padded to the kernels' head
+    dim as ``_flash_fwd_kernel`` pads them (zero lanes of o and do leave
+    Dvec as it is), dq, dk and dv sliced back; above 128 on the wide-head
+    engine."""
     D = q.shape[-1]
     P = kernel_head_dim(D)
+    launch = _flash_wide_bwd_launch if is_wide(P) else _flash_bwd_launch
     if P == D:
-        return _flash_bwd_launch(q, k, v, o, lse, do, bias, kv_valid, rope,
-                                 scale)
+        return launch(q, k, v, o, lse, do, bias, kv_valid, rope, scale)
     rot = rope is not None
-    dq, dk, dv = _flash_bwd_launch(
+    dq, dk, dv = launch(
         pad_head_dim(q, P, rot), pad_head_dim(k, P, rot), pad_head_dim(v, P),
         pad_head_dim(o, P), lse, pad_head_dim(do, P), bias, kv_valid,
         pad_rope(rope, P), D ** -0.5 if scale is None else scale)
@@ -560,9 +646,57 @@ def _flash_bwd_launch(q, k, v, o, lse, do, bias, kv_valid, rope, scale):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-# launches: one per main kernel, two per backward; launches_f32: those of
-# them on the f32 kernels
+def _flash_wide_bwd_launch(q, k, v, o, lse, do, bias, kv_valid, rope,
+                           scale):
+    """Launch the wide-head K5 (``csrc/flash_wide_sm90.cu``: the rotation
+    and Dvec pre-passes, then its dq and dk/dv kernels) at a head dim that
+    is a multiple of 64 above 128."""
+    _check_qkv("flash_mha_bwd", q, k, v, wide=True)
+    B, H, Nq, P = q.shape
+    Nk = k.shape[2]
+    dev = q.device
+    if scale is None:
+        scale = P ** -0.5
+    for name, t in (("o", o), ("do", do)):
+        if t.device != dev or tuple(t.shape) != (B, H, Nq, P):
+            raise ValueError(f"flash_mha_bwd: {name} is {tuple(t.shape)} on "
+                             f"{t.device}, expected {(B, H, Nq, P)}")
+    cuda_build.check_tensor(lse, "lse", (B, H, Nq), torch.float32, dev)
+    bias, bstr, row, tabs = _wide_extras("flash_mha_bwd", q, k, bias,
+                                         kv_valid, rope)
+    f32 = q.dtype == torch.float32
+    # the products take do rounded to q's dtype (g); Dvec = rowsum(do * o)
+    # takes do and o unrounded, in f32 (exact from any narrower float)
+    g = do.to(q.dtype)
+    q, k, v, g = (t.contiguous() for t in (q, k, v, g))
+    o32, do32 = (t.float().contiguous() for t in (o, do))
+    empty = functools.partial(torch.empty, dtype=torch.float32, device=dev)
+    dq, dk, dv = empty(B, H, Nq, P), empty(B, H, Nk, P), empty(B, H, Nk, P)
+    p, i32, ptr = ctypes.c_void_p, ctypes.c_int, cuda_build.ptr
+    lib, fn = cuda_build.function(
+        "flash_wide_sm90", "p3_wide_bwd",
+        [p] * 20 + [i32] * 5 + [ctypes.c_float, i32, p])
+    err = fn(ptr(q), ptr(k), ptr(v), ptr(g), ptr(o32), ptr(do32), ptr(lse),
+             *map(ptr, tabs),
+             *map(ptr, _wide_rotated(rope, B, H, Nq, Nk, P, q.dtype, dev)),
+             ptr(empty(B, H, Nq)), ptr(bias), bstr, ptr(row), ptr(dq),
+             ptr(dk), ptr(dv), B, H, Nq, Nk, P, float(scale), int(not f32),
+             cuda_build.stream_of(q))
+    cuda_build.check(lib, err, "flash_mha_bwd (wide)")
+    flash_mha_bwd.launches_wide += 2
+    flash_mha_bwd.launches_wide_f32 += 2 * int(f32)
+    if rope is not None:
+        qcos, qsin, kcos, ksin = rope
+        dq = _rope_adjoint(dq, qcos, qsin)
+        dk = _rope_adjoint(dk, kcos, ksin)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+# launches: one per main kernel, two per backward, at D <= 128;
+# launches_f32: those of them on the f32 kernels; launches_wide(_f32): the
+# wide-head engine's (its dq and dk/dv kernels, two per backward)
 flash_mha_bwd.launches = flash_mha_bwd.launches_f32 = 0
+flash_mha_bwd.launches_wide = flash_mha_bwd.launches_wide_f32 = 0
 
 
 def dkv_splits(Nq: int, split_tiles: int = None) -> int:

@@ -19,13 +19,17 @@ The kernels are built for head dims 96 (the v1 mask transformer's) and
 128 (``HEAD_DIMS``); any other D up to 128 is padded with zeros to the
 next of them inside the kernel wrapper, as the Pallas kernel pads D to
 its lane width (q, k and v gain zero lanes, out is sliced back; the
-scale and the FLOP declaration stay at the true D).  A D above 128
-raises ``NotImplementedError``.
+scale and the FLOP declaration stay at the true D).  A D above 128 is
+padded to a multiple of 64 and runs the wide-head engine
+(``csrc/flash_wide_sm90.cu``, f32 and bf16: the same semantics, key
+tiles of 64 whose whole 64 x 64 block is blocked skipped).
 
 On a CPU tensor ``masked_mha`` runs ``masked_mha_ref`` (same semantics: p
 rounded to the v dtype before both sums, fully blocked rows → 0); on a
 CUDA tensor it launches the kernel or raises.  ``launches`` counts the
-calls, ``launches_f32`` those of them in f32.
+calls at D <= 128, ``launches_f32`` those of them in f32;
+``launches_wide`` and ``launches_wide_f32`` the calls on the wide-head
+engine.
 """
 from __future__ import annotations
 
@@ -36,7 +40,8 @@ import torch
 from panst3r_torch.ops import cuda_build, flops
 from panst3r_torch.ops.attention import (NEG_INF, dot_product_attention,
                                          recompute_vjp)
-from panst3r_torch.ops.flash_attention import kernel_head_dim, pad_head_dim
+from panst3r_torch.ops.flash_attention import (is_wide, kernel_head_dim,
+                                               pad_head_dim, wide_fwd)
 from panst3r_torch.ops.tower_attention import _LOG2E, _softmax_rounded
 
 BLOCK_Q = 64
@@ -185,20 +190,33 @@ def masked_mha(q, k, v, blocked, scale=None):
             q, k, v)
 
 
-# launches: every call; launches_f32: those of them in f32
+# launches: every call at D <= 128; launches_f32: those of them in f32;
+# launches_wide(_f32): the calls on the wide-head engine
 masked_mha.launches = masked_mha.launches_f32 = 0
+masked_mha.launches_wide = masked_mha.launches_wide_f32 = 0
 
 
 def _masked_mha_kernel(q, k, v, blocked, scale):
-    """K3 at any head dim up to 128: q, k and v padded with zero lanes to
-    the kernel's head dim (``kernel_head_dim``), out sliced back."""
+    """K3 at any head dim: q, k and v padded with zero lanes to the
+    kernel's head dim (``kernel_head_dim``), out sliced back; above 128 on
+    the wide-head engine."""
     D = q.shape[-1]
     P = kernel_head_dim(D, HEAD_DIMS)
+    launch = (_masked_wide_launch if is_wide(P, HEAD_DIMS)
+              else _masked_mha_launch)
     if P == D:
-        return _masked_mha_launch(q, k, v, blocked, scale)
-    return _masked_mha_launch(
-        *(pad_head_dim(t, P) for t in (q, k, v)), blocked,
-        D ** -0.5 if scale is None else scale)[..., :D]
+        return launch(q, k, v, blocked, scale)
+    return launch(*(pad_head_dim(t, P) for t in (q, k, v)), blocked,
+                  D ** -0.5 if scale is None else scale)[..., :D]
+
+
+def _masked_wide_launch(q, k, v, blocked, scale):
+    """Launch K3 on the wide-head engine (``flash_attention.wide_fwd``
+    with the mask) at a head dim that is a multiple of 64 above 128."""
+    out, _ = wide_fwd("masked_mha", q, k, v, scale, blocked=blocked)
+    masked_mha.launches_wide += 1
+    masked_mha.launches_wide_f32 += int(q.dtype == torch.float32)
+    return out
 
 
 def _masked_mha_launch(q, k, v, blocked, scale):

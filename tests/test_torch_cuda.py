@@ -509,11 +509,24 @@ def test_k3_k6_route_by_dtype(dev, monkeypatch, op):
 
 
 def test_unsupported_shapes_raise(dev):
-    blocked = torch.zeros(1, 8, 8, dtype=torch.bool, device=dev)
-    for D in (160, 256):                  # K3 takes head dims up to 128
-        q = torch.zeros(1, 2, 8, D, device=dev)
-        with pytest.raises(NotImplementedError, match="up to 128"):
-            ma.masked_mha(q, q, q, blocked)
+    """K1 refuses heads not of 64 and half floats.  (K3 at D = 160 and 256,
+    which it refused up to 128, runs the wide-head engine: held against
+    its plain version here, with the wide launch counter.)"""
+    g = torch.Generator(device=dev).manual_seed(7)
+    for dtype in (torch.float32, torch.bfloat16):
+        for D in (160, 256):
+            q = _rnd(g, dev, dtype, 1, 2, 90, D, s=QK_STD)
+            k = _rnd(g, dev, dtype, 1, 2, 300, D, s=QK_STD)
+            v = _rnd(g, dev, dtype, 1, 2, 300, D)
+            blocked = torch.rand(1, 90, 300, generator=g, device=dev) > 0.4
+            n0, w0 = ma.masked_mha.launches, ma.masked_mha.launches_wide
+            f0 = ma.masked_mha.launches_wide_f32
+            out = ma.masked_mha(q, k, v, blocked)
+            assert ma.masked_mha.launches == n0
+            assert ma.masked_mha.launches_wide == w0 + 1
+            assert ma.masked_mha.launches_wide_f32 == \
+                f0 + (dtype == torch.float32)
+            _close(out, ma.masked_mha_ref, q, k, v, blocked)
     qkv = torch.zeros(1, 8, 3 * 256, device=dev)
     with pytest.raises(NotImplementedError):
         ta.tower_self_attention(qkv, 2)           # d=128 heads
@@ -583,16 +596,119 @@ def test_flash_fwd_kernel(dev, dtype, D, case):
 
 
 def test_flash_unsupported_inputs_raise(dev):
-    for D in (160, 256):                    # K4 takes head dims up to 128
-        q = torch.zeros(1, 2, 300, D, device=dev)
-        with pytest.raises(NotImplementedError, match="up to 128"):
-            fa.flash_mha(q, q, q)
-        lse = torch.zeros(1, 2, 300, device=dev)
-        with pytest.raises(NotImplementedError, match="up to 128"):
-            fa.flash_mha_bwd(q, q, q, q, lse, q)
+    """K4 refuses half floats.  (K4 and K5 at D = 160 and 256, which they
+    refused up to 128, run the wide-head engine: held against their plain
+    versions here, with the wide launch counters.)"""
+    g = torch.Generator(device=dev).manual_seed(8)
+    for dtype in (torch.float32, torch.bfloat16):
+        for D in (160, 256):
+            q, k, v, _, kv_valid, _ = _flash_inputs(g, dev, dtype,
+                                                    "kv_valid", D)
+            do = _rnd(g, dev, dtype, *q.shape)
+            n0, w0 = fa.flash_mha.launches, fa.flash_mha.launches_wide
+            f0 = fa.flash_mha.launches_wide_f32
+            o, lse = fa.flash_mha(q, k, v, kv_valid=kv_valid, with_lse=True)
+            assert fa.flash_mha.launches == n0
+            assert fa.flash_mha.launches_wide == w0 + 1
+            assert fa.flash_mha.launches_wide_f32 == \
+                f0 + (dtype == torch.float32)
+            _close(o, lambda *a: fa.flash_mha_ref(*a, kv_valid=kv_valid),
+                   q, k, v)
+            b0, bw0 = fa.flash_mha_bwd.launches, \
+                fa.flash_mha_bwd.launches_wide
+            got = fa.flash_mha_bwd(q, k, v, o, lse, do, kv_valid=kv_valid)
+            assert fa.flash_mha_bwd.launches == b0
+            assert fa.flash_mha_bwd.launches_wide == bw0 + 2
+            torch.cuda.synchronize()
+            plain = fa.flash_mha_bwd_ref(q, k, v, o, lse, do,
+                                         kv_valid=kv_valid)
+            exact = fa.flash_mha_bwd_ref(*_f32((q, k, v, o)), lse, _f32(do),
+                                         kv_valid=kv_valid)
+            check = chip_smoke._grad_check(got, plain, exact, dtype)
+            assert all(c["ok"] and c["finite"] for c in check.values()), \
+                check
     q = torch.zeros(1, 2, 300, 64, device=dev)
     with pytest.raises(TypeError):
         fa.flash_mha(q.half(), q.half(), q.half())
+
+
+# head dims on the wide-head engine (csrc/flash_wide_sm90.cu): padded to
+# multiples of 64 (136 -> 192 per RoPE quarter, 200 -> 256) and as built
+WIDE_DIMS = [136, 200, 256, 384]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", WIDE_DIMS)
+@pytest.mark.parametrize("case", [
+    "plain", "dense_bias", "kv_valid", "key_bias", "rope", "masked_rows",
+    "strided"])
+def test_flash_wide_kernels(dev, dtype, D, case):
+    """The wide-head K4 (out and LSE) and K5 against their plain versions
+    (chip_smoke.py's limits), on the wide launch counters only; rows
+    without a live key write 0 with the LSE finfo.min and get no
+    gradient."""
+    g = torch.Generator(device=dev).manual_seed(D + 5)
+    q, k, v, bias, kv_valid, rope = _flash_inputs(g, dev, dtype, case, D)
+    kw = dict(bias=bias, kv_valid=kv_valid, rope=rope)
+    n0, w0 = fa.flash_mha.launches, fa.flash_mha.launches_wide
+    out, lse = fa.flash_mha(q, k, v, with_lse=True, **kw)
+    assert (fa.flash_mha.launches, fa.flash_mha.launches_wide) == \
+        (n0, w0 + 1)
+    _close(out, lambda *a: fa.flash_mha_ref(*a, **kw), q, k, v)
+    ref_lse = fa.flash_mha_ref(q, k, v, with_lse=True, **kw)[1]
+    assert (lse - ref_lse).abs().max().item() \
+        <= 1e-4 * (1 + ref_lse.abs().max().item())
+    do = _rnd(g, dev, dtype, *q.shape)
+    got = fa.flash_mha_bwd(q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    plain = fa.flash_mha_bwd_ref(q, k, v, out, lse, do, **kw)
+    exact = fa.flash_mha_bwd_ref(*_f32((q, k, v, out)), lse, _f32(do), **kw)
+    check = chip_smoke._grad_check(got, plain, exact, dtype)
+    assert all(c["ok"] and c["finite"] for c in check.values()), check
+    if case == "masked_rows":
+        assert (out[1] == 0).all() and (lse[1] == NEG).all()
+        assert (got[0][1] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_wide_k5_repeats_bit_for_bit(dev, dtype):
+    """The wide-head K5 adds in a fixed order (no atomics): two calls on
+    the same inputs give the same bits, with RoPE tables and a dense
+    bias, at D = 256 over several key and query tiles."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    q, k, v, _, _, rope = _flash_inputs(g, dev, dtype, "rope", 256, Nq=700,
+                                        Nk=900)
+    bias = torch.randn(2, 3, 700, 900, generator=g, device=dev)
+    kw = dict(bias=bias, rope=rope)
+    o, lse = fa.flash_mha(q, k, v, with_lse=True, **kw)
+    do = _rnd(g, dev, dtype, *q.shape)
+    first = fa.flash_mha_bwd(q, k, v, o, lse, do, **kw)
+    again = fa.flash_mha_bwd(q, k, v, o, lse, do, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    assert torch.equal(o, fa.flash_mha(q, k, v, **kw))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wide_fully_masked_rows(dev, dtype):
+    """D = 256: K3 writes 0 for fully blocked rows, also across whole
+    blocked key tiles it skips, and K4 for rows whose keys are all
+    invalid; both against their plain versions."""
+    g = torch.Generator(device=dev).manual_seed(12)
+    q = _rnd(g, dev, dtype, 2, 3, 200, 256, s=QK_STD)
+    k = _rnd(g, dev, dtype, 2, 3, 700, 256, s=QK_STD)
+    v = _rnd(g, dev, dtype, 2, 3, 700, 256)
+    blocked = torch.rand(2, 200, 700, generator=g, device=dev) > 0.1
+    blocked[:, :, 64:448] = True                # whole blocked key tiles
+    blocked[0, 5] = True
+    blocked[1, 150:200] = True
+    out = ma.masked_mha(q, k, v, blocked)
+    _close(out, ma.masked_mha_ref, q, k, v, blocked)
+    assert (out[0, :, 5] == 0).all() and (out[1, :, 150:] == 0).all()
+    valid = torch.ones(2, 700, dtype=torch.bool, device=dev)
+    valid[1] = False
+    o, lse = fa.flash_mha(q, k, v, kv_valid=valid, with_lse=True)
+    _close(o, lambda *a: fa.flash_mha_ref(*a, kv_valid=valid), q, k, v)
+    assert (o[1] == 0).all() and (lse[1] == NEG).all()
 
 
 def test_image_cast_matches_cpu_bit_for_bit(dev):

@@ -151,14 +151,27 @@ def test_dense_mask_path_matches_jax(monkeypatch):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
-def test_flash_mha_refuses_other_head_dims():
-    """K4 takes head dims up to 128 (other dims are padded to its
-    instantiations): off the CPU a larger head dim raises (meta tensors
-    stand in for the card here)."""
+def test_flash_mha_refuses_other_head_dims(monkeypatch):
+    """Off the CPU (meta tensors stand in for the card here) K4 refuses
+    half floats at any head dim, and a head dim above 128 no longer
+    raises: it goes to the wide-head engine at D rounded up to 64 (its
+    launch replaced by a recorder), never to the D <= 128 engines."""
+    for D in (64, 160):
+        q = torch.empty(1, 2, 300, D, dtype=torch.float16, device="meta")
+        with pytest.raises(TypeError):
+            t_fa.flash_mha(q, q, q)
+    seen = []
+
+    def wide(q, *a):
+        seen.append(q.shape[-1])
+        return q, None
+
+    def narrow(*a):
+        raise AssertionError("a head dim above 128 reached K4's engines")
+
+    monkeypatch.setattr(t_fa, "_flash_wide_fwd_launch", wide)
+    monkeypatch.setattr(t_fa, "_flash_fwd_launch", narrow)
     for D in (160, 256):
         q = torch.empty(1, 2, 300, D, device="meta")
-        with pytest.raises(NotImplementedError, match="up to 128"):
-            t_fa.flash_mha(q, q, q)
-    q = torch.empty(1, 2, 300, 64, dtype=torch.float16, device="meta")
-    with pytest.raises(TypeError):
-        t_fa.flash_mha(q, q, q)
+        assert t_fa.flash_mha(q, q, q).shape == q.shape
+    assert seen == [192, 256]

@@ -129,10 +129,26 @@ def test_flash_mha_keeps_lse_only_for_gradients():
     assert out.grad_fn is not None and not lse.requires_grad
 
 
-def test_flash_mha_bwd_refuses_other_head_dims():
-    """Off the CPU K5 takes head dims up to 128 only (meta tensors stand in
-    for the card here)."""
-    q = torch.empty(1, 2, 300, 160, device="meta")
+def test_flash_mha_bwd_refuses_other_head_dims(monkeypatch):
+    """Off the CPU (meta tensors stand in for the card here) K5 refuses
+    half floats, and a head dim above 128 no longer raises: it goes to the
+    wide-head engine at D rounded up to 64 (its launch replaced by a
+    recorder), never to the D <= 128 engines."""
     lse = torch.empty(1, 2, 300, device="meta")
-    with pytest.raises(NotImplementedError, match="up to 128"):
+    q = torch.empty(1, 2, 300, 160, dtype=torch.float16, device="meta")
+    with pytest.raises(TypeError):
         t_fa.flash_mha_bwd(q, q, q, q, lse, q)
+    seen = []
+
+    def wide(q, k, v, *a):
+        seen.append(q.shape[-1])
+        return q, k, v
+
+    def narrow(*a):
+        raise AssertionError("a head dim above 128 reached K5's engines")
+
+    monkeypatch.setattr(t_fa, "_flash_wide_bwd_launch", wide)
+    monkeypatch.setattr(t_fa, "_flash_bwd_launch", narrow)
+    q = torch.empty(1, 2, 300, 160, device="meta")
+    dq, dk, dv = t_fa.flash_mha_bwd(q, q, q, q, lse, q)
+    assert dq.shape == dk.shape == dv.shape == q.shape and seen == [192]

@@ -109,9 +109,8 @@ def test_padding_layout():
     assert [t_fa.kernel_head_dim(d) for d in (8, 64, 65, 96, 97, 128)] == \
         [64, 64, 96, 96, 128, 128]
     assert t_ma.kernel_head_dim(8, t_ma.HEAD_DIMS) == 96
-    for d in (129, 256):
-        with pytest.raises(NotImplementedError, match="up to 128"):
-            t_fa.kernel_head_dim(d)
+    # above 128: the wide-head engine, at D rounded up to 64
+    assert [t_fa.kernel_head_dim(d) for d in (129, 256)] == [192, 256]
 
 
 @pytest.mark.parametrize("D", DIMS)

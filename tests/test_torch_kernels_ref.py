@@ -130,15 +130,30 @@ def test_masked_mha_ref_matches_pallas(rng):
                                atol=2e-5, rtol=2e-5)
 
 
-def test_masked_mha_refuses_other_head_dims():
-    """K3 takes head dims up to 128 (other dims are padded to its
-    instantiations, 96 and 128): off the CPU a larger head dim raises
-    (meta tensors stand in for the card here)."""
+def test_masked_mha_refuses_other_head_dims(monkeypatch):
+    """Off the CPU (meta tensors stand in for the card here) K3 refuses
+    half floats, and a head dim above 128 no longer raises: it goes to the
+    wide-head engine at D rounded up to 64 (its launch replaced by a
+    recorder), never to K3's engine for 96 and 128."""
     blocked = torch.empty(1, 8, 8, dtype=torch.bool, device="meta")
+    q = torch.empty(1, 2, 8, 160, dtype=torch.float16, device="meta")
+    with pytest.raises(TypeError):
+        t_ma.masked_mha(q, q, q, blocked)
+    seen = []
+
+    def wide(q, *a):
+        seen.append(q.shape[-1])
+        return q
+
+    def narrow(*a):
+        raise AssertionError("a head dim above 128 reached K3's engine")
+
+    monkeypatch.setattr(t_ma, "_masked_wide_launch", wide)
+    monkeypatch.setattr(t_ma, "_masked_mha_launch", narrow)
     for D in (160, 256):
         q = torch.empty(1, 2, 8, D, device="meta")
-        with pytest.raises(NotImplementedError, match="up to 128"):
-            t_ma.masked_mha(q, q, q, blocked)
+        assert t_ma.masked_mha(q, q, q, blocked).shape == q.shape
+    assert seen == [192, 256]
 
 
 def test_plan_blocks_matches_jax(rng):

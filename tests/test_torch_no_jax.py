@@ -105,6 +105,20 @@ x = torch.randn(1, 2, 5, 16)
 c = torch.randn(1, 2, 1, 16)
 op, oc = flash_attention_split_cls(x, x, x, c, c, c)
 assert op.shape == x.shape and oc.shape == c.shape
+# the wide-head engine's wrappers (csrc/flash_wide_sm90.cu) and a D = 256
+# K4 / K5 / K3 call through their plain route
+from panst3r_torch.ops import flash_attention as fa, masked_attention as ma
+from panst3r_torch.ops import cuda_build
+assert "flash_wide_sm90" in cuda_build.KERNEL_SOURCES
+assert callable(fa._flash_wide_fwd_launch) and callable(
+    fa._flash_wide_bwd_launch) and callable(ma._masked_wide_launch)
+assert fa.kernel_head_dim(200) == 256 and fa.is_wide(256)
+q, k = torch.randn(1, 2, 70, 256), torch.randn(1, 2, 90, 256)
+o, lse = fa.flash_mha(q, k, k, with_lse=True)
+dq, dk, dv = fa.flash_mha_bwd(q, k, k, o, lse, torch.randn_like(o))
+assert o.shape == dq.shape == q.shape and dk.shape == dv.shape == k.shape
+blocked = torch.rand(1, 70, 90) > 0.5
+assert ma.masked_mha(q, k, k, blocked).shape == q.shape
 from panst3r_torch.port_checkpoint import port_checkpoint, state_dict_of
 from panst3r_torch.tools.export_checkpoint import export_checkpoint
 from panst3r_torch.tools.verify_port import stage_port
