@@ -35,8 +35,9 @@ Run from the root of a checkout.  It builds the CUDA kernels of
    f32 K1 at its B*V = 10 views (``encoder_train``, ``decoder_train``);
    K2 and K3 at ``serve_many``'s batch of two scenes (``update_many``,
    ``render_many``, ``mask_transformer_many``); the wide-head engine
-   (``csrc/flash_wide_sm90.cu``: K3, K4 and K5 at head dims above 128)
-   at each of ``WIDE_DIMS`` (``d<D>*``), at LoftUp's call with one head
+   (``csrc/flash_wide_sm90.cu``: K3, K4 and K5 at head dims above 128;
+   the forward's rows carry ``wide_plan``'s cut and, in f32, the 3xTF32
+   bound) at each of ``WIDE_DIMS`` (``d<D>*``), at LoftUp's call with one head
    of 384 (``loftup_wide``; K5 ``loftup_wide_train`` at the micro-step's
    B*V = 10 views), at DINO's split-cls shape with heads of 256 and at
    the mask transformer's 3 heads of 256 (``mask_transformer_wide``,
@@ -752,7 +753,7 @@ def _k3_case(cases, label, Nk, rnd, g, es, dev, B=1, H=8, D=96,
             q, k, v, attn_mask=~blocked[:, None]),
         pallas_sums=lambda: _masked_mha_pallas_sums(q, k, v, blocked),
         flops=4.0 * H * live_tiles * 64 * 64 * D, bytes=nbytes,
-        warpgroups=1))
+        warpgroups=1, nk=Nk))
     if splits:
         cases[-1]["splits"] = ma.max_splits(Nk)
     return blocked
@@ -953,7 +954,8 @@ def _k4_cases(rnd, g, es, dtype, dev, blocked, full=False, text=False,
             lib=lambda: F.scaled_dot_product_attention(
                 ql, kl, v, attn_mask=lib_mask),
             flops=4.0 * H * Nq * live_keys * D, bytes=nbytes,
-            warpgroups=None if wide else fa.bf16_warpgroups(B, H, Nq, D))
+            warpgroups=None if wide else fa.bf16_warpgroups(B, H, Nq, D),
+            nk=Nk)
 
     def heads(B, N, H, D, s=1.0):
         """(B, H, N, D) view of a (B, N, H*D) projection."""
@@ -1363,6 +1365,7 @@ def phase_kernels():
     import torch
 
     from panst3r_torch.core.profiling import profile_by_kernel
+    from panst3r_torch.ops import flash_attention as fa
     from panst3r_torch.ops.flops import bound_ms
 
     dev = torch.device("cuda")
@@ -1445,6 +1448,12 @@ def phase_kernels():
                 if prof["device_busy_ms"]:
                     row["tflop_s_device"] = \
                         c["flops"] / prof["device_busy_ms"] / 1e9
+                if name.endswith("_wide"):
+                    # the wide forward's cut of its padded head dim
+                    plan = fa.wide_plan(fa.kernel_head_dim(out.shape[-1]),
+                                        dtype, name.startswith("masked"),
+                                        c["nk"])
+                    row["wide_plan"] = dict(zip(plan._fields, plan))
                 if dtype == torch.bfloat16:
                     row["cta_warpgroups"] = c["warpgroups"]
                 elif c["lib"] is not None and not name.endswith("_wide"):
@@ -1461,8 +1470,7 @@ def phase_kernels():
             row["launches"] = _kernel_launches(name) - n0
             row["bound_ms"], row["bound_by"] = bound_ms(
                 c["flops"], c["bytes"], dname, c.get("int8_ops", 0))
-            if hopper and dtype == torch.float32 \
-                    and not name.endswith("_wide"):
+            if hopper and dtype == torch.float32:
                 # the same work at the rate of the kernel's 3xTF32 products
                 row["bound_ms_tf32x3"], row["bound_by_tf32x3"] = bound_ms(
                     c["flops"], c["bytes"], "tf32x3", c.get("int8_ops", 0))

@@ -56,10 +56,15 @@ D (``pad_head_dim``): 2D RoPE rotates lane i of a quarter with lane i of
 its sibling quarter, so each D/4 block becomes a P/4 block, and the
 tables take cos 1, sin 0 on the pad lanes, which stay zero.  A D above
 128 is padded the same way to a multiple of ``WIDE_CHUNK`` (64) and runs
-the wide-head engine, ``csrc/flash_wide_sm90.cu`` (f32 and bf16: f32 FMA
-products over 64-lane chunks of q, k, v and dO streamed through shared
-memory, one 64-lane chunk of the output per CTA, the scores recomputed
-per chunk; K3 at D > 128 runs it too, ``ops/masked_attention.py``).
+the wide-head engine, ``csrc/flash_wide_sm90.cu``.  Its forward (K4, and
+K3 at D > 128, ``ops/masked_attention.py``) cuts the output lanes into
+slices held in registers and streams q, k and v through a ring in lane
+boxes, each slice reading the same scores (``wide_plan``; past
+``WIDE_SPLIT_AFTER`` key tiles, split-KV runs merged in order): bf16 on
+wgmma, f32 on 3xTF32 ``mma.sync`` from TF32 hi/lo planes of q, k and v
+written by a pre-pass.  Its K5 is f32 FMA over 64-lane chunks of q, k, v
+and dO streamed through shared memory, one 64-lane chunk of a gradient
+per CTA.
 
 On a CPU tensor ``flash_mha`` and ``flash_mha_bwd`` run their plain
 versions (``flash_mha_ref``, ``flash_mha_bwd_ref``, any D); on a CUDA
@@ -71,6 +76,7 @@ its dq and dk/dv kernels), each with its f32 share (``launches_f32``,
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 
@@ -82,8 +88,9 @@ from panst3r_torch.ops.rope import _rotate_half_2d, apply_rope_tables_f32
 
 HEAD_DIMS = (64, 96, 128)   # the kernels' instantiations
 # the wide-head engine's head-dim chunk: a D above HEAD_DIMS[-1] runs at
-# round_up(D, WIDE_CHUNK)
+# round_up(D, WIDE_CHUNK); its forward's key tile
 WIDE_CHUNK = 64
+KEY_TILE_WIDE = 64
 # The f32 kernels' tiles: keys per ring entry (the unit of the live-tile
 # list), queries per tile of K5's dkdv split, and the fixed number of
 # query tiles a dkdv CTA walks (the split is part of the result: dk and dv
@@ -347,19 +354,128 @@ def _wide_extras(what, q, k, bias, kv_valid, rope):
             row, tabs)
 
 
+def _dense16(t):
+    """``t`` contiguous with a 16-byte aligned base (a copy if need be)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _wide_rotated(rope, B, H, Nq, Nk, P, dtype, dev) -> list:
     """The wide-head pre-pass's rotated q and k (B, H, N, P), or Nones."""
     return [None, None] if rope is None else [
         torch.empty((B, H, n, P), dtype=dtype, device=dev) for n in (Nq, Nk)]
 
 
+# The wide forward's shared memory and ring (csrc/flash_wide_sm90.cu: the
+# same formula in ``smem_bytes``, which checks the plan it is handed).
+WIDE_SMEM_LIMIT = 232448      # a CTA's shared memory on the H100
+WIDE_MAX_STAGES = {torch.bfloat16: 8, torch.float32: 16}
+WIDE_BOX = {torch.bfloat16: 64, torch.float32: 32}   # lanes per box
+# Split-KV: past WIDE_SPLIT_AFTER key tiles of 64 a row tile's keys are
+# cut into runs of WIDE_SPLIT_TILES (fixed in key space, so a row's sums
+# depend on Nk alone) walked by CTAs of their own and merged in order.
+WIDE_SPLIT_AFTER = 16
+WIDE_SPLIT_TILES = 8
+
+
+class WidePlan(collections.namedtuple("WidePlan", (
+        "box", "nb", "nbw", "per_cta", "groups", "rows", "warps", "stages",
+        "qres", "smem", "splits", "split_tiles", "o_registers",
+        "recompute"))):
+    """The wide forward's cut of a head dim P (``wide_plan``): ``nb``
+    boxes of ``box`` lanes, slices of ``nbw`` boxes (the last short or
+    empty), ``per_cta`` slices a CTA (bf16: its warpgroups; f32: its lane
+    slices), ``groups`` CTAs along the lanes of one row tile of ``rows``
+    rows and ``warps`` warps, ``stages`` ring slots, Q resident
+    (``qres``), ``smem`` shared bytes, ``splits`` runs of ``split_tiles``
+    key tiles (split-KV); ``o_registers`` of O a thread and the number of
+    times S is formed per row tile and key tile (``recompute``)."""
+
+    def slices(self) -> list:
+        """[(CTA along the lanes, slice in the CTA, first lane, lanes)]
+        of every non-empty slice."""
+        out = []
+        for z in range(self.groups):
+            for w in range(self.per_cta):
+                b0 = (z * self.per_cta + w) * self.nbw
+                n = max(0, min(self.nbw, self.nb - b0))
+                if n:
+                    out.append((z, w, b0 * self.box, n * self.box))
+        return out
+
+    def kernel_args(self):
+        """The (nb, nbw, per_cta, groups, stages, qres, rows, smem, splits,
+        split_tiles) array ``p3_wide_fwd`` takes."""
+        return (ctypes.c_int * 10)(self.nb, self.nbw, self.per_cta,
+                                   self.groups, self.stages, int(self.qres),
+                                   self.rows, self.smem, self.splits,
+                                   self.split_tiles)
+
+
+def wide_plan(P: int, dtype, masked: bool = False,
+              Nk: int | None = None) -> WidePlan:
+    """How the wide forward cuts a head dim P (a multiple of 64 above 128)
+    in ``dtype`` against ``Nk`` keys (None: one run); the same for K3
+    (``masked``: whose whole blocks of the CTA's rows x 64 keys are
+    skipped) and K4.  Only the split-KV runs (``WIDE_SPLIT_TILES``, fixed
+    by Nk) change a row's arithmetic.  bf16: ceil(P / 256) slices of at
+    most four 64-lane boxes (128 registers of O a thread), each a
+    warpgroup of a 64-row CTA, two a CTA sharing one S; Q resident while
+    its boxes fit beside four ring slots.  f32: a CTA of 48 rows (K4) or 32
+    (K3) holds four slices of at most four 32-lane boxes (64 registers of
+    O a warp's thread), so ceil(P / 512) CTAs along the lanes, each
+    forming S."""
+    if P % 64 or P <= HEAD_DIMS[-1]:
+        raise ValueError(f"wide_plan: P = {P} is not a multiple of 64 "
+                         f"above {HEAD_DIMS[-1]}")
+    box = WIDE_BOX[dtype]
+    nb = P // box
+    if dtype == torch.bfloat16:
+        slices = -(-nb // 4)
+        nbw = -(-nb // slices)
+        per_cta = min(slices, 2)
+        groups = -(-slices // per_cta)
+        rows, warps = 64, 4 * per_cta
+        most = WIDE_MAX_STAGES[dtype]
+        bars = 8 * (1 + 2 * most)
+        # two warpgroups share S: two P tiles and their row exchange
+        pair = 2 * 8192 + 2048 if per_cta == 2 else 0
+        room = WIDE_SMEM_LIMIT - 1024 - bars - pair
+        qres = nb * 8192 + 4 * 8192 <= room
+        stages = min(most, (room - (nb * 8192 if qres else 0)) // 8192)
+        smem = (1024 + ((nb if qres else 0) + stages) * 8192 + pair
+                + 8 * (1 + 2 * stages))
+        o_regs, recompute = 32 * nbw, groups
+    else:
+        per_cta = 4
+        groups = -(-nb // 16)
+        nbw = -(-nb // (per_cta * groups))
+        # K4 48-row CTAs (12 warps: more to hide the products' latency,
+        # fewer reads of k and v a query); K3 32 (its grids are small)
+        rows = 32 if masked else 48
+        warps = rows // 4
+        slot = 2 * rows * 128 + 2 * 8192  # q and k hi/lo boxes
+        logits = 2 * rows * 72 * 4
+        most = WIDE_MAX_STAGES[dtype]
+        bars = 8 * (1 + 2 * most)
+        stages = min(most, (WIDE_SMEM_LIMIT - 1024 - logits - bars) // slot)
+        qres = False
+        smem = 1024 + logits + stages * slot + 8 * (1 + 2 * stages)
+        o_regs, recompute = 16 * nbw, groups
+    nt = 1 if Nk is None else -(-Nk // KEY_TILE_WIDE)
+    splits = -(-nt // WIDE_SPLIT_TILES) if nt > WIDE_SPLIT_AFTER else 1
+    return WidePlan(box, nb, nbw, per_cta, groups, rows, warps, stages,
+                    qres, smem, splits, WIDE_SPLIT_TILES, o_regs, recompute)
+
+
 def wide_fwd(what, q, k, v, scale, with_lse=False, bias=None, kv_valid=None,
              rope=None, blocked=None):
-    """The wide-head engine's forward (``csrc/flash_wide_sm90.cu``'s
-    ``p3_wide_fwd``) at a head dim that is a multiple of 64 above 128: K4
-    with ``flash_mha``'s options, or K3 with the (B, Nq, Nk) ``blocked``
-    mask.  ``scale`` None: P^-0.5.  Returns (out (B, H, Nq, P)
-    contiguous, lse or None)."""
+    """The wide-head forward (``csrc/flash_wide_sm90.cu``'s
+    ``p3_wide_fwd``: bf16 on wgmma, f32 on 3xTF32, cut by ``wide_plan``)
+    at a head dim that is a multiple of 64 above 128: K4 with
+    ``flash_mha``'s options, or K3 with the (B, Nq, Nk) ``blocked`` mask.
+    ``scale`` None: P^-0.5.  Returns (out (B, H, Nq, P) contiguous, lse or
+    None)."""
     _check_qkv(what, q, k, v, wide=True)
     B, H, Nq, P = q.shape
     Nk = k.shape[2]
@@ -367,23 +483,45 @@ def wide_fwd(what, q, k, v, scale, with_lse=False, bias=None, kv_valid=None,
     if scale is None:
         scale = P ** -0.5
     bias, bstr, row, tabs = _wide_extras(what, q, k, bias, kv_valid, rope)
+    plan = wide_plan(P, q.dtype, blocked is not None, Nk)
+    nt = -(-Nk // KEY_TILE_WIDE)
     mask = None
     if blocked is not None:
         cuda_build.check_tensor(blocked, "blocked", (B, Nq, Nk), torch.bool,
                                 dev)
         mask = blocked.view(torch.uint8)
-    q, k, v = (t.contiguous() for t in (q, k, v))
+    lists = B * -(-Nq // plan.rows) if mask is not None else B
+    tiles = torch.empty(lists * (nt + 1), dtype=torch.int32, device=dev)
+    # tensor maps and 16-byte accesses: contiguous, 16-byte aligned bases
+    q, k, v, *tabs = (None if t is None else _dense16(t)
+                      for t in (q, k, v, *tabs))
     out = torch.empty((B, H, Nq, P), dtype=q.dtype, device=dev)
     lse = (torch.empty((B, H, Nq), dtype=torch.float32, device=dev)
            if with_lse else None)
+    # one f32 workspace (the calls are short: each allocation is host
+    # time): the hi and lo planes of q, k and v (f32), K4's key row padded
+    # to whole tiles, the split-KV runs' O and their m, l
+    f32 = q.dtype == torch.float32
+    sizes = ([B * H * n * P for n in (Nq, Nq, Nk, Nk, Nk, Nk)] if f32
+             else [0] * 6)
+    runs = plan.splits if plan.splits > 1 else 0
+    sizes += [0 if mask is not None else B * nt * KEY_TILE_WIDE,
+              runs * B * H * Nq * P, runs * B * H * Nq * 2]
+    ws = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
+    views = [v_ if n else None for v_, n in zip(torch.split(ws, sizes), sizes)]
+    scratch = views[:6] if f32 else \
+        _wide_rotated(rope, B, H, Nq, Nk, P, q.dtype, dev) + [None] * 4
+    bl, part, ml = views[6:]
     p, i32, ptr = ctypes.c_void_p, ctypes.c_int, cuda_build.ptr
     lib, fn = cuda_build.function(
         "flash_wide_sm90", "p3_wide_fwd",
-        [p] * 13 + [i32, p, p] + [i32] * 5 + [ctypes.c_float, i32, p])
-    err = fn(ptr(q), ptr(k), ptr(v), *map(ptr, tabs),
-             *map(ptr, _wide_rotated(rope, B, H, Nq, Nk, P, q.dtype, dev)),
-             ptr(bias), bstr, ptr(row), ptr(mask), Nk, ptr(out), ptr(lse), B,
-             H, Nq, Nk, P, float(scale), int(q.dtype != torch.float32),
+        [p] * 17 + [i32] + [p] * 7 + [i32] * 5
+        + [ctypes.c_float, i32, p, p])
+    err = fn(ptr(q), ptr(k), ptr(v), *map(ptr, tabs), *map(ptr, scratch),
+             ptr(bias), bstr, ptr(row), ptr(mask), Nk, ptr(bl),
+             ptr(tiles), ptr(tiles[lists * nt:]), ptr(part), ptr(ml),
+             ptr(out), ptr(lse), B, H, Nq, Nk, P, float(scale),
+             int(q.dtype != torch.float32), plan.kernel_args(),
              cuda_build.stream_of(q))
     cuda_build.check(lib, err, f"{what} (wide)")
     return out, lse

@@ -20,9 +20,10 @@ The kernels are built for head dims 96 (the v1 mask transformer's) and
 next of them inside the kernel wrapper, as the Pallas kernel pads D to
 its lane width (q, k and v gain zero lanes, out is sliced back; the
 scale and the FLOP declaration stay at the true D).  A D above 128 is
-padded to a multiple of 64 and runs the wide-head engine
-(``csrc/flash_wide_sm90.cu``, f32 and bf16: the same semantics, key
-tiles of 64 whose whole 64 x 64 block is blocked skipped).
+padded to a multiple of 64 and runs the wide-head forward
+(``csrc/flash_wide_sm90.cu``, ``flash_attention.wide_fwd``; f32 and bf16:
+the same semantics, a pre-pass listing each row tile's live key tiles of
+64, so that a key tile whose whole block is blocked is skipped).
 
 On a CPU tensor ``masked_mha`` runs ``masked_mha_ref`` (same semantics: p
 rounded to the v dtype before both sums, fully blocked rows → 0); on a

@@ -634,7 +634,9 @@ def test_flash_unsupported_inputs_raise(dev):
 
 # head dims on the wide-head engine (csrc/flash_wide_sm90.cu): padded to
 # multiples of 64 (136 -> 192 per RoPE quarter, 200 -> 256) and as built
-WIDE_DIMS = [136, 200, 256, 384]
+# (192: one bf16 warpgroup of three boxes; 384 and 512: two warpgroups a
+# CTA, f32 three and four boxes a lane slice)
+WIDE_DIMS = [136, 192, 200, 256, 384, 512]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -671,12 +673,15 @@ def test_flash_wide_kernels(dev, dtype, D, case):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_wide_k5_repeats_bit_for_bit(dev, dtype):
+@pytest.mark.parametrize("D", [256, 384])
+def test_flash_wide_k5_repeats_bit_for_bit(dev, dtype, D):
     """The wide-head K5 adds in a fixed order (no atomics): two calls on
     the same inputs give the same bits, with RoPE tables and a dense
-    bias, at D = 256 over several key and query tiles."""
+    bias, over several key and query tiles; at D = 384 the forward's
+    output comes from two bf16 warpgroups (four f32 lane slices) and its
+    LSE, which K5 reads, from the first."""
     g = torch.Generator(device=dev).manual_seed(11)
-    q, k, v, _, _, rope = _flash_inputs(g, dev, dtype, "rope", 256, Nq=700,
+    q, k, v, _, _, rope = _flash_inputs(g, dev, dtype, "rope", D, Nq=700,
                                         Nk=900)
     bias = torch.randn(2, 3, 700, 900, generator=g, device=dev)
     kw = dict(bias=bias, rope=rope)
@@ -686,29 +691,97 @@ def test_flash_wide_k5_repeats_bit_for_bit(dev, dtype):
     again = fa.flash_mha_bwd(q, k, v, o, lse, do, **kw)
     assert all(torch.equal(a, b) for a, b in zip(first, again))
     assert torch.equal(o, fa.flash_mha(q, k, v, **kw))
+    o2, lse2 = fa.flash_mha(q, k, v, with_lse=True, **kw)
+    assert torch.equal(lse, lse2)
+    # the forward's out and LSE feed K5 as the plain ones would
+    plain = fa.flash_mha_bwd_ref(q, k, v, o, lse, do, **kw)
+    exact = fa.flash_mha_bwd_ref(*_f32((q, k, v, o)), lse, _f32(do), **kw)
+    check = chip_smoke._grad_check(first, plain, exact, dtype)
+    assert all(c["ok"] and c["finite"] for c in check.values()), check
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_wide_fully_masked_rows(dev, dtype):
-    """D = 256: K3 writes 0 for fully blocked rows, also across whole
-    blocked key tiles it skips, and K4 for rows whose keys are all
-    invalid; both against their plain versions."""
+@pytest.mark.parametrize("D", [256, 384, 512])
+def test_wide_fully_masked_rows(dev, dtype, D):
+    """K3 writes 0 for fully blocked rows, also across whole blocked key
+    tiles it skips and for a row tile whose every key tile is skipped,
+    and K4 for rows whose keys are all invalid; both against their plain
+    versions (D = 384 and 512: two bf16 warpgroups, four f32 slices)."""
     g = torch.Generator(device=dev).manual_seed(12)
-    q = _rnd(g, dev, dtype, 2, 3, 200, 256, s=QK_STD)
-    k = _rnd(g, dev, dtype, 2, 3, 700, 256, s=QK_STD)
-    v = _rnd(g, dev, dtype, 2, 3, 700, 256)
+    q = _rnd(g, dev, dtype, 2, 3, 200, D, s=QK_STD)
+    k = _rnd(g, dev, dtype, 2, 3, 700, D, s=QK_STD)
+    v = _rnd(g, dev, dtype, 2, 3, 700, D)
     blocked = torch.rand(2, 200, 700, generator=g, device=dev) > 0.1
     blocked[:, :, 64:448] = True                # whole blocked key tiles
     blocked[0, 5] = True
-    blocked[1, 150:200] = True
+    blocked[1, 128:200] = True                  # whole row tiles
     out = ma.masked_mha(q, k, v, blocked)
     _close(out, ma.masked_mha_ref, q, k, v, blocked)
-    assert (out[0, :, 5] == 0).all() and (out[1, :, 150:] == 0).all()
+    assert (out[0, :, 5] == 0).all() and (out[1, :, 128:] == 0).all()
     valid = torch.ones(2, 700, dtype=torch.bool, device=dev)
     valid[1] = False
     o, lse = fa.flash_mha(q, k, v, kv_valid=valid, with_lse=True)
     _close(o, lambda *a: fa.flash_mha_ref(*a, kv_valid=valid), q, k, v)
     assert (o[1] == 0).all() and (lse[1] == NEG).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [576, 1088, 1600])
+def test_wide_plan_cuts(dev, dtype, D):
+    """Head dims past one CTA's lanes (``wide_plan``): bf16 576 three
+    slices over two CTAs, the second with one warpgroup, 1088 five, 1600
+    with Q streamed beside K (25 boxes: no room to keep it); f32 two, three
+    and four CTAs along the lanes, a short or empty last slice.  K4 with
+    its LSE and a key row, K3 with a mask, against the plain versions."""
+    plan = fa.wide_plan(D, dtype)
+    assert plan.groups > 1 and plan.recompute <= -(-D // 256)
+    assert plan.qres == (dtype == torch.bfloat16 and D != 1600)
+    g = torch.Generator(device=dev).manual_seed(D)
+    q = _rnd(g, dev, dtype, 1, 2, 150, D, s=QK_STD)
+    k = _rnd(g, dev, dtype, 1, 2, 333, D, s=QK_STD)
+    v = _rnd(g, dev, dtype, 1, 2, 333, D)
+    valid = torch.rand(1, 333, generator=g, device=dev) > 0.2
+    out, lse = fa.flash_mha(q, k, v, kv_valid=valid, with_lse=True)
+    _close(out, lambda *a: fa.flash_mha_ref(*a, kv_valid=valid), q, k, v)
+    ref_lse = fa.flash_mha_ref(q, k, v, kv_valid=valid, with_lse=True)[1]
+    assert (lse - ref_lse).abs().max().item() \
+        <= 1e-4 * (1 + ref_lse.abs().max().item())
+    blocked = torch.rand(1, 150, 333, generator=g, device=dev) > 0.3
+    _close(ma.masked_mha(q, k, v, blocked), ma.masked_mha_ref, q, k, v,
+           blocked)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [256, 384])
+def test_wide_split_kv(dev, dtype, D):
+    """Past ``WIDE_SPLIT_AFTER`` key tiles the wide forward walks runs of
+    ``WIDE_SPLIT_TILES`` in CTAs of their own and merges them in order
+    (``wide_merge``):
+    K4 with tables, a key row and its LSE, and K3 with rows blocked in one
+    run only, in every run (out 0) and with a whole run blocked for a row
+    tile, against the plain versions; two calls give the same bits."""
+    Nk = 2500
+    assert fa.wide_plan(D, dtype, False, Nk).splits == 5
+    g = torch.Generator(device=dev).manual_seed(D + 3)
+    q, k, v, _, _, rope = _flash_inputs(g, dev, dtype, "rope", D, Nq=150,
+                                        Nk=Nk)
+    valid = torch.rand(2, Nk, generator=g, device=dev) > 0.2
+    valid[1, :1100] = False                     # runs without live keys
+    kw = dict(kv_valid=valid, rope=rope)
+    out, lse = fa.flash_mha(q, k, v, with_lse=True, **kw)
+    _close(out, lambda *a: fa.flash_mha_ref(*a, **kw), q, k, v)
+    ref_lse = fa.flash_mha_ref(q, k, v, with_lse=True, **kw)[1]
+    assert (lse - ref_lse).abs().max().item() \
+        <= 1e-4 * (1 + ref_lse.abs().max().item())
+    assert torch.equal(out, fa.flash_mha(q, k, v, **kw))
+    blocked = torch.rand(2, 150, Nk, generator=g, device=dev) > 0.3
+    blocked[0, :64, 1024:2048] = True           # runs, for a row tile
+    blocked[0, 70] = True                       # every run
+    blocked[1, 3, :2048] = True                 # live in the last run only
+    got = ma.masked_mha(q, k, v, blocked)
+    _close(got, ma.masked_mha_ref, q, k, v, blocked)
+    assert (got[0, :, 70] == 0).all()
+    assert torch.equal(got, ma.masked_mha(q, k, v, blocked))
 
 
 def test_image_cast_matches_cpu_bit_for_bit(dev):

@@ -30,7 +30,7 @@ from panst3r_tpu.models import presets as j_presets
 from panst3r_tpu.models.panst3r import PanSt3R as JPanSt3R
 from tests.test_torch_criterion import jax_draws
 from tests.test_torch_models import random_params
-from tests.test_torch_v2 import _port
+from tests.test_torch_v2 import _f64, _port
 from tests.torch_release import release_memory  # noqa: F401
 
 H, W, V, NCLS, T = 32, 48, 2, 5, 4
@@ -276,6 +276,73 @@ def test_train_step_matches_jax():
                                    atol=1e-3 * tcfg.lr, err_msg=n)
         changed += int(big.any())
     assert changed > 10
+
+
+def test_v2_train_step_f64_matches_jax(monkeypatch):
+    """One tiny_v2 train step in f64 on both sides (``jax.enable_x64`` and
+    torch.float64; the random draws made under x64, as the JAX step makes
+    them), LoftUp at the preset's Fourier range (up to e^10), against
+    ``make_train_step``: the loss and every head gradient within
+    ``test_train_step_matches_jax``'s limit.  In f32 one rounding of a
+    coordinate moves a phase by ~3e-3 and the gradients miss that limit
+    many times over (tests/test_torch_wide_heads.py); in f64 they hold it,
+    so the f32 misses are rounding, not a fault of the port.  (Under x64
+    the JAX memory's ``dynamic_update_slice`` would mix int64 offsets with
+    its int32 count: the offsets go in as int32 here.)"""
+    dus = jax.lax.dynamic_update_slice
+    monkeypatch.setattr(jax.lax, "dynamic_update_slice", lambda x, u, idx: dus(
+        x, u, tuple(jnp.asarray(i, jnp.int32) for i in idx)))
+    jm = JPanSt3R(j_presets.tiny_v2_config())
+    batch, cls = _batch(2)
+    params = _f64(random_params(jax.eval_shape(lambda: jm.init(
+        jax.random.PRNGKey(0), jnp.asarray(batch["images"]),
+        jnp.asarray(batch["portrait"]), jnp.asarray(cls), GRID))))
+    tcfg = t_presets.tiny_v2_config()
+    assert tcfg.panoptic.upscaler.n_freqs > 1
+    kw = dict(lr=1e-3, accum_iter=1, epochs=2, warmup_epochs=0)
+    jcfg = j_train.TrainConfig(**kw, loss=j_crit.PanopticLossConfig(**LOSS))
+    cfg = t_train.TrainConfig(**kw, loss=t_crit.PanopticLossConfig(**LOSS))
+    key = jax.random.PRNGKey(4)
+    levels = 1 + tcfg.panoptic.mask_transformer.dec_layers
+    with jax.enable_x64():
+        draws = jax_draws(key, cfg.loss, levels, 2 * T * V)
+        jp = jax.tree_util.tree_map(jnp.asarray, params)
+        tmask = j_train.trainable_mask(jp)
+        tx, _ = j_train.build_optimizer(jcfg, 1, 4, trainable_mask=tmask)
+        stash = optax.GradientTransformation(  # keeps the gradients it gets
+            lambda p: jax.tree_util.tree_map(jnp.zeros_like, p),
+            lambda g, _, p=None: (g, g))
+        tx = optax.chain(stash, tx)
+        jstep = j_train.make_train_step(jm, tx, jcfg.loss, GRID,
+                                        donate=False, train_mask=tmask)
+        jb = _jbatch(batch)
+        jb["images"] = jb["images"].astype(jnp.float64)
+        state, jl, _ = jstep(j_train.TrainState.create(jp, tx), jb,
+                             jnp.asarray(cls, jnp.float64), key)
+        jgrads = _flat(state.opt_state[0])
+        jl = float(jl)
+
+    tm = _port(lambda: TPanSt3R(tcfg), params, torch.float64)
+    mask = t_train.trainable_mask(tm)
+    opt = chip_smoke._recording(t_train.Optimizer)(
+        {n: p for n, p in tm.named_parameters() if mask[n]}, cfg, 1, 4)
+    step = t_train.make_train_step(tm, opt, cfg.loss, GRID)
+    tb = t_train.batch_to(batch, "cpu")
+    tb["images"] = tb["images"].double()
+    loss, _ = step(tb, _t(np.asarray(cls, np.float64)), draws=[
+        {k: tuple(x.double() for x in v) if isinstance(v, tuple)
+         else v.double() for k, v in d.items()} for d in draws])
+    np.testing.assert_allclose(float(loss), jl, rtol=1e-5)
+    name_of = {tuple(n.split(".")): n for n, _ in tm.named_parameters()}
+    want = {_torch_name(p, name_of): _to_torch_layout(p, g)
+            for p, g in jgrads.items() if p[0] == "panoptic_decoder"}
+    assert set(want) == set(opt.grads) and len(want) > 10
+    assert any("upscaler.fourier" in n for n in want)
+    for n, jg in want.items():
+        g = opt.grads[n].numpy()
+        assert g.dtype == np.float64, n
+        np.testing.assert_allclose(g, jg, atol=1e-4 * float(np.abs(jg).max())
+                                   + 1e-6, err_msg=n)
 
 
 def _torch_name(path, name_of):

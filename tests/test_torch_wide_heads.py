@@ -185,6 +185,47 @@ def test_wide_k4_k5_k3_match_pallas(plain_wide):
     assert plain_wide == {"fwd": [256], "bwd": [256], "masked": [256]}
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("masked", [False, True])
+def test_wide_plan_covers_every_head_dim(dtype, masked):
+    """``wide_plan`` at every P multiple of 64 from 192 to 1024 (and on to
+    4096: no P is refused): its slices cover the P output lanes once, a
+    CTA fits 232,448 bytes of shared memory, O stays within 128 registers
+    a thread (bf16: a warpgroup's 64 x 256 lanes) or 64 (f32: a warp's 16
+    x 128), and S is formed at most ceil(P / 256) times per row tile and
+    key tile (once per CTA); bf16 keeps Q resident up to 1024."""
+    bf16 = dtype == torch.bfloat16
+    for P in range(192, 4097, 64):
+        plan = t_fa.wide_plan(P, dtype, masked)
+        cover = np.zeros(P, np.int64)
+        for z, w, lane0, n in plan.slices():
+            assert z < plan.groups and w < plan.per_cta and n > 0
+            cover[lane0:lane0 + n] += 1
+        assert (cover == 1).all(), P
+        assert plan.nb * plan.box == P
+        assert plan.smem <= 232448 and 2 <= plan.stages <= 16, P
+        # O's rows x the slice's lanes over the threads that hold them
+        assert plan.o_registers == plan.nbw * plan.box // 2
+        assert plan.o_registers <= (128 if bf16 else 64), P
+        assert plan.recompute <= -(-P // 256), P
+        assert plan.warps * 32 <= (256 if bf16 else 512)
+        # S formed once per CTA: the CTAs along the lanes
+        assert plan.recompute == plan.groups
+        if bf16:
+            assert plan.rows == 64 and plan.per_cta <= 2 and plan.nbw >= 3
+            if P <= 1024:
+                assert plan.qres
+        else:
+            assert not plan.qres and plan.per_cta == 4 and plan.nbw >= 2
+    # split-KV runs of 8 key tiles past 16, fixed by Nk alone
+    for Nk, splits in ((1, 1), (768, 1), (1024, 1), (1025, 3), (3072, 6),
+                       (3840, 8)):
+        assert t_fa.wide_plan(384, dtype, masked, Nk).splits == splits, Nk
+    for bad in (128, 200, 64):
+        with pytest.raises(ValueError):
+            t_fa.wide_plan(bad, dtype, masked)
+
+
 # one head each: the mixer at D = 136 (RoPE tables, padded per quarter to
 # 192), LoftUp at 192, the mask transformer at 200 (padded to 256)
 WIDE_MIXER, WIDE_LOFTUP, WIDE_MASK = 136, 192, 200
